@@ -1,0 +1,19 @@
+"""Device resolution for the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names one.
+
+    Raises when CUDA is asked for (explicitly or by default) and no GPU is
+    present: a run meant for the card never carries on on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but no CUDA GPU is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return dev

@@ -1,0 +1,106 @@
+"""The port stands alone: no JAX, no module of the JAX package, and a run
+meant for the card never carries on on the CPU."""
+
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+from katib_tpu_torch.device import resolve_device
+
+# tier-1 runs six test processes on the same cores: one torch thread each
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "katib_tpu_torch"
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "katib_tpu")
+
+
+def _imported_modules(path: Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module)
+    return names
+
+
+def _banned(name: str) -> bool:
+    # exact names: katib_tpu_torch starts with "katib_tpu" but is not it
+    return any(name == b or name.startswith(b + ".") for b in BANNED)
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_no_jax_or_katib_tpu_imports(path):
+    bad = sorted(n for n in _imported_modules(path) if _banned(n))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_banned_check_compares_module_names_exactly():
+    assert _banned("katib_tpu") and _banned("katib_tpu.ops") and _banned("jax.numpy")
+    assert not _banned("katib_tpu_torch") and not _banned("katib_tpu_torch.ops")
+    assert not _banned("jaxtyping")
+
+
+def test_port_imports_and_steps_with_jax_and_katib_tpu_blocked():
+    script = textwrap.dedent(f"""
+        import sys
+        for name in {BANNED!r}:
+            sys.modules[name] = None
+        import importlib, pkgutil
+        import katib_tpu_torch
+        for mod in pkgutil.walk_packages(katib_tpu_torch.__path__, "katib_tpu_torch."):
+            importlib.import_module(mod.name)
+        import torch
+        from katib_tpu_torch.nas.darts.architect import DartsHyper, init_search_state, make_search_step
+        from katib_tpu_torch.nas.darts.model import DartsNetwork, init_alphas
+        from katib_tpu_torch.parallel.train import cross_entropy_loss
+        net = DartsNetwork(primitives=("skip_connection", "max_pooling_3x3"), init_channels=2,
+                           num_layers=3, n_nodes=1, num_classes=3, dtype=torch.float32)
+        gen = torch.Generator().manual_seed(0)
+        net.reset_parameters(gen)
+        loss = lambda w, a, b: cross_entropy_loss(torch.func.functional_call(net, w, (b[0], a)), b[1])
+        hyper = DartsHyper(total_steps=1)
+        state = init_search_state(dict(net.named_parameters()), init_alphas(1, 2, gen), hyper)
+        batch = (torch.randn(2, 8, 8, 3, generator=gen), torch.tensor([0, 2]))
+        state, metrics = make_search_step(loss, hyper)(state, batch, batch)
+        assert state.step == 1 and bool(torch.isfinite(metrics["train_loss"]))
+        leaked = sorted(n for n in sys.modules if n.split(".")[0] in {BANNED!r} and sys.modules[n])
+        assert not leaked, leaked
+        print("ok")
+    """)
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"},
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_cuda_is_refused_where_there_is_none(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for asked in (None, "cuda", "cuda:0", torch.device("cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            resolve_device(asked)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
