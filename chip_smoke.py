@@ -8,14 +8,18 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 2. build every CUDA kernel of the port from the sources in this checkout
    (one ``nvcc`` per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, forward and gradient;
+   shapes the main paths give it, forward and gradient;
 4. time each kernel, its plain version and the one PyTorch call that
    computes the same function, beside the least time the card could take;
-5. drive the main path: ``darts_trial`` through ``TrialContext`` at the DARTS
-   search width (8 cells, 16 channels, 4 nodes, the 8 default primitives,
-   batch 64, bf16), with each kernel's launch count set to 0 just before
-   and read just after; then a small f32 supernet on the card against the
-   same weights on the CPU.
+5. drive the first main path: ``darts_trial`` through ``TrialContext`` at
+   the DARTS search width (8 cells, 16 channels, 4 nodes, the 8 default
+   primitives, batch 64, bf16), with the mixed-op launch count set to 0 just
+   before and read just after; then a small f32 supernet on the card
+   against the same weights on the CPU;
+6. drive the second main path: ``transformer_trial`` at the long-context
+   width (vocab 256, d_model 512, 8 heads, 4 layers, seq 4096, batch 4,
+   bf16) for 10 steps, with the three flash-attention launch counts set to
+   0 just before and read just after.
 
 Its last three lines are the ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -25,6 +29,7 @@ and exits nonzero without printing a result when either is missing.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -36,6 +41,17 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+
+TRANSFORMER_STEPS = 10  # steps of the transformer main path
+
+def long_context() -> tuple[dict, tuple[int, int, int, int]]:
+    """The transformer main path's ``transformer_trial`` parameters (the
+    repo's long-context configuration) and its attention's shape
+    ``[batch, heads, seq, d_head]``, bf16, causal."""
+    from katib_tpu_torch.models.transformer import LONG_CONTEXT as c
+
+    return c, (c["batch_size"], c["n_heads"], c["seq_len"], c["d_model"] // c["n_heads"])
 
 
 def check(cond: bool, msg: str) -> None:
@@ -80,15 +96,41 @@ def cuda_ms(fn, launches: int = 20, reps: int = 21) -> float:
     return statistics.median(times)
 
 
-def bf16_within_one_ulp(got, want) -> bool:
-    """``|got - want| <= one bf16 spacing at want`` element-wise."""
+def event_ms(fn, iters: int = 5, reps: int = 5) -> float:
+    """Device time of one ``fn()`` in ms for calls that autograd or large
+    temporaries keep out of a CUDA graph: ``iters`` calls between CUDA
+    events, the median of ``reps`` such runs divided by ``iters``.  At the
+    millisecond scale of these calls the host enqueues ahead of the card."""
     import torch
 
-    want32 = want.float()
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def bf16_spacing(want32):
+    """One bf16 spacing (8 significant bits) at each float32 value of
+    ``want32``, at least bf16's smallest normal."""
+    import torch
+
     _, exp = torch.frexp(want32)
-    spacing = torch.ldexp(torch.ones_like(want32), exp - 8)  # 8 significant bits
-    spacing = torch.clamp(spacing, min=torch.finfo(torch.bfloat16).tiny)
-    return bool(((got.float() - want32).abs() <= spacing).all())
+    spacing = torch.ldexp(torch.ones_like(want32), exp - 8)
+    return torch.clamp(spacing, min=torch.finfo(torch.bfloat16).tiny)
+
+
+def bf16_within_one_ulp(got, want) -> bool:
+    """``|got - want| <= one bf16 spacing at want`` element-wise."""
+    want32 = want.float()
+    return bool(((got.float() - want32).abs() <= bf16_spacing(want32)).all())
 
 
 def phase_kernel_parity(torch, mixed_op) -> float:
@@ -132,6 +174,151 @@ def phase_kernel_parity(torch, mixed_op) -> float:
         print(f"grad parity {dtype}: dw rel {dw_err:.3e}  dx abs {dx_err:.3e}", flush=True)
         check(dw_err <= 1e-5 and dx_err <= atol, f"mixed_op_sum gradient disagrees ({dtype})")
     return worst
+
+
+def flash_close(got, want, mask_value: float) -> tuple[bool, float]:
+    """Kernel output against its plain version's float32 value on the same
+    inputs.  Entries where the plain value is ``mask_value`` (the lse of a
+    row that sees no key) must be exactly that; the others, with ``top``
+    their largest magnitude: float32 within 1e-5 of max(1, top), as the two
+    differ only in summation order and exp's last bits; bfloat16 within one
+    bf16 spacing at the plain value (the kernel rounds its float32 result
+    once, half a spacing) plus 1e-5 of top for the same float32 noise where
+    sums cancel.  Returns (ok, max abs error over the visible entries)."""
+    import torch
+
+    want32, got32 = want.float(), got.float()
+    masked = want32 <= mask_value / 2
+    if not bool((got32[masked] == want32[masked]).all()):
+        return False, math.inf
+    diff = torch.where(masked, 0.0, (got32 - want32).abs())
+    err = float(diff.max())
+    top = float(torch.where(masked, 0.0, want32.abs()).max())
+    if got.dtype == torch.float32:
+        return err <= 1e-5 * max(1.0, top), err
+    return bool((diff <= bf16_spacing(want32) + 1e-5 * top).all()), err
+
+
+def phase_flash_parity(torch, fa) -> dict[str, float]:
+    """Each flash kernel against its plain version on the same inputs
+    (forward: o and lse; dq and dk/dv from the kernel's own lse and a dmd
+    with a nonzero lse cotangent), then the kernels through autograd
+    against autograd of the plain forward.  Returns each kernel's largest
+    error."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = [(2, 4, 1024, 1024, 64), (2, 4, 512, 1024, 32), (2, 4, 1000, 300, 64),
+              (1, 2, 77, 77, 32), (1, 2, 256, 192, 128)]
+    cases = [(causal, dtype, shape) for shape in shapes for causal in (True, False)
+             for dtype in (f32, bf16)]
+    b, h, s, d = long_context()[1]
+    cases.append((True, bf16, (b, h, s, s, d)))  # the main path's own
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for causal, dtype, (b, h, sq, sk, d) in cases:
+        q = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(dtype)
+        k, v = (torch.randn(b, h, sk, d, device="cuda", generator=gen).to(dtype) for _ in range(2))
+        do = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(dtype)
+        dlse = torch.randn(b, h, sq, device="cuda", generator=gen)
+        scale = d ** -0.5
+        o, lse = fa.launch_fwd(q, k, v, causal, scale)
+        dmd = ((do.float() * o.float()).sum(-1) - dlse).contiguous()
+        dq = fa.launch_dq(q, k, v, do, lse, dmd, causal, scale)
+        dk, dv = fa.launch_dkv(q, k, v, do, lse, dmd, causal, scale)
+        torch.cuda.synchronize()
+        check(o.dtype == dtype and lse.shape == (b, h, sq) and dk.dtype == dtype,
+              "flash output shapes and dtypes")
+        x32 = [t.float() for t in (q, k, v, do)]
+        o_ref, lse_ref = fa.reference_attention_with_lse(*x32[:3], causal, scale)
+        close = functools.partial(flash_close, mask_value=fa.MASK_VALUE)
+        results = {"o": close(o, o_ref), "lse": close(lse, lse_ref),
+                   "dq": close(dq, fa.reference_attention_dq(*x32, lse, dmd, causal, scale))}
+        dk_ref, dv_ref = fa.reference_attention_dkv(*x32, lse, dmd, causal, scale)
+        results["dk"], results["dv"] = close(dk, dk_ref), close(dv, dv_ref)
+        if causal and sq > sk:  # the first sq - sk rows see no key
+            check(bool((o[:, :, : sq - sk] == 0).all())
+                  and bool((lse[:, :, : sq - sk] == fa.MASK_VALUE).all()),
+                  f"fully masked rows must give o 0 and lse {fa.MASK_VALUE} ({dtype})")
+        worst["fwd"] = max(worst["fwd"], results["o"][1], results["lse"][1])
+        worst["dq"] = max(worst["dq"], results["dq"][1])
+        worst["dkv"] = max(worst["dkv"], results["dk"][1], results["dv"][1])
+        ok = all(r[0] for r in results.values())
+        print(f"flash parity {str(dtype):14s} causal={causal!s:5} B={b} H={h} Sq={sq} Sk={sk} "
+              f"D={d}: " + " ".join(f"{n} {e:.2e}" for n, (_, e) in results.items())
+              + f" {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"flash kernels disagree with their plain versions ({dtype}, causal={causal}, "
+                  f"{(b, h, sq, sk, d)}): {results}")
+        del o_ref, dk_ref, dv_ref, results
+    # through autograd, with an lse cotangent, against autograd of the plain forward
+    for causal, (b, h, sq, sk, d) in [(True, (2, 4, 512, 1024, 32)), (True, (1, 2, 384, 256, 64)),
+                                      (False, (2, 2, 256, 256, 64))]:
+        x = [torch.randn(b, h, n, d, device="cuda", generator=gen) for n in (sq, sk, sk)]
+        do = torch.randn(b, h, sq, d, device="cuda", generator=gen)
+        dlse = torch.randn(b, h, sq, device="cuda", generator=gen)
+        grads = []
+        for fn in (fa.flash_attention_with_lse, fa.reference_attention_with_lse):
+            leaves = [t.clone().requires_grad_() for t in x]
+            o, lse = fn(*leaves, causal)
+            torch.autograd.backward([o, lse], [do, dlse])
+            grads.append([t.grad for t in leaves])
+        errs = [flash_close(g, w, fa.MASK_VALUE) for g, w in zip(*grads)]
+        print(f"flash autograd vs plain autograd f32 causal={causal} {(b, h, sq, sk, d)}: "
+              f"dq {errs[0][1]:.2e} dk {errs[1][1]:.2e} dv {errs[2][1]:.2e}", flush=True)
+        check(all(ok for ok, _ in errs), "flash gradients through autograd disagree")
+    return worst
+
+
+def phase_flash_timing(torch, fa) -> dict[str, dict]:
+    """Times at the main path's attention shape, bf16 causal."""
+    import torch.nn.functional as F
+
+    b, h, s, d = long_context()[1]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, do = (torch.randn(b, h, s, d, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    scale = d ** -0.5
+    o, lse = fa.launch_fwd(q, k, v, True, scale)
+    dmd = (do.float() * o.float()).sum(-1)
+    ms = {
+        "fwd": cuda_ms(lambda: fa.launch_fwd(q, k, v, True, scale), launches=5, reps=11),
+        "dq": cuda_ms(lambda: fa.launch_dq(q, k, v, do, lse, dmd, True, scale), launches=5, reps=11),
+        "dkv": cuda_ms(lambda: fa.launch_dkv(q, k, v, do, lse, dmd, True, scale),
+                       launches=5, reps=11),
+    }
+    plain = {
+        "fwd": event_ms(lambda: fa.reference_attention_with_lse(q, k, v, True, scale), 2, 3),
+        "dq": event_ms(lambda: fa.reference_attention_dq(q, k, v, do, lse, dmd, True, scale), 2, 3),
+        "dkv": event_ms(lambda: fa.reference_attention_dkv(q, k, v, do, lse, dmd, True, scale),
+                        2, 3),
+    }
+    # the library's fused attention (top-left causal mask = the port's at Sq == Sk):
+    # timed as a yardstick, never called by the port
+    sdpa_fwd = event_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 10, 5)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    sdpa_o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    sdpa_bwd = event_ms(lambda: torch.autograd.grad(sdpa_o, leaves, do, retain_graph=True), 10, 5)
+    library = {"fwd": sdpa_fwd, "dq": sdpa_bwd, "dkv": sdpa_bwd}
+
+    pairs = b * h * s * (s + 1) // 2  # visible (query, key) pairs under the causal mask
+    n, rows = b * h * s * d, b * h * s
+    work = {  # (flops: products x 2*D per pair, bytes: each input read once, each output once)
+        "fwd": (2 * 2 * d * pairs, 4 * n * 2 + 4 * rows),
+        "dq": (3 * 2 * d * pairs, 5 * n * 2 + 2 * 4 * rows),
+        "dkv": (4 * 2 * d * pairs, 6 * n * 2 + 2 * 4 * rows),
+    }
+    out = {}
+    for name, (flops, moved) in work.items():
+        ops_ms, bytes_ms = flops / BF16_FLOPS * 1e3, moved / HBM_BYTES_PER_S * 1e3
+        out[name] = {"ms": ms[name], "plain_ms": plain[name], "library_ms": library[name],
+                     "bound_ms": max(ops_ms, bytes_ms),
+                     "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        print(f"flash timing {name} {[b, h, s, d]} bf16 causal: kernel_ms={ms[name]:.4f} "
+              f"plain_ms={plain[name]:.4f} library_ms={library[name]:.4f} "
+              f"bound_ms={out[name]['bound_ms']:.4f} ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s, "
+              f"{moved / 1e6:.1f} MB at 3.35 TB/s; {out[name]['bound_ms'] / ms[name]:.1%} of the "
+              f"bound; {flops / ms[name] / 1e9:.1f} TFLOP/s)", flush=True)
+    print(f"flash timing: library backward (dq+dk+dv in one call) {sdpa_bwd:.4f} ms vs "
+          f"kernels dq+dkv {ms['dq'] + ms['dkv']:.4f} ms", flush=True)
+    return out
 
 
 def phase_kernel_timing(torch, mixed_op) -> dict:
@@ -219,6 +406,51 @@ def phase_main_path(torch, mixed_op) -> int:
     return launches
 
 
+def phase_transformer(torch, fa, kernel_ms: float) -> dict[str, int]:
+    """``transformer_trial`` at the long-context width; returns the flash
+    launches.  ``kernel_ms``: one forward + dq + dk/dv at its attention
+    shape, to set beside the step time."""
+    from katib_tpu_torch.models import transformer_trial
+    from katib_tpu_torch.runner.context import TrialContext
+
+    params = {**long_context()[0], "steps": TRANSFORMER_STEPS}
+    layers, steps, batch = params["n_layers"], params["steps"], params["batch_size"]
+    ctx = TrialContext({k: str(v) for k, v in params.items()}, device="cuda", step_times=[])
+    torch.cuda.reset_peak_memory_stats()
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+    t0 = time.perf_counter()
+    transformer_trial(ctx)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fwd": fa.fwd_launches, "dq": fa.dq_launches, "dkv": fa.dkv_launches}
+
+    # train_lm evaluates after step 0 and every 10th step, and after the last
+    evals = sum(1 for s in range(steps) if s % 10 == 0 or s == steps - 1)
+    predicted = {"fwd": layers * (steps + evals), "dq": layers * steps, "dkv": layers * steps}
+    times = ctx.step_times
+    median = statistics.median(times[1:])
+    width = ", ".join(f"{k} {v}" for k, v in params.items())
+    print(f"main path 2: transformer_trial {width}, bf16: {steps} steps + {evals} evaluations "
+          f"in {wall:.2f}s", flush=True)
+    print(f"main path 2: step_s first={times[0]:.4f} rest={[round(t, 4) for t in times[1:]]} "
+          f"median_rest={median:.4f} tokens_per_s={batch * params['seq_len'] / median:.0f}",
+          flush=True)
+    print(f"main path 2: attention kernels {layers} x {kernel_ms:.3f} ms = "
+          f"{layers * kernel_ms:.2f} ms per step = {layers * kernel_ms / 1e3 / median:.1%} of the "
+          f"median step", flush=True)
+    print(f"main path 2: max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    print(f"main path 2: reports={ctx.reports}", flush=True)
+    print(f"main path 2: flash launches={launches} predicted={predicted}", flush=True)
+    check(len(times) == steps, f"expected {steps} steps, timed {len(times)}")
+    check(len(ctx.reports) == evals, f"expected {evals} reports, got {len(ctx.reports)}")
+    check(all(math.isfinite(v) for _, m in ctx.reports for v in m.values()), "finite losses")
+    first, last = ctx.reports[0][1]["eval_loss"], ctx.reports[-1][1]["eval_loss"]
+    check(last < first, f"eval_loss did not fall: {first} -> {last}")
+    check(launches == predicted, f"flash kernels launched {launches}, the path predicts {predicted}")
+    return launches
+
+
 def phase_small_reference(torch) -> None:
     """A small f32 supernet step on the card against the same weights on
     the CPU (plain mixed-op version there): logits and gradients agree."""
@@ -254,6 +486,7 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
     from katib_tpu_torch.ops import _build, mixed_op
+    from katib_tpu_torch.ops import flash_attention as fa
 
     # every f32 comparison below runs in full f32 (cuDNN convs default to TF32)
     torch.backends.cudnn.allow_tf32 = False
@@ -262,14 +495,18 @@ def main() -> int:
     print(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    t0 = time.perf_counter()
-    built = _build.build(["mixed_op"])
+    t_start = t0 = time.perf_counter()
+    built = _build.build(["mixed_op", "flash_attention"])
     print(f"build: {built} ({time.perf_counter() - t0:.2f}s wall)", flush=True)
 
     max_err = phase_kernel_parity(torch, mixed_op)
+    flash_err = phase_flash_parity(torch, fa)
     timing = phase_kernel_timing(torch, mixed_op)
+    flash_timing = phase_flash_timing(torch, fa)
     launches = phase_main_path(torch, mixed_op)
     phase_small_reference(torch)
+    flash_launches = phase_transformer(
+        torch, fa, sum(t["ms"] for t in flash_timing.values()))
 
     kernels = [{
         "name": "mixed_op_sum",
@@ -280,6 +517,18 @@ def main() -> int:
         "max_abs_err": max_err,
         **timing,
     }]
+    for name, line in (("fwd", 60), ("dq", 150), ("dkv", 190)):
+        kernels.append({
+            "name": f"flash_attention_{name}",
+            "route": "cuda",
+            "source": "katib_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": f"katib_tpu/ops/flash_attention.py:{line}",
+            "launches": flash_launches[name],
+            "max_abs_err": flash_err[name],
+            **flash_timing[name],
+        })
+    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f}s (build included)",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package's DARTS supernet into the port.
+"""Carry weights from the JAX package's models into the port.
 
 The flax parameter tree (any pytree of the same structure: weights, or
 gradients) arrives as nested dicts of numpy arrays.  The port's modules keep
@@ -14,6 +14,9 @@ registered in the JAX package's creation order, so the flax path of each of
 their parameters follows from the module tree alone.  A cell is
 ``CheckpointCell_<n>`` under ``remat=True`` (a lifted ``nn.remat(Cell)``) and
 ``Cell_<n>`` without it; both are accepted.
+
+The transformer LM (:func:`transformer_state_dict_from_flax`) follows the
+same rule with an explicit table, since its modules are named for reading.
 """
 
 from __future__ import annotations
@@ -73,7 +76,10 @@ def state_dict_from_flax(tree: Any, module: nn.Module) -> dict[str, torch.Tensor
     Raises if a parameter is missing, left over, or of another shape."""
     params = tree["params"] if "params" in tree else tree
     remat = any(k.startswith("CheckpointCell_") for k in params)
-    mapping = flax_paths(module, remat)
+    return _from_flax(params, flax_paths(module, remat), module)
+
+
+def _from_flax(params: dict, mapping: dict, module: nn.Module) -> dict[str, torch.Tensor]:
     own = dict(module.named_parameters())
     result, used = {}, set()
     for key, (path, stack) in mapping.items():
@@ -96,6 +102,39 @@ def state_dict_from_flax(tree: Any, module: nn.Module) -> dict[str, torch.Tensor
     if leftover:
         raise KeyError(f"flax parameters with no port counterpart: {leftover[:5]}")
     return result
+
+
+# the transformer's module names -> flax's names, in flax's creation order
+_BLOCK_NAMES = {"ln1": "LayerNorm_0", "qkv": "Dense_0", "proj": "Dense_1",
+                "ln2": "LayerNorm_1", "fc1": "Dense_2", "fc2": "Dense_3"}
+_LM_NAMES = {"tok_embed": "Embed_0", "pos_embed": "Embed_1", "ln_f": "LayerNorm_0",
+             "head": "Dense_0"}
+
+
+def transformer_flax_paths(model: nn.Module) -> dict[str, tuple[tuple, None]]:
+    """``state_dict key -> (flax path, None)`` for a :class:`TransformerLM`."""
+    out = {}
+    for key, _ in model.named_parameters():
+        parts = key.split(".")
+        if parts[0] == "blocks":
+            path = (f"Block_{parts[1]}", _BLOCK_NAMES[parts[2]], parts[3])
+        else:
+            path = (_LM_NAMES[parts[0]], parts[1])
+        out[key] = (path, None)
+    return out
+
+
+def transformer_state_dict_from_flax(tree: Any, model: nn.Module) -> dict[str, torch.Tensor]:
+    """The port's state dict for a :class:`TransformerLM` from the flax tree
+    of the JAX ``TransformerLM`` (``Embed_0`` tokens, ``Embed_1`` positions,
+    ``Block_<i>``, ``LayerNorm_0``, ``Dense_0``; inside a block
+    ``LayerNorm_0``, ``Dense_0`` qkv, ``Dense_1`` out, ``LayerNorm_1``,
+    ``Dense_2``, ``Dense_3``).  Dense kernels are ``(in, out)`` in both.
+
+    ``tree`` is the flax variables (``{"params": ...}``) or the params alone.
+    Raises if a parameter is missing, left over, or of another shape."""
+    params = tree["params"] if "params" in tree else tree
+    return _from_flax(params, transformer_flax_paths(model), model)
 
 
 def _leaf_paths(tree: dict, path: tuple = ()) -> Iterator[tuple]:

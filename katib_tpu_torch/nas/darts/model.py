@@ -13,10 +13,10 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from katib_tpu_torch.models.layers import Dense
 from katib_tpu_torch.nas.darts.ops import (
     DEFAULT_PRIMITIVES,
     EdgeGroup,
@@ -101,25 +101,6 @@ class Cell(nn.Module):
         return torch.cat(states[2:], dim=1)
 
 
-class Dense(nn.Module):
-    """``nn.Dense``: kernel (in, out) and bias, in float32."""
-
-    def __init__(self, in_features: int, features: int):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.empty(in_features, features))
-        self.bias = nn.Parameter(torch.zeros(features))
-        self.reset_parameters()
-
-    def reset_parameters(self, generator=None) -> None:
-        from katib_tpu_torch.ops.depthwise import lecun_normal_
-
-        lecun_normal_(self.kernel, self.kernel.shape[0], generator)
-        nn.init.zeros_(self.bias)
-
-    def forward(self, x):
-        return F.linear(x.float(), self.kernel.t(), self.bias)
-
-
 def mixed_op_launches_per_forward(num_layers: int, n_nodes: int) -> int:
     """Mixed-op kernel launches in one forward pass of :class:`DartsNetwork`."""
     reductions = len(_reduction_layers(num_layers))
@@ -168,7 +149,7 @@ class DartsNetwork(nn.Module):
                                    reduction_prev, dtype))
             c_pp, c_p = c_p, n_nodes * c
             reduction_prev = reduction
-        self.classifier = Dense(c_p, num_classes)
+        self.classifier = Dense(c_p, num_classes, dtype=torch.float32)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         """Draw every weight anew from ``generator``, module by module."""

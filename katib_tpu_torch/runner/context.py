@@ -1,6 +1,7 @@
-"""A minimal trial context: the surface ``darts_trial`` uses (port of the
-matching part of ``katib_tpu/runner/context.py``; the orchestrator, the
-observation store and early-stopping rules are not ported yet)."""
+"""A minimal trial context: the surface ``darts_trial`` and
+``transformer_trial`` use (port of the matching part of
+``katib_tpu/runner/context.py``; the orchestrator, the observation store and
+early-stopping rules are not ported yet)."""
 
 from __future__ import annotations
 
@@ -17,14 +18,18 @@ class TrialContext:
     ``device``: the device the trial runs on (``None`` = ``cuda``).
     ``step_times``: a list to receive each training step's wall seconds,
     or ``None`` to skip the per-step device sync that measuring needs.
+    ``mesh``: the device mesh the trial should train on, as in the JAX
+    context; ``None`` is one device (the only layout the port runs yet).
     ``reports`` keeps every ``report()`` call as ``(step, metrics)``."""
 
     def __init__(self, params: Mapping[str, Any], checkpoint_dir: str | None = None,
-                 device: str | None = None, step_times: list | None = None):
+                 device: str | None = None, step_times: list | None = None,
+                 mesh: Any = None):
         self.params = dict(params)
         self.checkpoint_dir = checkpoint_dir
         self.device = device
         self.step_times = step_times
+        self.mesh = mesh
         self.reports: list[tuple[int, dict[str, float]]] = []
         self._step = 0
         self._stop = threading.Event()

@@ -1,0 +1,249 @@
+"""The port's flash attention against the JAX package's Pallas kernels.
+
+On the CPU the port's ``flash_attention_with_lse`` runs its plain PyTorch
+versions (forward, and the dq and dk/dv formulas of the backward) and the
+JAX side runs the three Pallas kernels in interpret mode, float32.  Inputs
+come from numpy with a seed.  Tolerance 1e-5 on outputs and logsumexp and
+2e-5 on gradients, as in ``tests/test_attention_transformer.py``: both
+sides compute in float32 and differ only in summation order.  The CUDA
+kernels are held against the plain versions on the card (``chip_smoke.py``
+and the ``cuda``-marked test below).
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from katib_tpu.ops.flash_attention import flash_attention_with_lse as jax_flash
+from katib_tpu_torch.ops import flash_attention as fa
+
+# tier-1 runs six test processes on the same cores: one torch thread each
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device; the test skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU or interpret mode")
+    return torch.device("cuda", 0)
+
+
+def _qkv(b=2, h=2, sq=64, sk=None, d=16, seed=0):
+    rng = np.random.default_rng(seed)
+    sk = sq if sk is None else sk
+    return tuple(
+        rng.normal(size=shape).astype(np.float32)
+        for shape in ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d))
+    )
+
+
+def _torch(arrays, grad=False):
+    return tuple(torch.from_numpy(a.copy()).requires_grad_(grad) for a in arrays)
+
+
+def _jax_grads(loss, arrays):
+    return jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in arrays))
+
+
+def _assert_grads(got, want, atol=2e-5):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("blocks", [(32, 32), (32, 64)])
+def test_forward_matches_pallas_interpret(causal, blocks):
+    arrays = _qkv()
+    bq, bk = blocks
+    o_want, lse_want = jax_flash(*(jnp.asarray(a) for a in arrays), causal, None, bq, bk, True)
+    o, lse = fa.flash_attention_with_lse(*_torch(arrays), causal, None, bq, bk)
+    assert o.shape == (2, 2, 64, 16) and o.dtype == torch.float32 and lse.shape == (2, 2, 64)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_want), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_want), rtol=0, atol=1e-5)
+
+
+def test_gradients_of_sin_match_pallas_interpret():
+    arrays = _qkv(sq=32, d=8, seed=1)
+
+    def jloss(q, k, v):
+        return jnp.sum(jnp.sin(jax_flash(q, k, v, True, None, 16, 16, True)[0]))
+
+    want = _jax_grads(jloss, arrays)
+    q, k, v = _torch(arrays, grad=True)
+    torch.sin(fa.flash_attention(q, k, v, causal=True, block_q=16, block_k=16)).sum().backward()
+    _assert_grads((q.grad, k.grad, v.grad), want)
+
+
+@pytest.mark.parametrize("sq,sk", [(32, 64), (64, 32)])
+def test_causal_cross_length_matches_pallas_interpret(sq, sk):
+    """Bottom-right-aligned mask; with sq > sk the first sq - sk rows see no
+    key: output 0 and logsumexp -1e30 on both sides."""
+    arrays = _qkv(sq=sq, sk=sk, d=8, seed=3)
+    o_want, lse_want = jax_flash(*(jnp.asarray(a) for a in arrays), True, None, 16, 16, True)
+    o, lse = fa.flash_attention_with_lse(*_torch(arrays), True, None, 16, 16)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_want), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_want), rtol=0, atol=1e-5)
+    if sq > sk:
+        assert np.all(lse.numpy()[:, :, : sq - sk] == fa.MASK_VALUE)
+        assert np.all(o.numpy()[:, :, : sq - sk] == 0.0)
+
+    def jloss(q, k, v):
+        return jnp.sum(jnp.sin(jax_flash(q, k, v, True, None, 16, 16, True)[0]))
+
+    want = _jax_grads(jloss, arrays)
+    q, k, v = _torch(arrays, grad=True)
+    torch.sin(fa.flash_attention(q, k, v, causal=True, block_q=16, block_k=16)).sum().backward()
+    _assert_grads((q.grad, k.grad, v.grad), want)
+
+
+def test_lse_cotangent_flows():
+    arrays = _qkv(sq=32, d=8, seed=2)
+
+    def jloss(q, k, v):
+        o, lse = jax_flash(q, k, v, True, None, 16, 16, True)
+        return jnp.sum(o * o) + jnp.sum(jnp.cos(lse))
+
+    want = _jax_grads(jloss, arrays)
+    q, k, v = _torch(arrays, grad=True)
+    o, lse = fa.flash_attention_with_lse(q, k, v, True, None, 16, 16)
+    (torch.sum(o * o) + torch.sum(torch.cos(lse))).backward()
+    _assert_grads((q.grad, k.grad, v.grad), want)
+
+
+@pytest.mark.parametrize("causal,sq,sk", [(True, 48, 48), (False, 40, 24), (True, 40, 24)])
+def test_plain_backward_equals_autograd_of_plain_forward(causal, sq, sk):
+    """The dq and dk/dv plain versions (the kernels' references) against
+    autograd through ``reference_attention_with_lse``, with an lse
+    cotangent."""
+    arrays = _qkv(b=1, h=2, sq=sq, sk=sk, d=8, seed=4)
+    rng = np.random.default_rng(5)
+    do = torch.from_numpy(rng.normal(size=(1, 2, sq, 8)).astype(np.float32))
+    dlse = torch.from_numpy(rng.normal(size=(1, 2, sq)).astype(np.float32))
+    grads = []
+    for fn in (fa.flash_attention_with_lse, fa.reference_attention_with_lse):
+        q, k, v = _torch(arrays, grad=True)
+        o, lse = fn(q, k, v, causal)
+        torch.autograd.backward([o, lse], [do, dlse])
+        grads.append((q.grad, k.grad, v.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_missing_lse_cotangent_counts_as_zero():
+    arrays = _qkv(sq=32, d=8, seed=6)
+    grads = []
+    for explicit in (False, True):
+        q, k, v = _torch(arrays, grad=True)
+        o, lse = fa.flash_attention_with_lse(q, k, v, True, None, 16, 16)
+        if explicit:
+            torch.autograd.backward([o, lse], [torch.ones_like(o), torch.zeros_like(lse)])
+        else:
+            o.sum().backward()
+        grads.append((q.grad, k.grad, v.grad))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_block_sizes_refused_as_in_the_jax_package():
+    arrays = _qkv(sq=48, d=8)
+    with pytest.raises(ValueError, match="must divide"):
+        jax_flash(*(jnp.asarray(a) for a in arrays), True, None, 32, 32, True)
+    with pytest.raises(ValueError, match="must divide"):
+        fa.flash_attention_with_lse(*_torch(arrays), True, None, 32, 32)
+    # a block larger than the sequence shrinks to it
+    fa.flash_attention(*_torch(_qkv(sq=40, d=8)), block_q=128, block_k=128)
+
+
+def test_bf16_keeps_dtype_and_returns_f32_lse():
+    q, k, v = (t.to(torch.bfloat16) for t in _torch(_qkv(sq=32, d=8)))
+    o, lse = fa.flash_attention_with_lse(q, k, v)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    o_ref, lse_ref = fa.reference_attention_with_lse(q.float(), k.float(), v.float())
+    assert torch.equal(o, o_ref.to(torch.bfloat16)) and torch.equal(lse, lse_ref)
+
+
+def test_cpu_path_counts_no_launch():
+    before = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    q, k, v = _torch(_qkv(sq=32, d=8), grad=True)
+    fa.flash_attention(q, k, v).sum().backward()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == before
+
+
+@pytest.mark.parametrize(
+    "shapes,dtypes,exc",
+    [
+        (((1, 2, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16)), (torch.float16,) * 3, TypeError),
+        (((1, 2, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16)),
+         (torch.float32, torch.bfloat16, torch.float32), TypeError),
+        (((1, 2, 8, 16), (1, 2, 8, 16), (1, 2, 9, 16)), (torch.float32,) * 3, ValueError),
+        (((1, 2, 8, 16), (1, 3, 8, 16), (1, 3, 8, 16)), (torch.float32,) * 3, ValueError),
+        (((2, 8, 16), (2, 8, 16), (2, 8, 16)), (torch.float32,) * 3, ValueError),
+    ],
+)
+def test_wrapper_rejects_what_the_kernels_do_not_take(shapes, dtypes, exc):
+    q, k, v = (torch.ones(s, dtype=t) for s, t in zip(shapes, dtypes))
+    with pytest.raises(exc):
+        fa.flash_attention_with_lse(q, k, v)
+
+
+def test_kernel_check_takes_contiguous_inputs_with_supported_head_dims():
+    ok = torch.ones(1, 2, 8, 64)
+    fa.kernel_check(ok, ok, ok)
+    with pytest.raises(ValueError, match="head_dim"):
+        t = torch.ones(1, 2, 8, 16)
+        fa.kernel_check(t, t, t)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.ones(1, 8, 2, 64).transpose(1, 2)
+        fa.kernel_check(t, t, t)
+
+
+@pytest.mark.parametrize("bad", ["do_dtype", "do_shape", "lse_dtype", "dmd_shape", "dmd_strided"])
+@pytest.mark.parametrize("launch", [fa.launch_dq, fa.launch_dkv])
+def test_backward_launchers_check_their_extra_inputs(bad, launch):
+    """Refused before any pointer reaches the kernel (and before the build)."""
+    q = torch.ones(1, 2, 8, 32)
+    do, lse, dmd = torch.ones_like(q), torch.ones(1, 2, 8), torch.ones(1, 2, 8)
+    if bad == "do_dtype":
+        do = do.to(torch.bfloat16)
+    elif bad == "do_shape":
+        do = torch.ones(1, 2, 9, 32)
+    elif bad == "lse_dtype":
+        lse = lse.double()
+    elif bad == "dmd_shape":
+        dmd = torch.ones(1, 2, 9)
+    else:
+        dmd = torch.ones(1, 8, 2).transpose(1, 2)
+    with pytest.raises(ValueError):
+        launch(q, q, q, do, lse, dmd, True, 0.125)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions(cuda_device):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for causal, sq, sk, d in [(True, 256, 256, 64), (False, 200, 130, 32), (True, 130, 70, 128)]:
+        q = torch.randn(2, 3, sq, d, device=cuda_device, generator=gen)
+        k, v = (torch.randn(2, 3, sk, d, device=cuda_device, generator=gen) for _ in range(2))
+        do = torch.randn_like(q)
+        dlse = torch.randn(2, 3, sq, device=cuda_device, generator=gen)
+        scale = d ** -0.5
+        before = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+        o, lse = fa.launch_fwd(q, k, v, causal, scale)
+        dmd = (do * o).sum(-1) - dlse
+        dq = fa.launch_dq(q, k, v, do, lse, dmd, causal, scale)
+        dk, dv = fa.launch_dkv(q, k, v, do, lse, dmd, causal, scale)
+        torch.cuda.synchronize()
+        assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(n + 1 for n in before)
+        o_ref, lse_ref = fa.reference_attention_with_lse(q, k, v, causal, scale)
+        torch.testing.assert_close(o, o_ref, rtol=0, atol=1e-5)
+        torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-5)
+        torch.testing.assert_close(dq, fa.reference_attention_dq(q, k, v, do, lse, dmd, causal, scale),
+                                   rtol=0, atol=1e-5)
+        dk_ref, dv_ref = fa.reference_attention_dkv(q, k, v, do, lse, dmd, causal, scale)
+        torch.testing.assert_close(dk, dk_ref, rtol=0, atol=1e-5)
+        torch.testing.assert_close(dv, dv_ref, rtol=0, atol=1e-5)

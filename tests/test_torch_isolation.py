@@ -55,11 +55,13 @@ def test_banned_check_compares_module_names_exactly():
 
 
 def test_port_imports_and_steps_with_jax_and_katib_tpu_blocked():
+    """Every module imports, and one DARTS search step and a short
+    transformer trial run, with JAX and the JAX package unimportable."""
     script = textwrap.dedent(f"""
         import sys
         for name in {BANNED!r}:
             sys.modules[name] = None
-        import importlib, pkgutil
+        import importlib, math, pkgutil
         import katib_tpu_torch
         for mod in pkgutil.walk_packages(katib_tpu_torch.__path__, "katib_tpu_torch."):
             importlib.import_module(mod.name)
@@ -77,6 +79,16 @@ def test_port_imports_and_steps_with_jax_and_katib_tpu_blocked():
         batch = (torch.randn(2, 8, 8, 3, generator=gen), torch.tensor([0, 2]))
         state, metrics = make_search_step(loss, hyper)(state, batch, batch)
         assert state.step == 1 and bool(torch.isfinite(metrics["train_loss"]))
+        # the transformer trial: two steps, the fewest its warmup-cosine
+        # schedule takes (one warmup step, one decay step, as in optax)
+        from katib_tpu_torch.models import transformer_trial
+        from katib_tpu_torch.runner.context import TrialContext
+        ctx = TrialContext({{"vocab_size": "16", "d_model": "16", "n_heads": "2", "n_layers": "1",
+                            "seq_len": "8", "n_seq": "16", "batch_size": "2", "steps": "2"}},
+                           device="cpu")
+        transformer_trial(ctx)
+        assert len(ctx.reports) == 2 and all(
+            math.isfinite(v) for _, m in ctx.reports for v in m.values()), ctx.reports
         leaked = sorted(n for n in sys.modules if n.split(".")[0] in {BANNED!r} and sys.modules[n])
         assert not leaked, leaked
         print("ok")
