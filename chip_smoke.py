@@ -44,6 +44,9 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 
 TRANSFORMER_STEPS = 10  # steps of the transformer main path
+# the float32-FMA bf16 backward kernels that the tensor-core ones replaced, at
+# the main path's attention shape on an H100 SXM at 700 W (PERF.md section 6)
+FMA_BACKWARD_MS = {"dq": 6.4359, "dkv": 6.5682}
 
 def long_context() -> tuple[dict, tuple[int, int, int, int]]:
     """The transformer main path's ``transformer_trial`` parameters (the
@@ -311,13 +314,17 @@ def phase_flash_timing(torch, fa) -> dict[str, dict]:
         out[name] = {"ms": ms[name], "plain_ms": plain[name], "library_ms": library[name],
                      "bound_ms": max(ops_ms, bytes_ms),
                      "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        earlier = (f"; {FMA_BACKWARD_MS[name] / ms[name]:.2f}x faster than the float32-FMA "
+                   f"design's {FMA_BACKWARD_MS[name]:.4f} ms" if name in FMA_BACKWARD_MS else "")
         print(f"flash timing {name} {[b, h, s, d]} bf16 causal: kernel_ms={ms[name]:.4f} "
               f"plain_ms={plain[name]:.4f} library_ms={library[name]:.4f} "
               f"bound_ms={out[name]['bound_ms']:.4f} ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s, "
               f"{moved / 1e6:.1f} MB at 3.35 TB/s; {out[name]['bound_ms'] / ms[name]:.1%} of the "
-              f"bound; {flops / ms[name] / 1e9:.1f} TFLOP/s)", flush=True)
+              f"bound; {flops / ms[name] / 1e9:.1f} TFLOP/s{earlier})", flush=True)
+    pair = ms["dq"] + ms["dkv"]
     print(f"flash timing: library backward (dq+dk+dv in one call) {sdpa_bwd:.4f} ms vs "
-          f"kernels dq+dkv {ms['dq'] + ms['dkv']:.4f} ms", flush=True)
+          f"kernels dq+dkv {pair:.4f} ms ({pair / sdpa_bwd:.1f}x; the float32-FMA pair "
+          f"{sum(FMA_BACKWARD_MS.values()):.4f} ms)", flush=True)
     return out
 
 

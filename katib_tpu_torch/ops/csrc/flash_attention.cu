@@ -5,7 +5,7 @@
 // behind a plain C interface loaded with ctypes
 // (katib_tpu_torch/ops/flash_attention.py).  Inputs are contiguous
 // [B, H, S, D] tensors, float32 or bfloat16, D in {32, 64, 128}; every
-// product and every softmax statistic is float32, and bfloat16 outputs are
+// sum and every softmax statistic is float32, and bfloat16 outputs are
 // rounded once at the store.
 //
 // Semantics (the JAX package's): the causal mask is bottom-right aligned,
@@ -15,21 +15,39 @@
 // after the subtraction (a fully masked row has lse = -1e30, where the
 // unmasked exponent would be +huge): masked entries are exactly 0.
 //
-// Blocking, shared by the three kernels: 64-row q and k tiles held in
-// shared memory as float32 (row stride D + 1, so the column walks below hit
-// distinct banks); 128 threads, each owning a 4 x 8 patch of the 64 x 64
-// score tile (rows ty*4 + i, columns tx + 8*j) and the matching 4 x D/8
-// patch of its output rows.  The eight threads of one row group are eight
-// neighbouring lanes, so row reductions are three xor shuffles.  Products
-// are plain float32 FMAs from shared memory: simple and exact in f32 rather
-// than fast; tensor-core (wgmma) pipelines are later work.  Blocks run in
-// parallel in no order, so each kernel walks its own loop over the other
-// sequence's tiles; nothing carries between blocks and nothing is atomic.
+// Two designs share the entry points.  Blocks run in parallel in no order,
+// so in both each kernel walks its own loop over the other sequence's tiles;
+// nothing carries between blocks and nothing is atomic.
+//
+// float32-FMA kernels: the forward (both dtypes) and the float32 backward.
+// 64-row q and k tiles held in shared memory as float32 (row stride D + 1,
+// so the column walks hit distinct banks); 128 threads, each owning a 4 x 8
+// patch of the 64 x 64 score tile (rows ty*4 + i, columns tx + 8*j) and the
+// matching 4 x D/8 patch of its output rows.  The eight threads of one row
+// group are eight neighbouring lanes, so row reductions are three xor
+// shuffles.  Products are plain float32 FMAs from shared memory: exact in
+// f32 (which tensor cores would round) rather than fast.
+//
+// Tensor-core kernels: the bfloat16 backward (flash_dq_kernel,
+// flash_dkv_kernel).  Every product is mma.sync m16n8k16 with bf16 operands
+// and float32 accumulators; four warps per block, each owning 16 rows of
+// the block's 64-row tile.  Operands come from bf16 tiles in swizzled shared
+// memory through ldmatrix (.trans for the transposed ones), streamed by
+// cp.async into a two-stage ring so the next tile lands while this one
+// computes.  p and ds never leave registers: the accumulator fragment of the
+// first product is the A fragment of the second.  They enter the second
+// product as a bf16 pair, hi = bf16(x) and lo = bf16(x - hi), two MMAs into
+// one float32 accumulator: rounding them to one bf16 (2^-9 relative per
+// term) would miss the one-bf16-spacing tolerance the kernels are held to by
+// tens of times, the pair keeps 16 bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -216,23 +234,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---------------------------------------------------------------------------
-// dq
+// float32 dq
 //
-// Replaces katib_tpu/ops/flash_attention.py::_dq_kernel (:150, launched by
-// _bwd :245).  One block per (q tile, batch x head), longest causal rows
-// first.  Streams K and V, recomputes p from the saved logsumexp,
-// ds = p * (dO.v - dmd) with dmd = rowsum(dO * O) - dlse computed by the
-// wrapper, and accumulates dq = scale * ds.k in float32 registers.
-// Bound on the H100: operations (3 products of 2*D flops per visible pair).
-// Same float32-FMA design as the forward; ds goes through shared memory
-// once per tile and never to device memory.
+// The float32 instantiation of katib_tpu/ops/flash_attention.py::_dq_kernel
+// (:150, launched by _bwd :245); the bfloat16 one is flash_dq_kernel below.
+// One block per (q tile, batch x head), longest causal rows first.  Streams
+// K and V, recomputes p from the saved logsumexp, ds = p * (dO.v - dmd)
+// with dmd = rowsum(dO * O) - dlse computed by the wrapper, and accumulates
+// dq = scale * ds.k in float32 registers.  Same float32-FMA design as the
+// forward; ds goes through shared memory once per tile and never to device
+// memory.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ dmd, T* __restrict__ dq, int sq, int sk, float scale,
-                int causal) {
+flash_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ dmd,
+                    float* __restrict__ dq, int sq, int sk, float scale, int causal) {
   extern __shared__ float smem[];
   constexpr int LD = D + 1, DC = D / 8;
   float* s_q = smem;
@@ -264,14 +282,14 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
-  load_tile<T, D>(s_q, q, q0, sq);
-  load_tile<T, D>(s_do, dout, q0, sq);
+  load_tile<float, D>(s_q, q, q0, sq);
+  load_tile<float, D>(s_do, dout, q0, sq);
   const int live = live_k_tiles(q0, sq, sk, shift, causal);
   for (int kt = 0; kt < live; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();
-    load_tile<T, D>(s_k, k, k0, sk);
-    load_tile<T, D>(s_v, v, k0, sk);
+    load_tile<float, D>(s_k, k, k0, sk);
+    load_tile<float, D>(s_v, v, k0, sk);
     __syncthreads();
 
     float s[TR][TC], dp[TR][TC];
@@ -337,24 +355,25 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 }
 
 // ---------------------------------------------------------------------------
-// dk / dv
+// float32 dk / dv
 //
-// Replaces katib_tpu/ops/flash_attention.py::_dkv_kernel (:190, launched by
-// _bwd :263).  One block per (k tile, batch x head); k tile 0, which sees
-// the most causal rows, is block 0.  Holds its K and V tile, streams the q
-// tiles (with their dO, lse and dmd rows) from the first one on or below
-// the diagonal, first_qt = max(0, k0 - shift) / 64, so the sums stay in
-// the block: dv += p^T.dO and dk += scale * ds^T.q in float32 registers,
-// no atomics.
-// Bound on the H100: operations (4 products of 2*D flops per visible pair).
-// Same float32-FMA design; p and ds go through shared memory once per tile.
+// The float32 instantiation of katib_tpu/ops/flash_attention.py::_dkv_kernel
+// (:190, launched by _bwd :263); the bfloat16 one is flash_dkv_kernel below.
+// One block per (k tile, batch x head); k tile 0, which sees the most
+// causal rows, is block 0.  Holds its K and V tile, streams the q tiles
+// (with their dO, lse and dmd rows) from the first one on or below the
+// diagonal, first_qt = max(0, k0 - shift) / 64, so the sums stay in the
+// block: dv += p^T.dO and dk += scale * ds^T.q in float32 registers, no
+// atomics.  Same float32-FMA design; p and ds go through shared memory once
+// per tile.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ dmd, T* __restrict__ dk, T* __restrict__ dv, int sq,
-                 int sk, float scale, int causal) {
+flash_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ dmd,
+                     float* __restrict__ dk, float* __restrict__ dv, int sq, int sk, float scale,
+                     int causal) {
   extern __shared__ float smem[];
   constexpr int LD = D + 1, DC = D / 8;
   float* s_k = smem;
@@ -385,15 +404,15 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
-  load_tile<T, D>(s_k, k, k0, sk);
-  load_tile<T, D>(s_v, v, k0, sk);
+  load_tile<float, D>(s_k, k, k0, sk);
+  load_tile<float, D>(s_v, v, k0, sk);
   const int n_qt = (sq + TILE - 1) / TILE;
   const int first_qt = causal ? max(0, k0 - shift) / TILE : 0;
   for (int qt = first_qt; qt < n_qt; ++qt) {
     const int q0 = qt * TILE;
     __syncthreads();
-    load_tile<T, D>(s_q, q, q0, sq);
-    load_tile<T, D>(s_do, dout, q0, sq);
+    load_tile<float, D>(s_q, q, q0, sq);
+    load_tile<float, D>(s_do, dout, q0, sq);
     load_rows(s_lse, lse, q0, sq);
     load_rows(s_dmd, dmd, q0, sq);
     __syncthreads();
@@ -476,6 +495,466 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---------------------------------------------------------------------------
+// tensor-core building blocks of the bfloat16 backward: the only inline PTX
+// ---------------------------------------------------------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int BQ = 64;  // q rows per dq block (16 per warp)
+constexpr int BK = 64;  // k rows per dk/dv block (16 per warp), and per streamed k tile
+static_assert(BK == TILE, "dq counts its k tiles with live_k_tiles");
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared without waiting; src_size 0 writes 16 zero bytes
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared without waiting; zero-filled when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i, and r[i] holds row lane/4, columns 2(lane%4) + {0,1}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+// the same, each matrix transposed: r[i] holds rows 2(lane%4) + {0,1}, column lane/4
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 operands, float32 accumulator.
+// With g = lane/4, t = lane%4: a[0] = (g, 2t..2t+1), a[1] = (g+8, 2t..),
+// a[2] = (g, 2t+8..), a[3] = (g+8, 2t+8..); b0 = (k 2t..2t+1, n g),
+// b1 = (k 2t+8.., n g); c = (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---------------------------------------------------------------------------
+// shared-memory tiles and fragments of the tensor-core kernels
+// ---------------------------------------------------------------------------
+
+// A bf16 tile of rows x D lies in shared memory as 16-byte chunks, D/8 to a
+// row, with the chunk index XORed by the row so that the eight rows one
+// ldmatrix reads at the same column fall in eight distinct bank groups
+// (D = 32: two rows share a 128-byte line, so the XOR takes row/2).
+// Returns the element offset of (row, 8 * chunk).
+template <int D>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  constexpr int CH = D / 8;
+  return (row * CH + (chunk ^ (CH >= 8 ? row & 7 : (row >> 1) & 3))) * 8;
+}
+
+// rows [row0, row0 + ROWS) of a row-major [rows, D] bf16 matrix into a
+// swizzled tile, asynchronously; rows past the end read as 0
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int row0, int rows) {
+  constexpr int CH = D / 8;
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += THREADS) {
+    const int r = idx / CH, c = idx % CH;
+    const bool valid = row0 + r < rows;
+    cp_async16(dst + swz<D>(r, c), src + (valid ? (size_t)(row0 + r) * D + c * 8 : 0), valid);
+  }
+}
+
+// ROWS entries of a per-row float32 vector from row0 on, asynchronously; 0 past the end
+template <int ROWS>
+__device__ __forceinline__ void load_rows_async(float* dst, const float* src, int row0, int rows) {
+  for (int r = threadIdx.x; r < ROWS; r += THREADS) {
+    const bool valid = row0 + r < rows;
+    cp_async4(dst + r, src + (valid ? row0 + r : 0), valid);
+  }
+}
+
+// A fragment of rows [r0, r0 + 16) x columns [16 kk, 16 kk + 16) of a tile
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int r0, int kk,
+                                       int lane) {
+  ldmatrix_x4(a, tile + swz<D>(r0 + (lane & 15), 2 * kk + (lane >> 4)));
+}
+
+// B fragments of two n tiles (b[0], b[1]: n rows [n0, n0 + 8); b[2], b[3]:
+// [n0 + 8, n0 + 16)) for a product against the tile's rows, contraction
+// over its columns [16 kk, 16 kk + 16): the tile is B transposed
+template <int D>
+__device__ __forceinline__ void load_b_rows(uint32_t (&b)[4], const bf16* tile, int n0, int kk,
+                                            int lane) {
+  ldmatrix_x4(b, tile + swz<D>(n0 + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1)));
+}
+
+// B fragments of two n tiles (columns [16 nn, 16 nn + 8) and the 8 after)
+// for a contraction over the tile's rows [k0, k0 + 16): the tile is B
+template <int D>
+__device__ __forceinline__ void load_b_cols(uint32_t (&b)[4], const bf16* tile, int k0, int nn,
+                                            int lane) {
+  ldmatrix_x4_trans(b, tile + swz<D>(k0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                     2 * nn + (lane >> 4)));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// x0, x1 (neighbouring columns) as hi = bf16(x), lo = bf16(x - hi), packed
+// as an A-fragment register each
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// The A fragments (hi and lo) of columns [16 ks, 16 ks + 16) of a 16-row
+// float32 accumulator: the C fragments of n tiles 2 ks and 2 ks + 1 are, in
+// the same threads, the A fragment of that 16 x 16 block.
+template <int N>
+__device__ __forceinline__ void split_a(const float (&c)[N][4], int ks, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  split_bf16(c[2 * ks][0], c[2 * ks][1], hi[0], lo[0]);
+  split_bf16(c[2 * ks][2], c[2 * ks][3], hi[1], lo[1]);
+  split_bf16(c[2 * ks + 1][0], c[2 * ks + 1][1], hi[2], lo[2]);
+  split_bf16(c[2 * ks + 1][2], c[2 * ks + 1][3], hi[3], lo[3]);
+}
+
+// acc[16 x D] += x[16 x 16 ks..] . tile[rows 16 ks.., D] for x split in hi and lo
+template <int D, int N>
+__device__ __forceinline__ void mma_split_rows(float (&acc)[D / 8][4], const float (&x)[N][4],
+                                               const bf16* tile, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < N / 2; ++ks) {
+    uint32_t hi[4], lo[4];
+    split_a(x, ks, hi, lo);
+#pragma unroll
+    for (int nn = 0; nn < D / 16; ++nn) {
+      uint32_t b[4];
+      load_b_cols<D>(b, tile, 16 * ks, nn, lane);
+      mma_bf16(acc[2 * nn], hi, b[0], b[1]);
+      mma_bf16(acc[2 * nn], lo, b[0], b[1]);
+      mma_bf16(acc[2 * nn + 1], hi, b[2], b[3]);
+      mma_bf16(acc[2 * nn + 1], lo, b[2], b[3]);
+    }
+  }
+}
+
+// s[16 x N*8] = a_tile[r0.., D] . b_tile[N*8, D]^T and
+// t = c_tile[r0.., D] . d_tile[N*8, D]^T, the two first products of a tile
+template <int D, int N>
+__device__ __forceinline__ void mma_pair_nt(float (&s)[N][4], float (&t)[N][4], const bf16* a_tile,
+                                            const bf16* b_tile, const bf16* c_tile,
+                                            const bf16* d_tile, int r0, int lane) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = t[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4], c[4];
+    load_a<D>(a, a_tile, r0, kk, lane);
+    load_a<D>(c, c_tile, r0, kk, lane);
+#pragma unroll
+    for (int nn = 0; nn < N / 2; ++nn) {
+      uint32_t b[4], d[4];
+      load_b_rows<D>(b, b_tile, 16 * nn, kk, lane);
+      load_b_rows<D>(d, d_tile, 16 * nn, kk, lane);
+      mma_bf16(s[2 * nn], a, b[0], b[1]);
+      mma_bf16(s[2 * nn + 1], a, b[2], b[3]);
+      mma_bf16(t[2 * nn], c, d[0], d[1]);
+      mma_bf16(t[2 * nn + 1], c, d[2], d[3]);
+    }
+  }
+}
+
+// scale * acc rounded to bf16 into rows row0 + g and row0 + g + 8 of a
+// row-major [rows, D] matrix; rows past the end are not stored
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 8][4], float scale,
+                                           int row0, int rows, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * D + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(scale * acc[j][2 * h], scale * acc[j][2 * h + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dq, bfloat16
+//
+// Replaces katib_tpu/ops/flash_attention.py::_dq_kernel (:150, launched by
+// _bwd :245).  One block per (64-row q tile, batch x head), longest causal
+// rows first; warp w owns q rows [16 w, 16 w + 16).  The block keeps its q
+// and dO tiles and streams K and V in 64-row tiles through a two-stage
+// cp.async ring.  Per k tile and warp: s = q.k^T and dp = dO.v^T on the
+// tensor cores, then in registers p = exp(scale * s - lse) and
+// ds = p * (dp - dmd), dmd = rowsum(dO * O) - dlse from the wrapper; then
+// dq += ds.k with ds as a bf16 hi + lo pair.  The mask is evaluated only on
+// tiles that cross the diagonal or the ragged end.
+// Bound on the H100: operations, 3 products of 2*D flops per visible
+// (query, key) pair at 989 TFLOP/s of bf16 tensor cores; the hi/lo pair
+// makes the third product two MMAs, so the tensor cores do 4/3 of the
+// counted work.  Per tile and warp the ldmatrix traffic is 3 k/v tiles for
+// 16 rows of products, which caps mma.sync well below that peak; wgmma and
+// TMA are the next step.
+// ---------------------------------------------------------------------------
+template <int D, bool MASK>
+__device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4], const bf16* s_q, const bf16* s_do,
+                                        const bf16* s_k, const bf16* s_v, int q0, int k0, int sq,
+                                        int sk, int causal, float scale_log2,
+                                        const float (&lse2)[2], const float (&row_dmd)[2]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float s[BK / 8][4], dp[BK / 8][4];
+  mma_pair_nt<D>(s, dp, s_q, s_k, s_do, s_v, 16 * warp, lane);
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      float x = fmaf(s[j][e], scale_log2, -lse2[h]);
+      if (MASK && !visible(q0 + 16 * warp + g + 8 * h, k0 + 8 * j + 2 * t + (e & 1), sq, sk,
+                           sk - sq, causal))
+        x = -INFINITY;  // exp2(-inf) = 0: p is 0 before it is ever formed
+      s[j][e] = exp2f(x) * (dp[j][e] - row_dmd[h]);  // ds
+    }
+  mma_split_rows<D>(acc, s, s_k, lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                const bf16* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ dmd, bf16* __restrict__ dq, int sq, int sk, float scale,
+                int causal) {
+  extern __shared__ uint4 tc_smem[];
+  constexpr int KV = BK * D;  // elements of one k or v tile
+  bf16* s_q = reinterpret_cast<bf16*>(tc_smem);
+  bf16* s_do = s_q + BQ * D;
+  bf16* s_k = s_do + BQ * D;  // two stages each of k and v
+  bf16* s_v = s_k + 2 * KV;
+
+  const int shift = sk - sq;
+  const int n_qt = (sq + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * BQ;
+  const size_t bh = blockIdx.y;
+  q += bh * sq * D;
+  dout += bh * sq * D;
+  dq += bh * sq * D;
+  lse += bh * sq;
+  dmd += bh * sq;
+  k += bh * sk * D;
+  v += bh * sk * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = q0 + 16 * warp;
+
+  const int live = live_k_tiles(q0, sq, sk, shift, causal);
+  load_tile_async<D, BQ>(s_q, q, q0, sq);
+  load_tile_async<D, BQ>(s_do, dout, q0, sq);
+  if (live > 0) {
+    load_tile_async<D, BK>(s_k, k, 0, sk);
+    load_tile_async<D, BK>(s_v, v, 0, sk);
+  }
+  cp_async_commit();
+
+  const float scale_log2 = scale * LOG2E;
+  float lse2[2], row_dmd[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + (lane >> 2) + 8 * h;
+    lse2[h] = row < sq ? lse[row] * LOG2E : 0.f;
+    row_dmd[h] = row < sq ? dmd[row] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kt = 0; kt < live; ++kt) {
+    if (kt + 1 < live) {  // the next tile into the other stage, read two iterations ago
+      load_tile_async<D, BK>(s_k + ((kt + 1) & 1) * KV, k, (kt + 1) * BK, sk);
+      load_tile_async<D, BK>(s_v + ((kt + 1) & 1) * KV, v, (kt + 1) * BK, sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = kt * BK;
+    const bool full = k0 + BK <= sk && q0 + BQ <= sq && (!causal || k0 + BK - 1 <= q0 + shift);
+    const bf16* kb = s_k + (kt & 1) * KV;
+    const bf16* vb = s_v + (kt & 1) * KV;
+    if (full)
+      dq_tile<D, false>(acc, s_q, s_do, kb, vb, q0, k0, sq, sk, causal, scale_log2, lse2, row_dmd);
+    else
+      dq_tile<D, true>(acc, s_q, s_do, kb, vb, q0, k0, sq, sk, causal, scale_log2, lse2, row_dmd);
+    __syncthreads();  // this stage is free for the load two tiles on
+  }
+  cp_async_wait<0>();
+  store_rows<D>(dq, acc, scale, row0, sq, lane);
+}
+
+// ---------------------------------------------------------------------------
+// dk / dv, bfloat16
+//
+// Replaces katib_tpu/ops/flash_attention.py::_dkv_kernel (:190, launched by
+// _bwd :263).  One block per (64-row k tile, batch x head); k tile 0, which
+// sees the most causal rows, is block 0; warp w owns keys [16 w, 16 w + 16).
+// The block keeps its K and V tile and streams q tiles (with their dO, lse
+// and dmd rows) through a two-stage cp.async ring from the first one on or
+// below the diagonal, first_qt = max(0, k0 - shift) / BQ, so the sums stay
+// in the block and nothing is atomic.  Per q tile and warp, in transposed
+// form with keys as rows: s^T = k.q^T and dp^T = v.dO^T on the tensor
+// cores, p^T and ds^T in registers, then dv += p^T.dO and dk += ds^T.q with
+// p^T and ds^T as bf16 hi + lo pairs; dk is scaled once at the store.
+// D = 128 streams 32-row q tiles so that the two D-wide accumulators and
+// the score fragments fit in registers.
+// Bound on the H100: operations, 4 products of 2*D flops per visible pair
+// at 989 TFLOP/s; the hi/lo pairs make the tensor cores do 6/4 of that.
+// ---------------------------------------------------------------------------
+template <int D>
+constexpr int DKV_QR = D >= 128 ? 32 : 64;  // q rows per streamed dk/dv tile
+
+template <int D, bool MASK>
+__device__ __forceinline__ void dkv_tile(float (&dk)[D / 8][4], float (&dv)[D / 8][4],
+                                         const bf16* s_k, const bf16* s_v, const bf16* s_q,
+                                         const bf16* s_do, const float* s_lse, const float* s_dmd,
+                                         int q0, int k0, int sq, int sk, int causal,
+                                         float scale_log2) {
+  constexpr int QR = DKV_QR<D>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float s[QR / 8][4], dp[QR / 8][4];
+  mma_pair_nt<D>(s, dp, s_k, s_q, s_v, s_do, 16 * warp, lane);
+#pragma unroll
+  for (int j = 0; j < QR / 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(s_lse + 8 * j + 2 * t);
+    const float2 m = *reinterpret_cast<const float2*>(s_dmd + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = e & 1;
+      float x = fmaf(s[j][e], scale_log2, -(c ? l.y : l.x) * LOG2E);
+      if (MASK && !visible(q0 + 8 * j + 2 * t + c, k0 + 16 * warp + g + 8 * (e >> 1), sq, sk,
+                           sk - sq, causal))
+        x = -INFINITY;  // exp2(-inf) = 0: p is 0 before it is ever formed
+      s[j][e] = exp2f(x);                               // p^T
+      dp[j][e] = s[j][e] * (dp[j][e] - (c ? m.y : m.x));  // ds^T
+    }
+  }
+  mma_split_rows<D>(dv, s, s_do, lane);
+  mma_split_rows<D>(dk, dp, s_q, lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ dmd,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk, float scale,
+                 int causal) {
+  constexpr int QR = DKV_QR<D>;
+  constexpr int QT = QR * D;  // elements of one q or dO tile
+  extern __shared__ uint4 tc_smem[];
+  bf16* s_k = reinterpret_cast<bf16*>(tc_smem);
+  bf16* s_v = s_k + BK * D;
+  bf16* s_q = s_v + BK * D;  // two stages each of q and dO, then of lse and dmd
+  bf16* s_do = s_q + 2 * QT;
+  float* s_lse = reinterpret_cast<float*>(s_do + 2 * QT);
+  float* s_dmd = s_lse + 2 * QR;
+
+  const int shift = sk - sq;
+  const int k0 = (int)blockIdx.x * BK;
+  const size_t bh = blockIdx.y;
+  q += bh * sq * D;
+  dout += bh * sq * D;
+  lse += bh * sq;
+  dmd += bh * sq;
+  k += bh * sk * D;
+  v += bh * sk * D;
+  dk += bh * sk * D;
+  dv += bh * sk * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  const int n_qt = (sq + QR - 1) / QR;
+  const int first_qt = causal ? max(0, k0 - shift) / QR : 0;
+  auto load_q_stage = [&](int qt) {
+    const int st = (qt - first_qt) & 1;
+    load_tile_async<D, QR>(s_q + st * QT, q, qt * QR, sq);
+    load_tile_async<D, QR>(s_do + st * QT, dout, qt * QR, sq);
+    load_rows_async<QR>(s_lse + st * QR, lse, qt * QR, sq);
+    load_rows_async<QR>(s_dmd + st * QR, dmd, qt * QR, sq);
+  };
+  load_tile_async<D, BK>(s_k, k, k0, sk);
+  load_tile_async<D, BK>(s_v, v, k0, sk);
+  if (first_qt < n_qt) load_q_stage(first_qt);
+  cp_async_commit();
+
+  const float scale_log2 = scale * LOG2E;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  for (int qt = first_qt; qt < n_qt; ++qt) {
+    if (qt + 1 < n_qt) {  // the next tile into the other stage, read two iterations ago
+      load_q_stage(qt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = qt * QR, st = (qt - first_qt) & 1;
+    const bool full = q0 + QR <= sq && k0 + BK <= sk && (!causal || k0 + BK - 1 <= q0 + shift);
+    if (full)
+      dkv_tile<D, false>(dk_acc, dv_acc, s_k, s_v, s_q + st * QT, s_do + st * QT, s_lse + st * QR,
+                         s_dmd + st * QR, q0, k0, sq, sk, causal, scale_log2);
+    else
+      dkv_tile<D, true>(dk_acc, dv_acc, s_k, s_v, s_q + st * QT, s_do + st * QT, s_lse + st * QR,
+                        s_dmd + st * QR, q0, k0, sq, sk, causal, scale_log2);
+    __syncthreads();  // this stage is free for the load two tiles on
+  }
+  cp_async_wait<0>();
+  store_rows<D>(dk, dk_acc, scale, k0 + 16 * warp, sk, lane);
+  store_rows<D>(dv, dv_acc, 1.f, k0 + 16 * warp, sk, lane);
+}
+
+// ---------------------------------------------------------------------------
 // launchers: dynamic shared memory above 48 KB needs the attribute raised
 // once per instantiation and device, before the first launch there (and so
 // outside any CUDA graph capture, which the callers warm up before)
@@ -507,16 +986,32 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   return cudaGetLastError();
 }
 
+// cp.async copies 16-byte chunks: the bf16 tensors must start 16-byte aligned
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* dmd, void* dq, int bh, int sq, int sk,
                       float scale, int causal, cudaStream_t stream) {
   static bool ready[kMaxDevices] = {};
-  const size_t smem = (4 * TILE * (D + 1) + TILE * PLD) * sizeof(float);
-  cudaError_t err = allow_smem(flash_dq_kernel<T, D>, smem, ready);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sq + TILE - 1) / TILE, bh);
-  flash_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse, (const float*)dmd, (T*)dq, sq, sk, scale, causal);
+  if constexpr (std::is_same_v<T, bf16>) {
+    if (!aligned16({q, k, v, dout, dq})) return cudaErrorMisalignedAddress;
+    const size_t smem = (2 * BQ * D + 4 * BK * D) * sizeof(bf16);
+    cudaError_t err = allow_smem(flash_dq_kernel<D>, smem, ready);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((sq + BQ - 1) / BQ, bh);
+    flash_dq_kernel<D><<<grid, THREADS, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse, (const float*)dmd, (bf16*)dq, sq, sk, scale, causal);
+  } else {
+    const size_t smem = (4 * TILE * (D + 1) + TILE * PLD) * sizeof(float);
+    cudaError_t err = allow_smem(flash_dq_fma_kernel<D>, smem, ready);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((sq + TILE - 1) / TILE, bh);
+    flash_dq_fma_kernel<D><<<grid, THREADS, smem, stream>>>((const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse, (const float*)dmd, (float*)dq, sq, sk, scale, causal);
+  }
   return cudaGetLastError();
 }
 
@@ -525,11 +1020,21 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        const void* lse, const void* dmd, void* dk, void* dv, int bh, int sq,
                        int sk, float scale, int causal, cudaStream_t stream) {
   static bool ready[kMaxDevices] = {};
-  const size_t smem = (4 * TILE * (D + 1) + 2 * TILE * PLD + 2 * TILE) * sizeof(float);
-  cudaError_t err = allow_smem(flash_dkv_kernel<T, D>, smem, ready);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sk + TILE - 1) / TILE, bh);
-  flash_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse, (const float*)dmd, (T*)dk, (T*)dv, sq, sk, scale, causal);
+  if constexpr (std::is_same_v<T, bf16>) {
+    if (!aligned16({q, k, v, dout, dk, dv})) return cudaErrorMisalignedAddress;
+    constexpr int QR = DKV_QR<D>;
+    const size_t smem = (2 * BK * D + 4 * QR * D) * sizeof(bf16) + 4 * QR * sizeof(float);
+    cudaError_t err = allow_smem(flash_dkv_kernel<D>, smem, ready);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((sk + BK - 1) / BK, bh);
+    flash_dkv_kernel<D><<<grid, THREADS, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse, (const float*)dmd, (bf16*)dk, (bf16*)dv, sq, sk, scale, causal);
+  } else {
+    const size_t smem = (4 * TILE * (D + 1) + 2 * TILE * PLD + 2 * TILE) * sizeof(float);
+    cudaError_t err = allow_smem(flash_dkv_fma_kernel<D>, smem, ready);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((sk + TILE - 1) / TILE, bh);
+    flash_dkv_fma_kernel<D><<<grid, THREADS, smem, stream>>>((const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse, (const float*)dmd, (float*)dk, (float*)dv, sq, sk, scale, causal);
+  }
   return cudaGetLastError();
 }
 

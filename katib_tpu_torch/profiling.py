@@ -49,7 +49,10 @@ def profile_step(
         prof.export_chrome_trace(trace)
 
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a range such as the optimizer's step annotation also shows on the
+    # device timeline; it spans kernels counted on their own, so it is no kernel
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     device_us = sum(e.self_device_time_total for e in kernels) / steps
     n_kernels = sum(e.count for e in kernels) / steps
     host_ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
