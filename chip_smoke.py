@@ -6,7 +6,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build every CUDA kernel of the port from the sources in this checkout
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source, all started together), print each kernel's
+   registers and fail if any spills;
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, forward and gradient;
 4. time each kernel, its plain version and the one PyTorch call that
@@ -44,8 +45,9 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 
 TRANSFORMER_STEPS = 10  # steps of the transformer main path
-# the float32-FMA bf16 backward kernels that the tensor-core ones replaced, at
-# the main path's attention shape on an H100 SXM at 700 W (PERF.md section 6)
+# the float32-FMA bf16 kernels that the tensor-core ones replaced, at the main
+# path's attention shape on an H100 SXM at 700 W (PERF.md section 6)
+FMA_FORWARD_MS = 3.5548
 FMA_BACKWARD_MS = {"dq": 6.4359, "dkv": 6.5682}
 
 def long_context() -> tuple[dict, tuple[int, int, int, int]]:
@@ -314,13 +316,16 @@ def phase_flash_timing(torch, fa) -> dict[str, dict]:
         out[name] = {"ms": ms[name], "plain_ms": plain[name], "library_ms": library[name],
                      "bound_ms": max(ops_ms, bytes_ms),
                      "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
-        earlier = (f"; {FMA_BACKWARD_MS[name] / ms[name]:.2f}x faster than the float32-FMA "
-                   f"design's {FMA_BACKWARD_MS[name]:.4f} ms" if name in FMA_BACKWARD_MS else "")
+        fma_ms = {"fwd": FMA_FORWARD_MS, **FMA_BACKWARD_MS}[name]
+        earlier = f"; {fma_ms / ms[name]:.2f}x faster than the float32-FMA design's {fma_ms:.4f} ms"
         print(f"flash timing {name} {[b, h, s, d]} bf16 causal: kernel_ms={ms[name]:.4f} "
               f"plain_ms={plain[name]:.4f} library_ms={library[name]:.4f} "
               f"bound_ms={out[name]['bound_ms']:.4f} ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s, "
               f"{moved / 1e6:.1f} MB at 3.35 TB/s; {out[name]['bound_ms'] / ms[name]:.1%} of the "
               f"bound; {flops / ms[name] / 1e9:.1f} TFLOP/s{earlier})", flush=True)
+    print(f"flash timing: library forward {sdpa_fwd:.4f} ms vs kernel fwd {ms['fwd']:.4f} ms "
+          f"({ms['fwd'] / sdpa_fwd:.1f}x; the float32-FMA forward {FMA_FORWARD_MS:.4f} ms)",
+          flush=True)
     pair = ms["dq"] + ms["dkv"]
     print(f"flash timing: library backward (dq+dk+dv in one call) {sdpa_bwd:.4f} ms vs "
           f"kernels dq+dkv {pair:.4f} ms ({pair / sdpa_bwd:.1f}x; the float32-FMA pair "
@@ -505,6 +510,11 @@ def main() -> int:
     t_start = t0 = time.perf_counter()
     built = _build.build(["mixed_op", "flash_attention"])
     print(f"build: {built} ({time.perf_counter() - t0:.2f}s wall)", flush=True)
+    for name in built:
+        for kernel, (registers, spilled) in _build.ptxas_report(name).items():
+            print(f"ptxas {kernel}: {registers} registers, {spilled} bytes spilled", flush=True)
+            # the flash kernels keep their fragments and accumulators in registers
+            check(name != "flash_attention" or spilled == 0, f"{kernel} spills {spilled} bytes")
 
     max_err = phase_kernel_parity(torch, mixed_op)
     flash_err = phase_flash_parity(torch, fa)

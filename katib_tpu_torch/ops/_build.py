@@ -5,7 +5,8 @@ plain C interface (no PyTorch headers, so a build takes seconds).  The
 library lands in ``build/katib_tpu_torch/`` beside the package, named by a
 digest of its source and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is.  Sources that need building are compiled
-by one ``nvcc`` process each, all started together.
+by one ``nvcc`` process each, all started together.  ``ptxas -v``'s report
+(registers and spills of every kernel) is kept beside each library.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "katib_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -72,10 +74,39 @@ def build(names: list[str]) -> dict[str, float]:
         if proc.returncode != 0:
             failures.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: another process loading it sees a whole file
     if failures:
         raise RuntimeError("\n".join(failures))
     return seconds
+
+
+def _demangle(names: list[str]) -> list[str]:
+    """C++ symbol names demangled by ``c++filt`` where it is installed."""
+    tool = shutil.which("c++filt")
+    if tool is None or not names:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True)
+    lines = out.stdout.splitlines()
+    return lines if out.returncode == 0 and len(lines) == len(names) else names
+
+
+def ptxas_report(name: str) -> dict[str, tuple[int, int]]:
+    """``{kernel: (registers, spilled bytes stored + loaded)}`` for every
+    kernel of the built ``csrc/<name>.cu``, from the compiler's log."""
+    rows, kernel, spilled = [], None, 0
+    for line in library_path(name).with_suffix(".log").read_text().splitlines():
+        if m := re.search(r"Compiling entry function '(.*?)' for", line):
+            kernel = m[1]
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spilled = int(m[1]) + int(m[2])
+        elif (m := re.search(r"Used (\d+) registers", line)) and kernel is not None:
+            rows.append((kernel, int(m[1]), spilled))
+    report = {}
+    for full, (_, registers, spilled) in zip(_demangle([r[0] for r in rows]), rows):
+        short = re.search(r"(\w+(?:<[^<>()]*>)?)\(", full)  # drop scope and arguments
+        report[short[1] if short else full] = (registers, spilled)
+    return report
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -19,7 +19,24 @@
 // so in both each kernel walks its own loop over the other sequence's tiles;
 // nothing carries between blocks and nothing is atomic.
 //
-// float32-FMA kernels: the forward (both dtypes) and the float32 backward.
+// Tensor-core kernels: the three bfloat16 kernels (flash_fwd_kernel,
+// flash_dq_kernel, flash_dkv_kernel).  Every product is mma.sync m16n8k16
+// with bf16 operands and float32 accumulators; four warps per block, each
+// owning 16 rows of the block's 64-row tile.  Operands come from bf16 tiles
+// in swizzled shared memory through ldmatrix (.trans for the transposed
+// ones), streamed by cp.async into a two-stage ring so the next tile lands
+// while this one computes.  The scores, p and ds never leave registers: the
+// accumulator fragment of the first product is the A fragment of the
+// second, and a row's softmax statistics are reduced over the four lanes
+// that hold it.  p and ds enter the second product as a bf16 pair,
+// hi = bf16(x) and lo = bf16(x - hi), two MMAs into one float32
+// accumulator: rounding them to one bf16 (2^-9 relative per term) would
+// miss the one-bf16-spacing tolerance the kernels are held to by tens of
+// times, the pair keeps 16 bits.  So the tensor cores do 3/2 of the
+// forward's counted work, 4/3 of dq's and 6/4 of dk/dv's.
+//
+// float32-FMA kernels: the float32 forward, dq and dk/dv
+// (flash_fwd_fma_kernel, flash_dq_fma_kernel, flash_dkv_fma_kernel).
 // 64-row q and k tiles held in shared memory as float32 (row stride D + 1,
 // so the column walks hit distinct banks); 128 threads, each owning a 4 x 8
 // patch of the 64 x 64 score tile (rows ty*4 + i, columns tx + 8*j) and the
@@ -27,19 +44,6 @@
 // group are eight neighbouring lanes, so row reductions are three xor
 // shuffles.  Products are plain float32 FMAs from shared memory: exact in
 // f32 (which tensor cores would round) rather than fast.
-//
-// Tensor-core kernels: the bfloat16 backward (flash_dq_kernel,
-// flash_dkv_kernel).  Every product is mma.sync m16n8k16 with bf16 operands
-// and float32 accumulators; four warps per block, each owning 16 rows of
-// the block's 64-row tile.  Operands come from bf16 tiles in swizzled shared
-// memory through ldmatrix (.trans for the transposed ones), streamed by
-// cp.async into a two-stage ring so the next tile lands while this one
-// computes.  p and ds never leave registers: the accumulator fragment of the
-// first product is the A fragment of the second.  They enter the second
-// product as a bf16 pair, hi = bf16(x) and lo = bf16(x - hi), two MMAs into
-// one float32 accumulator: rounding them to one bf16 (2^-9 relative per
-// term) would miss the one-bf16-spacing tolerance the kernels are held to by
-// tens of times, the pair keeps 16 bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,18 +62,13 @@ constexpr int TC = 8;           // score-tile columns per thread, strided by 8
 constexpr int PLD = TILE + 1;   // padded row stride of the 64 x 64 tiles
 constexpr float MASK_VALUE = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 // rows [row0, row0 + TILE) of a row-major [rows, D] matrix into shared
-// memory as float32, row stride D + 1; rows past the end read as 0
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, int rows) {
+// memory, row stride D + 1; rows past the end read as 0
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int rows) {
   for (int idx = threadIdx.x; idx < TILE * D; idx += THREADS) {
     const int r = idx / D, c = idx % D;
-    dst[r * (D + 1) + c] = row0 + r < rows ? to_f32(src[(size_t)(row0 + r) * D + c]) : 0.f;
+    dst[r * (D + 1) + c] = row0 + r < rows ? src[(size_t)(row0 + r) * D + c] : 0.f;
   }
 }
 
@@ -78,18 +77,19 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int row0
   for (int r = threadIdx.x; r < TILE; r += THREADS) dst[r] = row0 + r < rows ? src[row0 + r] : 0.f;
 }
 
-// reductions over the eight neighbouring lanes that share a row group
+// reductions over the LANES neighbouring lanes that share a row: eight in
+// the FMA kernels' row groups, the four of a quad in an mma.sync C fragment
+template <int LANES>
 __device__ __forceinline__ float group_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+#pragma unroll
+  for (int mask = 1; mask < LANES; mask *= 2) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, mask));
   return x;
 }
 
+template <int LANES>
 __device__ __forceinline__ float group_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
+#pragma unroll
+  for (int mask = 1; mask < LANES; mask *= 2) x += __shfl_xor_sync(0xffffffffu, x, mask);
   return x;
 }
 
@@ -107,25 +107,22 @@ __device__ __forceinline__ int live_k_tiles(int q0, int sq, int sk, int shift, i
 }
 
 // ---------------------------------------------------------------------------
-// forward
+// float32 forward
 //
-// Replaces katib_tpu/ops/flash_attention.py::_fwd_kernel (:60, launched by
-// _fwd :121).  One block per (q tile, batch x head); q tiles are taken
-// longest-first so the causal tail of the grid is short.  K and V stream
-// through shared memory in 64-row tiles; the running (o, m, l) of the
-// online softmax stay in float32 registers; causal tiles past the diagonal
-// are skipped.
-// Bound on the H100: operations (2 products of 2*D flops per visible
-// (query, key) pair; 989 TFLOP/s in bf16 tensor cores).  This design runs
-// its products on the float32 FMA units (67 TFLOP/s) from shared memory,
-// so it sits far above that bound; the probabilities go through shared
-// memory once per tile and never to device memory.
+// The float32 instantiation of katib_tpu/ops/flash_attention.py::_fwd_kernel
+// (:60, launched by _fwd :121); the bfloat16 one is flash_fwd_kernel below.
+// One block per (q tile, batch x head); q tiles are taken longest-first so
+// the causal tail of the grid is short.  K and V stream through shared
+// memory in 64-row tiles; the running (o, m, l) of the online softmax stay
+// in float32 registers; causal tiles past the diagonal are skipped; the
+// probabilities go through shared memory once per tile and never to device
+// memory.  Its products run on the float32 FMA units (67 TFLOP/s).
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int sq, int sk, float scale,
-                 int causal) {
+flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int sq, int sk, float scale, int causal) {
   extern __shared__ float smem[];
   constexpr int LD = D + 1, DC = D / 8;
   float* s_q = smem;
@@ -153,13 +150,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
-  load_tile<T, D>(s_q, q, q0, sq);
+  load_tile<D>(s_q, q, q0, sq);
   const int live = live_k_tiles(q0, sq, sk, shift, causal);
   for (int kt = 0; kt < live; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(s_k, k, k0, sk);
-    load_tile<T, D>(s_v, v, k0, sk);
+    load_tile<D>(s_k, k, k0, sk);
+    load_tile<D>(s_v, v, k0, sk);
     __syncthreads();
 
     float s[TR][TC];
@@ -191,7 +188,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         s[i][j] *= scale;
         if (vis[j]) mx = fmaxf(mx, s[i][j]);
       }
-      const float m_new = fmaxf(m[i], group_max(mx));
+      const float m_new = fmaxf(m[i], group_max<8>(mx));
       const float alpha = expf(m[i] - m_new);
       float rs = 0.f;
 #pragma unroll
@@ -200,7 +197,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         s_p[(ty * TR + i) * PLD + tx + 8 * j] = p;
         rs += p;
       }
-      l[i] = l[i] * alpha + group_sum(rs);
+      l[i] = l[i] * alpha + group_sum<8>(rs);
       m[i] = m_new;
 #pragma unroll
       for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
@@ -228,7 +225,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const bool seen = l[i] > 0.f;
 #pragma unroll
     for (int jj = 0; jj < DC; ++jj)
-      store(o + (size_t)row * D + tx + 8 * jj, seen ? acc[i][jj] / l[i] : 0.f);
+      o[(size_t)row * D + tx + 8 * jj] = seen ? acc[i][jj] / l[i] : 0.f;
     if (tx == 0) lse[row] = seen ? m[i] + logf(l[i]) : MASK_VALUE;
   }
 }
@@ -241,9 +238,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // One block per (q tile, batch x head), longest causal rows first.  Streams
 // K and V, recomputes p from the saved logsumexp, ds = p * (dO.v - dmd)
 // with dmd = rowsum(dO * O) - dlse computed by the wrapper, and accumulates
-// dq = scale * ds.k in float32 registers.  Same float32-FMA design as the
-// forward; ds goes through shared memory once per tile and never to device
-// memory.
+// dq = scale * ds.k in float32 registers.  Same float32-FMA design as
+// flash_fwd_fma_kernel; ds goes through shared memory once per tile and
+// never to device memory.
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(THREADS)
@@ -282,14 +279,14 @@ flash_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
-  load_tile<float, D>(s_q, q, q0, sq);
-  load_tile<float, D>(s_do, dout, q0, sq);
+  load_tile<D>(s_q, q, q0, sq);
+  load_tile<D>(s_do, dout, q0, sq);
   const int live = live_k_tiles(q0, sq, sk, shift, causal);
   for (int kt = 0; kt < live; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();
-    load_tile<float, D>(s_k, k, k0, sk);
-    load_tile<float, D>(s_v, v, k0, sk);
+    load_tile<D>(s_k, k, k0, sk);
+    load_tile<D>(s_v, v, k0, sk);
     __syncthreads();
 
     float s[TR][TC], dp[TR][TC];
@@ -350,7 +347,7 @@ flash_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + ty * TR + i;
     if (row >= sq) continue;
 #pragma unroll
-    for (int jj = 0; jj < DC; ++jj) store(dq + (size_t)row * D + tx + 8 * jj, scale * acc[i][jj]);
+    for (int jj = 0; jj < DC; ++jj) dq[(size_t)row * D + tx + 8 * jj] = scale * acc[i][jj];
   }
 }
 
@@ -404,15 +401,15 @@ flash_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
-  load_tile<float, D>(s_k, k, k0, sk);
-  load_tile<float, D>(s_v, v, k0, sk);
+  load_tile<D>(s_k, k, k0, sk);
+  load_tile<D>(s_v, v, k0, sk);
   const int n_qt = (sq + TILE - 1) / TILE;
   const int first_qt = causal ? max(0, k0 - shift) / TILE : 0;
   for (int qt = first_qt; qt < n_qt; ++qt) {
     const int q0 = qt * TILE;
     __syncthreads();
-    load_tile<float, D>(s_q, q, q0, sq);
-    load_tile<float, D>(s_do, dout, q0, sq);
+    load_tile<D>(s_q, q, q0, sq);
+    load_tile<D>(s_do, dout, q0, sq);
     load_rows(s_lse, lse, q0, sq);
     load_rows(s_dmd, dmd, q0, sq);
     __syncthreads();
@@ -488,18 +485,18 @@ flash_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (col >= sk) continue;
 #pragma unroll
     for (int jj = 0; jj < DC; ++jj) {
-      store(dk + (size_t)col * D + tx + 8 * jj, scale * dk_acc[i][jj]);
-      store(dv + (size_t)col * D + tx + 8 * jj, dv_acc[i][jj]);
+      dk[(size_t)col * D + tx + 8 * jj] = scale * dk_acc[i][jj];
+      dv[(size_t)col * D + tx + 8 * jj] = dv_acc[i][jj];
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core building blocks of the bfloat16 backward: the only inline PTX
+// tensor-core building blocks of the bfloat16 kernels: the only inline PTX
 // ---------------------------------------------------------------------------
 
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int BQ = 64;  // q rows per dq block (16 per warp)
+constexpr int BQ = 64;  // q rows per forward and dq block (16 per warp)
 constexpr int BK = 64;  // k rows per dk/dv block (16 per warp), and per streamed k tile
 static_assert(BK == TILE, "dq counts its k tiles with live_k_tiles");
 
@@ -695,6 +692,25 @@ __device__ __forceinline__ void mma_pair_nt(float (&s)[N][4], float (&t)[N][4], 
   }
 }
 
+// s[16 x N*8] = a[16 x D] . b_tile[N*8, D]^T with a's A fragments in registers
+template <int D, int N>
+__device__ __forceinline__ void mma_nt(float (&s)[N][4], const uint32_t (&a)[D / 16][4],
+                                       const bf16* b_tile, int lane) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int nn = 0; nn < N / 2; ++nn) {
+      uint32_t b[4];
+      load_b_rows<D>(b, b_tile, 16 * nn, kk, lane);
+      mma_bf16(s[2 * nn], a[kk], b[0], b[1]);
+      mma_bf16(s[2 * nn + 1], a[kk], b[2], b[3]);
+    }
+}
+
 // scale * acc rounded to bf16 into rows row0 + g and row0 + g + 8 of a
 // row-major [rows, D] matrix; rows past the end are not stored
 template <int D>
@@ -710,6 +726,156 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 8][
       *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * D + 8 * j + 2 * t) =
           __floats2bfloat162_rn(scale * acc[j][2 * h], scale * acc[j][2 * h + 1]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// forward, bfloat16
+//
+// Replaces katib_tpu/ops/flash_attention.py::_fwd_kernel (:60, launched by
+// _fwd :121).  One block per (64-row q tile, batch x head), longest causal
+// rows first; warp w owns q rows [16 w, 16 w + 16).  The block loads its q
+// tile once through cp.async and keeps each warp's A fragments of it in
+// registers; K and V stream in 64-row tiles through a two-stage cp.async
+// ring, and k tiles past the diagonal are skipped.  Per k tile and warp:
+// s = q.k^T on the tensor cores; the online softmax on s's C fragment in
+// registers, in the exp2 domain (scale * log2 e folded into exp2's FMA),
+// each row's max reduced over the four lanes of its quad, the running sum
+// kept per lane and reduced once at the end; the accumulator rescaled by
+// alpha = exp2(m_old - m_new); then o += p.V with p as a bf16 hi + lo pair.
+// The running max starts at the finite -1e30, so a row whose tile is fully
+// masked gets alpha = 1 and p = exp2(-inf) = 0, never inf - inf.  The mask
+// is evaluated only on tiles that cross the diagonal or the ragged end.
+// At the store o = acc / l, rounded once to bf16, and lse = m ln 2 + ln l;
+// a row that saw no key (l = 0) gets o = 0 and lse = -1e30.
+// Bound on the H100: operations, 2 products of 2*D flops per visible
+// (query, key) pair at 989 TFLOP/s of bf16 tensor cores; the hi/lo pair
+// makes the second product two MMAs, so the tensor cores do 3/2 of the
+// counted work.  mma.sync fed by ldmatrix (one k and one v tile per 16
+// rows of products), and each warp's softmax between its two products (an
+// exp2 and about ten other instructions per score), keep it far below that
+// peak; wgmma and TMA are the next step.
+// ---------------------------------------------------------------------------
+template <int D, bool MASK>
+__device__ __forceinline__ void fwd_tile(float (&acc)[D / 8][4], float (&m)[2], float (&l)[2],
+                                         const uint32_t (&qa)[D / 16][4], const bf16* s_k,
+                                         const bf16* s_v, int q0, int k0, int sq, int sk,
+                                         int causal, float scale_log2) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float s[BK / 8][4];
+  mma_nt<D>(s, qa, s_k, lane);
+  float row_max[2] = {-INFINITY, -INFINITY};  // of the unscaled scores
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      if (MASK && !visible(q0 + 16 * warp + g + 8 * h, k0 + 8 * j + 2 * t + (e & 1), sq, sk,
+                           sk - sq, causal))
+        s[j][e] = -INFINITY;  // exp2(-inf) = 0: p is 0 before it is ever formed
+      row_max[h] = fmaxf(row_max[h], s[j][e]);
+    }
+  float alpha[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m_new = fmaxf(m[h], group_max<4>(row_max[h]) * scale_log2);
+    alpha[h] = exp2f(m[h] - m_new);
+    m[h] = m_new;
+    l[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = exp2f(fmaf(s[j][e], scale_log2, -m[e >> 1]));  // p
+      l[e >> 1] += s[j][e];
+    }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+  mma_split_rows<D>(acc, s, s_v, lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                 int sq, int sk, float scale, int causal) {
+  extern __shared__ uint4 tc_smem[];
+  constexpr int KV = BK * D;  // elements of one k or v tile
+  bf16* s_q = reinterpret_cast<bf16*>(tc_smem);
+  bf16* s_k = s_q + BQ * D;  // two stages each of k and v
+  bf16* s_v = s_k + 2 * KV;
+
+  const int shift = sk - sq;
+  const int n_qt = (sq + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * BQ;
+  const size_t bh = blockIdx.y;
+  q += bh * sq * D;
+  o += bh * sq * D;
+  lse += bh * sq;
+  k += bh * sk * D;
+  v += bh * sk * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = q0 + 16 * warp;
+
+  const int live = live_k_tiles(q0, sq, sk, shift, causal);
+  load_tile_async<D, BQ>(s_q, q, q0, sq);
+  if (live > 0) {
+    load_tile_async<D, BK>(s_k, k, 0, sk);
+    load_tile_async<D, BK>(s_v, v, 0, sk);
+  }
+  cp_async_commit();
+
+  const float scale_log2 = scale * LOG2E;
+  uint32_t qa[D / 16][4];
+  float acc[D / 8][4], m[2] = {MASK_VALUE, MASK_VALUE}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kt = 0; kt < live; ++kt) {
+    if (kt + 1 < live) {  // the next tile into the other stage, read two iterations ago
+      load_tile_async<D, BK>(s_k + ((kt + 1) & 1) * KV, k, (kt + 1) * BK, sk);
+      load_tile_async<D, BK>(s_v + ((kt + 1) & 1) * KV, v, (kt + 1) * BK, sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0) {  // the q tile landed with the first k/v stage
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) load_a<D>(qa[kk], s_q, 16 * warp, kk, lane);
+    }
+    const int k0 = kt * BK;
+    const bool full = k0 + BK <= sk && q0 + BQ <= sq && (!causal || k0 + BK - 1 <= q0 + shift);
+    const bf16* kb = s_k + (kt & 1) * KV;
+    const bf16* vb = s_v + (kt & 1) * KV;
+    if (full)
+      fwd_tile<D, false>(acc, m, l, qa, kb, vb, q0, k0, sq, sk, causal, scale_log2);
+    else
+      fwd_tile<D, true>(acc, m, l, qa, kb, vb, q0, k0, sq, sk, causal, scale_log2);
+    __syncthreads();  // this stage is free for the load two tiles on
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = group_sum<4>(l[h]);
+    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][2 * h] *= inv;
+      acc[j][2 * h + 1] *= inv;
+    }
+    const int row = row0 + (lane >> 2) + 8 * h;
+    if ((lane & 3) == 0 && row < sq)
+      lse[row] = l[h] > 0.f ? m[h] / LOG2E + logf(l[h]) : MASK_VALUE;
+  }
+  store_rows<D>(o, acc, 1.f, row0, sq, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -974,23 +1140,32 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool (&done)[kMaxDevices]) {
   return err;
 }
 
-template <typename T, int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                       int sq, int sk, float scale, int causal, cudaStream_t stream) {
-  static bool ready[kMaxDevices] = {};
-  const size_t smem = (3 * TILE * (D + 1) + TILE * PLD) * sizeof(float);
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, smem, ready);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sq + TILE - 1) / TILE, bh);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, sq, sk, scale, causal);
-  return cudaGetLastError();
-}
-
 // cp.async copies 16-byte chunks: the bf16 tensors must start 16-byte aligned
 bool aligned16(std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16) return false;
   return true;
+}
+
+template <typename T, int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                       int sq, int sk, float scale, int causal, cudaStream_t stream) {
+  static bool ready[kMaxDevices] = {};
+  if constexpr (std::is_same_v<T, bf16>) {
+    if (!aligned16({q, k, v, o})) return cudaErrorMisalignedAddress;
+    const size_t smem = (BQ * D + 4 * BK * D) * sizeof(bf16);
+    cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem, ready);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((sq + BQ - 1) / BQ, bh);
+    flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, sq, sk, scale, causal);
+  } else {
+    const size_t smem = (3 * TILE * (D + 1) + TILE * PLD) * sizeof(float);
+    cudaError_t err = allow_smem(flash_fwd_fma_kernel<D>, smem, ready);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((sq + TILE - 1) / TILE, bh);
+    flash_fwd_fma_kernel<D><<<grid, THREADS, smem, stream>>>((const float*)q, (const float*)k, (const float*)v, (float*)o, (float*)lse, sq, sk, scale, causal);
+  }
+  return cudaGetLastError();
 }
 
 template <typename T, int D>

@@ -10,8 +10,8 @@ kernels are held against the plain versions on the card (``chip_smoke.py``
 and the ``cuda``-marked test below).  Here the kernels' CUDA source also
 runs on the CPU, compiled with ``g++`` against the stand-in headers of
 ``tests/cuda_host/``, against the plain versions; and the rounding of the
-bf16 tensor-core backward kernels is emulated in plain torch and held
-against the JAX kernels under the card's tolerance.
+bf16 tensor-core kernels is emulated in plain torch and held against the
+JAX kernels under the card's tolerance.
 """
 
 from __future__ import annotations
@@ -240,10 +240,11 @@ def _bf16_values(t: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_backward_of_bf16_inputs(sq, sk, d):
+def _jax_kernels_on_bf16_inputs(sq, sk, d):
     """q, k, v, dO, lse, dmd (float32 holding bf16 values, as the kernels
-    see them) and the JAX ``_dq_kernel``/``_dkv_kernel`` results on them in
-    float32, Pallas interpret mode, causal."""
+    see them) and the JAX ``_fwd_kernel`` (o, lse) and
+    ``_dq_kernel``/``_dkv_kernel`` (dq, dk, dv) results on them in float32,
+    Pallas interpret mode, causal."""
     rng = np.random.default_rng(7)
     x = [_bf16_values(torch.from_numpy(rng.normal(size=(1, 2, n, d)).astype(np.float32)))
          for n in (sq, sk, sk, sq)]
@@ -252,42 +253,76 @@ def _jax_backward_of_bf16_inputs(sq, sk, d):
     o, lse = jax_flash(*jx[:3], True, None, 32, 32, True)
     want = jax_flash_bwd(*jx[:3], o, lse, jx[3], jnp.asarray(dlse), sm_scale=d ** -0.5,
                          causal=True, block_q=32, block_k=32, interpret=True)
-    lse, o = torch.from_numpy(np.array(lse)), torch.from_numpy(np.array(o))
-    dmd = (x[3] * o).sum(-1) - torch.from_numpy(dlse)
-    return (*x, lse, dmd), [torch.from_numpy(np.array(w)) for w in want]
+    o_lse = [torch.from_numpy(np.array(t)) for t in (o, lse)]
+    dmd = (x[3] * o_lse[0]).sum(-1) - torch.from_numpy(dlse)
+    return (*x, o_lse[1], dmd), o_lse + [torch.from_numpy(np.array(w)) for w in want]
+
+
+def _second_product(x, eq, y, split: bool):
+    """``einsum(eq, x, y)`` with x handed to the tensor cores as a bf16
+    hi + lo pair (two products into one float32 sum) or, with ``split``
+    False, rounded to one bf16."""
+    hi = _bf16_values(x)
+    parts = (hi, _bf16_values(x - hi)) if split else (hi,)
+    return sum(torch.einsum(eq, part, y) for part in parts)
+
+
+def _tensor_core_forward_rounding(q, k, v, scale, split: bool, tile=64):
+    """The bf16 forward kernel's arithmetic in plain torch, causal: k tiles
+    of ``tile`` keys in order, scores in float32 from bf16 operands, a
+    running max from -1e30 with masked scores -inf, the running sum of the
+    float32 p, the accumulator rescaled by alpha before each tile's P.V,
+    p handed to P.V as in ``_second_product``; o = acc / l rounded once to
+    bf16, lse = m + log l, and a row that saw no key gets o 0, lse -1e30."""
+    sq, sk = q.shape[2], k.shape[2]
+    mask = fa._causal_mask(sq, sk, q.device)
+    m = torch.full((*q.shape[:3], 1), fa.MASK_VALUE)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    for k0 in range(0, sk, tile):
+        kt, vt = k[:, :, k0:k0 + tile], v[:, :, k0:k0 + tile]
+        s = torch.einsum("bhqd,bhkd->bhqk", q, kt) * scale
+        s = torch.where(mask[:, k0:k0 + tile], s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _second_product(p, "bhqk,bhkd->bhqd", vt, split)
+        m = m_new
+    o = torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
+    lse = torch.where(l > 0, m + torch.log(l), fa.MASK_VALUE)[..., 0]
+    return o.to(torch.bfloat16), lse
 
 
 def _tensor_core_rounding(q, k, v, do, lse, dmd, scale, split: bool):
-    """The bf16 dq and dk/dv kernels' arithmetic in plain torch: bf16
-    operands, float32 products and sums, p and ds handed to the second
-    products as a bf16 hi + lo pair (two products into one float32 sum) or,
-    with ``split`` False, rounded to one bf16; one bf16 store."""
+    """The bf16 kernels' arithmetic in plain torch: bf16 operands, float32
+    products and sums, p (forward, dk/dv) and ds (dq, dk/dv) handed to the
+    second products as in ``_second_product``; one bf16 store of o, dq, dk
+    and dv (lse stays float32).  The backward takes the JAX forward's lse,
+    as the card's parity cases take the kernel's own."""
+    o, lse_fwd = _tensor_core_forward_rounding(q, k, v, scale, split)
     p, ds = fa._probs_and_ds(q, k, v, do, lse, dmd, True, scale)
-
-    def second(x, eq, y):
-        hi = _bf16_values(x)
-        parts = (hi, _bf16_values(x - hi)) if split else (hi,)
-        return sum(torch.einsum(eq, part, y) for part in parts)
-
-    dq = scale * second(ds, "bhqk,bhkd->bhqd", k)
-    dk = scale * second(ds, "bhqk,bhqd->bhkd", q)
-    dv = second(p, "bhqk,bhqd->bhkd", do)
-    return [t.to(torch.bfloat16) for t in (dq, dk, dv)]
+    dq = scale * _second_product(ds, "bhqk,bhkd->bhqd", k, split)
+    dk = scale * _second_product(ds, "bhqk,bhqd->bhkd", q, split)
+    dv = _second_product(p, "bhqk,bhqd->bhkd", do, split)
+    return [o, lse_fwd] + [t.to(torch.bfloat16) for t in (dq, dk, dv)]
 
 
 @pytest.mark.parametrize("split", [True, False], ids=["hi_lo_pair", "one_bf16"])
 @pytest.mark.parametrize("sq,sk", [(96, 160), (160, 96)])
 def test_tensor_core_rounding_meets_the_card_tolerance_only_when_split(sq, sk, split):
-    """The bf16 backward kernels' rounding, emulated, against the JAX
-    kernels in float32 on the same bf16 inputs, under ``chip_smoke.py``'s
-    tolerance (one bf16 spacing plus 1e-5 of the largest magnitude): with p
-    and ds as hi + lo pairs dq, dk and dv pass (at about half of it, the
-    final bf16 store); rounded to one bf16 each exceeds it (by 20-60x at
-    these shapes), which is why the kernels split them."""
-    inputs, want = _jax_backward_of_bf16_inputs(sq, sk, 32)
+    """The bf16 kernels' rounding, emulated, against the JAX kernels in
+    float32 on the same bf16 inputs, under ``chip_smoke.py``'s tolerance
+    (one bf16 spacing plus 1e-5 of the largest magnitude): with p and ds as
+    hi + lo pairs o, dq, dk and dv pass (at about half of it, the final
+    bf16 store); rounded to one bf16 each exceeds it (by 20-60x at these
+    shapes), which is why the kernels split them.  The forward's lse does
+    not pass through a second product and passes either way; with
+    sq > sk its fully masked rows must come out as exactly -1e30."""
+    inputs, want = _jax_kernels_on_bf16_inputs(sq, sk, 32)
     got = _tensor_core_rounding(*inputs, scale=32 ** -0.5, split=split)
     results = [flash_close(g, w, fa.MASK_VALUE) for g, w in zip(got, want)]
-    assert [ok for ok, _ in results] == [split] * 3, results
+    assert [ok for ok, _ in results] == [split, True, split, split, split], results
 
 
 # bodies of the kernel source's PTX helpers, replaced by the per-lane
@@ -360,6 +395,7 @@ def host_kernels(tmp_path_factory):
         (False, torch.bfloat16, (1, 1, 77, 77, 32)),
         (True, torch.bfloat16, (1, 1, 96, 200, 64)),
         (True, torch.bfloat16, (1, 1, 70, 150, 128)),
+        (True, torch.bfloat16, (1, 1, 150, 70, 128)),
         (True, torch.float32, (1, 1, 130, 70, 64)),
         (False, torch.float32, (1, 1, 77, 100, 32)),
     ],
@@ -367,9 +403,10 @@ def host_kernels(tmp_path_factory):
 def test_kernel_source_on_the_host_matches_plain_versions(host_kernels, causal, dtype, shape):
     """The forward, dq and dk/dv kernels of ``flash_attention.cu``, run on
     the CPU through the host stand-ins (bf16: the tensor-core kernels with
-    emulated ``cp.async``/``ldmatrix``/``mma.sync``; float32: the FMA ones),
-    against the plain versions under ``chip_smoke.py``'s tolerance: ragged
-    tiles, cross lengths with fully masked rows, D = 32, 64 and 128.  It
+    emulated ``cp.async``/``ldmatrix``/``mma.sync`` and quad shuffles;
+    float32: the FMA ones), against the plain versions under
+    ``chip_smoke.py``'s tolerance: ragged tiles, cross lengths with fully
+    masked rows (o exactly 0, lse exactly -1e30), D = 32, 64 and 128.  It
     checks the kernels' logic and fragment layouts as the PTX ISA states
     them, not the card: ``chip_smoke.py`` does that."""
     b, h, sq, sk, d = shape
