@@ -12,12 +12,17 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    shapes the main paths give it, forward and gradient;
 4. time each kernel, its plain version and the one PyTorch call that
    computes the same function, beside the least time the card could take;
-5. drive the first main path: ``darts_trial`` through ``TrialContext`` at
+5. hold the DARTS step replayed from a CUDA graph against the same step
+   run eagerly on the card (search width, ``remat_policy="dots"``, 3 steps);
+6. drive the first main path: ``darts_trial`` through ``TrialContext`` at
    the DARTS search width (8 cells, 16 channels, 4 nodes, the 8 default
-   primitives, batch 64, bf16), with the mixed-op launch count set to 0 just
-   before and read just after; then a small f32 supernet on the card
-   against the same weights on the CPU;
-6. drive the second main path: ``transformer_trial`` at the long-context
+   primitives, batch 64, bf16, 2 epochs of 8 steps by CUDA-graph replay in
+   windows of 3, search augmentation, a checkpoint dir, one augment epoch),
+   with the mixed-op launch count set to 0 just before and read just after;
+   then the same trial stopped after epoch 0 and resumed on its dir, against
+   the uninterrupted run; then a small f32 supernet on the card against the
+   same weights on the CPU;
+7. drive the second main path: ``transformer_trial`` at the long-context
    width (vocab 256, d_model 512, 8 heads, 4 layers, seq 4096, batch 4,
    bf16) for 10 steps, with the three flash-attention launch counts set to
    0 just before and read just after.
@@ -356,66 +361,233 @@ def phase_kernel_timing(torch, mixed_op) -> dict:
             "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def phase_main_path(torch, mixed_op) -> int:
-    """``darts_trial`` at the search width; returns the mixed-op launches."""
+DARTS_LAYERS, DARTS_NODES = 8, 4
+# the DARTS main path: the search width, its specs' step-loop window, search
+# augmentation, the augment phase and a checkpoint dir
+DARTS_SETTINGS = {
+    "batch_size": 64, "init_channels": 16, "num_nodes": DARTS_NODES, "num_epochs": 2,
+    "n_train": 1024, "n_test": 1024, "remat": "false", "stepLoopWindow": 3,
+    "search_augment": "true", "augment_epochs": 1,
+}
+# Replay against eager, and a resumed search against the uninterrupted one,
+# on the card.  Both sides run the same kernels, but cuDNN may choose other
+# algorithms under capture, which reorders float32 sums inside bf16 compute:
+# a step's loss (a mean over 64 images) may move by about 1e-3 of itself.
+# The state may differ by at most 1 % of the largest distance it moved over
+# the compared steps, weights and alphas each: a state not written back
+# differs by all of that distance, a batch or augmentation draw replayed
+# from the wrong step by about as much.
+LOSS_RTOL = 2e-3
+MOVE_RTOL = 1e-2
+
+
+def darts_context(out_dir: str, stop_after: int | None = None):
+    """A ``TrialContext`` for the DARTS main path; ``stop_after``: its report
+    asks the trial to stop after that epoch, as an early-stopping rule would."""
+    from katib_tpu_torch.nas.darts.ops import DEFAULT_PRIMITIVES
+    from katib_tpu_torch.runner.context import TrialContext
+
+    class Ctx(TrialContext):
+        def report(self, step=None, **metrics):
+            cont = super().report(step, **metrics)
+            return cont and (stop_after is None or step != stop_after)
+
+    return Ctx(
+        {
+            "algorithm-settings": json.dumps(DARTS_SETTINGS),
+            "search-space": json.dumps(list(DEFAULT_PRIMITIVES)),
+            "num-layers": str(DARTS_LAYERS),
+        },
+        checkpoint_dir=out_dir, device="cuda", step_times=[],
+    )
+
+
+def final_state(trial_dir: str, step: int | None = None) -> dict:
+    """The search's last snapshot in a trial dir, or that of ``step``
+    (``{key path: tensor}``)."""
+    from katib_tpu_torch.utils.checkpoint import TrialCheckpointer
+
+    restored = TrialCheckpointer(os.path.join(trial_dir, "search")).restore(step=step)
+    check(restored is not None, f"no snapshot under {trial_dir}")
+    return restored[0]
+
+
+def move_diff(got: dict, want: dict, start: dict, prefix: str) -> tuple[float, float]:
+    """``(max |got - want|, max |want - start|)`` over the tensors under
+    ``prefix``: the disagreement and the distance the state moved."""
+    keys = [k for k in want if k.startswith(prefix)]
+    diff = max(float((got[k].float() - want[k].float()).abs().max()) for k in keys)
+    moved = max(float((want[k].float() - start[k].float()).abs().max()) for k in keys)
+    return diff, moved
+
+
+def check_moves(got: dict, want: dict, start: dict, what: str) -> str:
+    """Weights and alphas of ``got`` within ``MOVE_RTOL`` of their move
+    from ``start`` to ``want``; returns the printed differences."""
+    out = []
+    for prefix in ("weights/", "alphas/"):
+        diff, moved = move_diff(got, want, start, prefix)
+        out.append(f"{prefix[:-1]} max |diff| {diff:.3e} (moved up to {moved:.3e})")
+        check(moved > 0 and diff <= MOVE_RTOL * moved,
+              f"{what}: {prefix[:-1]} differ by {diff:.3e}, more than {MOVE_RTOL} of their "
+              f"move {moved:.3e}")
+    return "; ".join(out)
+
+
+def phase_graph_vs_eager(torch) -> None:
+    """One state at the search width with ``remat=true`` and
+    ``remat_policy="dots"``: a window of 3 steps run eagerly on the card and
+    by CUDA-graph replay of the same step function; losses, weights and
+    alphas compared."""
+    import numpy as np
+
+    from katib_tpu_torch.models.augmentation import KEY_OFFSET, random_crop_flip
+    from katib_tpu_torch.models.data import load_cifar10
+    from katib_tpu_torch.nas.darts.architect import (
+        DartsHyper, init_search_state, make_search_step, state_items)
+    from katib_tpu_torch.nas.darts.model import Alphas, DartsNetwork, init_alphas
+    from katib_tpu_torch.nas.darts.ops import DEFAULT_PRIMITIVES
+    from katib_tpu_torch.nas.darts.search import _draw_epoch_indices, split_train
+    from katib_tpu_torch.nas.darts.step_loop import StepLoop
+    from katib_tpu_torch.parallel.train import cross_entropy_loss
+
+    s = DARTS_SETTINGS
+    steps, batch = 3, s["batch_size"]
+    net = DartsNetwork(DEFAULT_PRIMITIVES, init_channels=s["init_channels"], num_layers=DARTS_LAYERS,
+                       n_nodes=DARTS_NODES, remat=True, remat_policy="dots")
+    gen = torch.Generator().manual_seed(5)
+    net.reset_parameters(gen)
+    alphas = init_alphas(DARTS_NODES, len(DEFAULT_PRIMITIVES), gen)
+    net.cuda()
+    (x_w, y_w), (x_a, y_a) = split_train(load_cifar10(n_train=s["n_train"], n_test=8), seed=5)
+    splits = tuple(torch.from_numpy(np.ascontiguousarray(t)).cuda() for t in (x_w, y_w, x_a, y_a))
+    w_ix, a_ix = (ix.reshape(-1, batch)[:steps]
+                  for ix in _draw_epoch_indices(5, 0, len(x_w), len(x_a), steps * batch))
+
+    def loss_fn(w, a, b):
+        return cross_entropy_loss(torch.func.functional_call(net, w, (b[0], a)), b[1])
+
+    hyper = DartsHyper(total_steps=16)
+    state = init_search_state({k: v.detach() for k, v in net.named_parameters()},
+                              Alphas(*(a.cuda() for a in alphas)), hyper)
+    step = make_search_step(loss_fn, hyper)
+    runs = {}
+    for capture in (False, True):
+        loop = StepLoop(step, state, splits, steps, batch, random_crop_flip, 5 + KEY_OFFSET,
+                        capture=capture)
+        t0 = time.perf_counter()
+        loop.run_epoch(w_ix, a_ix, window=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[capture] = (dict((k, v.cpu()) for k, v in state_items(loop.state)),
+                         loop.metrics.cpu(), wall, loop.capture_s)
+        del loop
+    (eager, eager_m, eager_s, _), (graph, graph_m, graph_s, capture_s) = runs[False], runs[True]
+    init = dict((k, v.cpu()) for k, v in state_items(state))
+    loss_rel = float(((graph_m - eager_m).abs() / eager_m.abs().clamp(min=1e-30)).max())
+    print(f"graph vs eager: 8 cells, remat dots, search augment, {steps} steps: eager "
+          f"{eager_s:.2f}s, capture {capture_s:.2f}s (warm-up included) + replays "
+          f"{graph_s - capture_s:.2f}s; train losses eager "
+          f"{[round(float(v), 6) for v in eager_m[0]]} graph "
+          f"{[round(float(v), 6) for v in graph_m[0]]}; step metrics max rel diff "
+          f"{loss_rel:.2e}; steps {int(eager['step'])} and {int(graph['step'])}", flush=True)
+    check(int(eager["step"]) == int(graph["step"]) == steps, "both runs take 3 steps")
+    check(loss_rel <= LOSS_RTOL, f"replayed step metrics differ from eager by {loss_rel:.2e}")
+    print(f"graph vs eager: {check_moves(graph, eager, init, 'graph vs eager')}", flush=True)
+
+
+def phase_main_path(torch, mixed_op) -> tuple[int, str, list]:
+    """``darts_trial`` at the search width through CUDA-graph replay with
+    ``stepLoopWindow: 3``, search augmentation, a checkpoint dir and the
+    augment phase; returns the mixed-op launches, the trial dir and the
+    reports (kept for the resume phase)."""
     from katib_tpu_torch.nas.darts.model import mixed_op_launches_per_forward
     from katib_tpu_torch.nas.darts.ops import DEFAULT_PRIMITIVES
     from katib_tpu_torch.nas.darts.search import darts_trial
-    from katib_tpu_torch.runner.context import TrialContext
+    from katib_tpu_torch.nas.darts.step_loop import WARMUP_STEPS
 
-    settings = {
-        "batch_size": 64, "init_channels": 16, "num_nodes": 4, "num_epochs": 1,
-        "n_train": 1024, "n_test": 1024, "remat": "false",
-    }
-    num_layers, n_nodes = 8, 4
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as out_dir:
-        ctx = TrialContext(
-            {
-                "algorithm-settings": json.dumps(settings),
-                "search-space": json.dumps(list(DEFAULT_PRIMITIVES)),
-                "num-layers": str(num_layers),
-            },
-            checkpoint_dir=out_dir,
-            device="cuda",
-            step_times=[],
-        )
-        torch.cuda.reset_peak_memory_stats()
-        mixed_op.launches = 0
-        t0 = time.perf_counter()
-        darts_trial(ctx)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = mixed_op.launches
-        with open(os.path.join(out_dir, "genotype.json")) as f:
-            genotype = json.load(f)
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-darts-")
+    ctx = darts_context(out_dir)
+    torch.cuda.reset_peak_memory_stats()
+    mixed_op.launches = 0
+    t0 = time.perf_counter()
+    darts_trial(ctx)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mixed_op.launches
+    with open(os.path.join(out_dir, "genotype.json")) as f:
+        genotype = json.load(f)
 
-    steps = (settings["n_train"] // 2) // settings["batch_size"]
-    # second order, no remat: grad_w, val grads, 2 finite-difference
-    # passes, the weight step; plus one evaluation forward
-    predicted = (steps * 5 + 1) * mixed_op_launches_per_forward(num_layers, n_nodes)
+    s = DARTS_SETTINGS
+    epochs, steps = s["num_epochs"], (s["n_train"] // 2) // s["batch_size"]
+    # second order, no remat: grad_w, val grads, 2 finite-difference passes and
+    # the weight step per step (the warm-up's step on copies included), one
+    # evaluation forward per epoch; the augment phase's network has no mixed op
+    predicted = ((epochs * steps + WARMUP_STEPS) * 5 + epochs) * mixed_op_launches_per_forward(
+        DARTS_LAYERS, DARTS_NODES)
     times = ctx.step_times
+    median = statistics.median(times[1:])
     print(f"main path: darts_trial 8 layers x 16 ch x 4 nodes, 8 primitives, batch 64, bf16, "
-          f"{steps} second-order steps + eval in {wall:.2f}s", flush=True)
+          f"{epochs} epochs x {steps} second-order steps by CUDA-graph replay (windows of "
+          f"{s['stepLoopWindow']}), search augment, checkpoint, augment phase "
+          f"{s['augment_epochs']} epoch, in {wall:.2f}s", flush=True)
+    print(f"main path: graph capture {ctx.timings.get('graph_capture_s', float('nan')):.3f}s "
+          f"(warm-up step included)", flush=True)
     print(f"main path: step_s first={times[0]:.4f} rest={[round(t, 4) for t in times[1:]]} "
-          f"median_rest={statistics.median(times[1:]):.4f} "
-          f"steps_per_s={1 / statistics.median(times[1:]):.3f} "
-          f"images_per_s={settings['batch_size'] / statistics.median(times[1:]):.1f}", flush=True)
+          f"median_rest={median:.4f} steps_per_s={1 / median:.3f} "
+          f"images_per_s={s['batch_size'] / median:.1f}", flush=True)
     print(f"main path: max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     print(f"main path: reports={ctx.reports}", flush=True)
     print(f"main path: mixed_op launches={launches} predicted={predicted}", flush=True)
-    check(len(times) == steps, f"expected {steps} steps, timed {len(times)}")
-    check(len(ctx.reports) == 1, "one report per epoch")
-    (step, metrics), = ctx.reports
-    check(step == 0 and all(math.isfinite(v) for v in metrics.values()), "finite metrics")
-    check(0.0 <= metrics["accuracy"] <= 1.0, "accuracy in [0, 1]")
-    check(len(genotype["normal"]) == n_nodes and len(genotype["reduce"]) == n_nodes,
+    check(len(times) == epochs * steps, f"expected {epochs * steps} steps, timed {len(times)}")
+    check("graph_capture_s" in ctx.timings, "the step loop captured no graph")
+    check([st for st, _ in ctx.reports] == [0, 1, epochs + s["augment_epochs"]],
+          f"reports at epochs 0, 1 and the augment step, got {ctx.reports}")
+    check(all(math.isfinite(v) for _, m in ctx.reports for v in m.values()), "finite metrics")
+    check(all(0.0 <= m["accuracy"] <= 1.0 for _, m in ctx.reports[:epochs]), "accuracy in [0, 1]")
+    check(0.0 <= ctx.reports[-1][1]["augment_accuracy"] <= 1.0, "augment_accuracy reported")
+    check(len(genotype["normal"]) == DARTS_NODES and len(genotype["reduce"]) == DARTS_NODES,
           "genotype has one entry per node")
     check(all(op in DEFAULT_PRIMITIVES and op != "none" for node in genotype["normal"]
               + genotype["reduce"] for op, _ in node), "genotype ops are primitives")
     check(launches == predicted and launches > 0,
           f"mixed-op kernel launched {launches} times, the path predicts {predicted}")
-    return launches
+    return launches, out_dir, ctx.reports
+
+
+def phase_resume(full_dir: str, full_reports: list) -> None:
+    """The main path's trial stopped by its report after epoch 0, then rerun
+    on the same dir: it resumes at epoch 1 and ends where the uninterrupted
+    run ended."""
+    from katib_tpu_torch.nas.darts.search import darts_trial
+
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-resume-")
+    first = darts_context(out_dir, stop_after=0)
+    darts_trial(first)
+    second = darts_context(out_dir)
+    darts_trial(second)
+    full, resumed = final_state(full_dir), final_state(out_dir)
+    after_first = final_state(full_dir, step=1)
+    print(f"resume: stopped run reports {first.reports}; resumed run reports {second.reports}, "
+          f"{len(second.step_times)} steps; steps {int(resumed['step'])} and {int(full['step'])}",
+          flush=True)
+    check([st for st, _ in first.reports] == [0], "the stopped run reports epoch 0 only")
+    s = DARTS_SETTINGS
+    steps = (s["n_train"] // 2) // s["batch_size"]
+    check([st for st, _ in second.reports] == [1, s["num_epochs"] + s["augment_epochs"]],
+          "the resumed run continues at epoch 1 and then reports the augment phase")
+    check(len(second.step_times) == len(first.step_times) == steps, "one epoch in each run")
+    check(int(resumed["step"]) == int(full["step"]) == 2 * steps, "both end after 2 epochs")
+    (_, got), (_, want) = second.reports[0], full_reports[1]
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    print(f"resume: epoch 1 loss {got['loss']:.6f} vs {want['loss']:.6f} (rel {loss_rel:.2e}), "
+          f"accuracy {got['accuracy']:.4f} vs {want['accuracy']:.4f}; final state vs the "
+          f"uninterrupted run's, against its move over epoch 1: "
+          f"{check_moves(resumed, full, after_first, 'resume')}", flush=True)
+    check(loss_rel <= LOSS_RTOL, f"resumed epoch-1 loss differs by {loss_rel:.2e}")
+    check(abs(got["accuracy"] - want["accuracy"]) <= 4 / DARTS_SETTINGS["n_test"],
+          "resumed epoch-1 accuracy differs by more than 4 images")
 
 
 def phase_transformer(torch, fa, kernel_ms: float) -> dict[str, int]:
@@ -520,7 +692,9 @@ def main() -> int:
     flash_err = phase_flash_parity(torch, fa)
     timing = phase_kernel_timing(torch, mixed_op)
     flash_timing = phase_flash_timing(torch, fa)
-    launches = phase_main_path(torch, mixed_op)
+    phase_graph_vs_eager(torch)
+    launches, darts_dir, darts_reports = phase_main_path(torch, mixed_op)
+    phase_resume(darts_dir, darts_reports)
     phase_small_reference(torch)
     flash_launches = phase_transformer(
         torch, fa, sum(t["ms"] for t in flash_timing.values()))

@@ -13,7 +13,10 @@ children of that class in creation order.  The port's modules are named and
 registered in the JAX package's creation order, so the flax path of each of
 their parameters follows from the module tree alone.  A cell is
 ``CheckpointCell_<n>`` under ``remat=True`` (a lifted ``nn.remat(Cell)``) and
-``Cell_<n>`` without it; both are accepted.
+``Cell_<n>`` without it; both are accepted.  The augment phase's
+``GenotypeNetwork`` follows the same rule (``Conv_0``, ``GenotypeCell_<n>``
+holding the preprocessing modules and then the kept ops in node order,
+``Dense_0``), so :func:`state_dict_from_flax` carries it across as well.
 
 The transformer LM (:func:`transformer_state_dict_from_flax`) follows the
 same rule with an explicit table, since its modules are named for reading.
@@ -69,8 +72,9 @@ def flax_paths(module: nn.Module, remat: bool) -> dict[str, tuple[tuple, int | N
 
 
 def state_dict_from_flax(tree: Any, module: nn.Module) -> dict[str, torch.Tensor]:
-    """The port's state dict for ``module`` (a :class:`DartsNetwork`, or any
-    of its parts) from the flax tree of its JAX counterpart.
+    """The port's state dict for ``module`` (a :class:`DartsNetwork` or a
+    ``GenotypeNetwork``, or any of their parts) from the flax tree of its
+    JAX counterpart.
 
     ``tree`` is the flax variables (``{"params": ...}``) or the params alone.
     Raises if a parameter is missing, left over, or of another shape."""

@@ -14,7 +14,13 @@ then Adam on the alphas, and SGD with momentum, weight decay and gradient
 clipping on the weights at the NEW alphas.  Weights are a dict of tensors
 (``torch.func.functional_call`` binds them to the network), so the virtual
 and perturbed weights are just other dicts.  Only first derivatives are
-taken; the Hessian term is the finite difference.  Each step runs eagerly.
+taken; the Hessian term is the finite difference.
+
+The step is one function that runs eagerly or inside a CUDA-graph capture
+(``step_loop.py``): the step and Adam counters are 0-d tensors on the
+state's device, the cosine lr and Adam's bias corrections are computed
+there in float32 (as optax does under ``jit``), and nothing in the step
+reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -33,13 +39,13 @@ LossFn = Callable[[dict, Alphas, tuple], torch.Tensor]
 class AdamState(NamedTuple):
     """``optax.chain(add_decayed_weights, adam)`` state for the alphas."""
 
-    count: int
+    count: torch.Tensor  # 0-d int32 on the alphas' device
     mu: Alphas
     nu: Alphas
 
 
 class SearchState(NamedTuple):
-    step: int
+    step: torch.Tensor  # 0-d int32 on the state's device
     weights: dict  # state-dict key -> tensor
     alphas: Alphas
     a_opt: AdamState
@@ -73,10 +79,11 @@ ALPHA_BETAS = (0.5, 0.999)
 ALPHA_EPS = 1e-8
 
 
-def cosine_lr(step: int, hyper: DartsHyper) -> float:
-    """Cosine-annealed weight learning rate from ``w_lr`` to ``w_lr_min``."""
-    t = min(step / hyper.total_steps, 1.0)
-    return hyper.w_lr_min + 0.5 * (hyper.w_lr - hyper.w_lr_min) * (1.0 + math.cos(math.pi * t))
+def cosine_lr(step: torch.Tensor, hyper: DartsHyper) -> torch.Tensor:
+    """Cosine-annealed weight learning rate from ``w_lr`` to ``w_lr_min``, a
+    0-d float32 tensor on ``step``'s device."""
+    t = torch.clamp(step.float() / hyper.total_steps, max=1.0)
+    return hyper.w_lr_min + 0.5 * (hyper.w_lr - hyper.w_lr_min) * (1.0 + torch.cos(math.pi * t))
 
 
 def alpha_update(grad: Alphas, opt: AdamState, alphas: Alphas,
@@ -85,16 +92,16 @@ def alpha_update(grad: Alphas, opt: AdamState, alphas: Alphas,
     L2 added to the gradient before Adam (not AdamW), bias-corrected moments,
     eps outside the square root."""
     b1, b2 = ALPHA_BETAS
-    count = opt.count + 1
-    # bias corrections in float32, as optax computes them
-    bc1, bc2 = (1 - torch.tensor(b, dtype=torch.float32) ** count for b in (b1, b2))
+    count = torch.as_tensor(opt.count, dtype=torch.int32, device=alphas[0].device) + 1
+    # bias corrections in float32 on the device, as optax computes them
+    bc1, bc2 = (1 - torch.pow(b, count.float()) for b in (b1, b2))
     mu, nu, new = [], [], []
     for g, m, v, p in zip(grad, opt.mu, opt.nu, alphas):
         g = g + hyper.alpha_weight_decay * p
         m = (1 - b1) * g + b1 * m
         v = (1 - b2) * g * g + b2 * v
-        m_hat = m / bc1.to(m.device)
-        v_hat = v / bc2.to(v.device)
+        m_hat = m / bc1
+        v_hat = v / bc2
         new.append(p + (-hyper.alpha_lr) * (m_hat / (torch.sqrt(v_hat) + ALPHA_EPS)))
         mu.append(m)
         nu.append(v)
@@ -190,10 +197,51 @@ def make_search_step(loss_fn: LossFn, hyper: DartsHyper, mesh=None) -> Callable:
 
 def init_search_state(weights: dict, alphas: Alphas, hyper: DartsHyper) -> SearchState:
     zeros = Alphas(*(torch.zeros_like(a) for a in alphas))
+    device = alphas[0].device
     return SearchState(
-        step=0,
+        step=torch.zeros((), dtype=torch.int32, device=device),
         weights={k: v.detach() for k, v in weights.items()},
         alphas=Alphas(*(a.detach() for a in alphas)),
-        a_opt=AdamState(0, zeros, zeros),
+        a_opt=AdamState(torch.zeros((), dtype=torch.int32, device=device), zeros, zeros),
         velocity={k: torch.zeros_like(v) for k, v in weights.items()},
     )
+
+
+def state_items(state: SearchState) -> list[tuple[str, torch.Tensor]]:
+    """The state's tensors under their key paths, in one fixed order: what a
+    checkpoint stores and its digest hashes, and what a graph's fixed
+    buffers are copied from."""
+    return [
+        ("step", state.step),
+        *((f"weights/{k}", v) for k, v in state.weights.items()),
+        *((f"alphas/{n}", t) for n, t in zip(Alphas._fields, state.alphas)),
+        ("a_opt/count", state.a_opt.count),
+        *((f"a_opt/mu/{n}", t) for n, t in zip(Alphas._fields, state.a_opt.mu)),
+        *((f"a_opt/nu/{n}", t) for n, t in zip(Alphas._fields, state.a_opt.nu)),
+        *((f"velocity/{k}", v) for k, v in state.velocity.items()),
+    ]
+
+
+def state_from_items(template: SearchState, tensors) -> SearchState:
+    """A state shaped like ``template`` holding ``tensors`` (in
+    :func:`state_items` order)."""
+    it = iter(tensors)
+    take = lambda: next(it)  # noqa: E731
+    step = take()
+    weights = {k: take() for k in template.weights}
+    alphas = Alphas(*(take() for _ in Alphas._fields))
+    count = take()
+    mu = Alphas(*(take() for _ in Alphas._fields))
+    nu = Alphas(*(take() for _ in Alphas._fields))
+    velocity = {k: take() for k in template.velocity}
+    return SearchState(step, weights, alphas, AdamState(count, mu, nu), velocity)
+
+
+def copy_state_(dst: SearchState, src: SearchState) -> None:
+    """Write ``src`` into ``dst``'s tensors in place (a captured graph
+    replays against fixed addresses)."""
+    torch._foreach_copy_([t for _, t in state_items(dst)], [t for _, t in state_items(src)])
+
+
+def clone_state(state: SearchState) -> SearchState:
+    return state_from_items(state, [t.clone() for _, t in state_items(state)])

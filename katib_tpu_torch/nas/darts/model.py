@@ -9,12 +9,19 @@ bilevel step differentiates weights and alphas independently.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import threading
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from katib_tpu_torch.models.layers import Dense
 from katib_tpu_torch.nas.darts.ops import (
@@ -87,7 +94,8 @@ class Cell(nn.Module):
 
     def forward(self, s0, s1, weights):
         # weights: (n_edges, n_ops) softmaxed alphas for this cell type
-        states = [self.preprocess0(s0), self.preprocess1(s1)]
+        with _saveable_dots():
+            states = [self.preprocess0(s0), self.preprocess1(s1)]
         groups = iter(self.groups)
         offset = 0
         for node_groups in self.plan:
@@ -112,43 +120,102 @@ def _reduction_layers(num_layers: int) -> set[int]:
     return {num_layers // 3, 2 * num_layers // 3} if num_layers > 2 else set()
 
 
+def macro_layout(init_channels: int, num_layers: int, stem_multiplier: int, cell_width):
+    """The shared macro skeleton's channel plan (reference ``model.py:74``):
+    ``(stem channels, [(c_pp, c_p, c, reduction, reduction_prev)] per cell,
+    classifier in-features)``.  Channels double at the reductions, at 1/3
+    and 2/3 depth; ``cell_width(c)`` is a cell's output channels."""
+    c_cur = init_channels * stem_multiplier
+    c_pp, c_p, c = c_cur, c_cur, init_channels
+    reduction_prev = False
+    reductions = _reduction_layers(num_layers)
+    layers = []
+    for layer in range(num_layers):
+        reduction = layer in reductions
+        if reduction:
+            c *= 2
+        layers.append((c_pp, c_p, c, reduction, reduction_prev))
+        c_pp, c_p = c_p, cell_width(c)
+        reduction_prev = reduction
+    return c_cur, layers, c_p
+
+
+# -- remat_policy="dots" ------------------------------------------------------
+#
+# JAX's ``dots_with_no_batch_dims_saveable`` keeps the outputs of
+# ``dot_general`` calls that have no batch dimensions and recomputes the
+# rest.  Inside a JAX cell those are exactly the cell's input
+# preprocessing: the ``PointwiseConv`` einsum of each ``ReluConvBn`` and the
+# two of a ``FactorizedReduce``.  Every primitive of an edge runs under the
+# edge group's ``nn.vmap``, which turns its pointwise einsums (and the
+# mixed-op contraction) into dot_generals WITH a batch dimension, so they
+# are recomputed; depthwise and full convolutions are ``conv_general_dilated``,
+# not dots, and are recomputed too.  The port saves the same set: the
+# convolution outputs of the cell's two preprocessing modules, and nothing
+# else.  (JAX also keeps, through its nested ``jit`` of ``jnp.var``, the
+# centred input of those convolutions' batch norms; the port recomputes its
+# batch norms.)
+
+_dots = threading.local()
+
+
+@contextlib.contextmanager
+def _saveable_dots():
+    """Marks the convolutions run inside it as saved under ``"dots"``; the
+    flag is per thread, as the backward pass recomputes on its own thread."""
+    prev = getattr(_dots, "on", False)
+    _dots.on = True
+    try:
+        yield
+    finally:
+        _dots.on = prev
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The selective-checkpoint policy of ``remat_policy="dots"``."""
+    if op is torch.ops.aten.convolution.default and getattr(_dots, "on", False):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_POLICIES = {None: None, "dots": dots_policy}
+
+
 class DartsNetwork(nn.Module):
     """Supernet (reference ``model.py:74`` NetworkCNN): stem conv + BN, cells
     with channel-doubling reductions at 1/3 and 2/3 depth, global average
     pool, float32 classifier head.
 
     ``remat=True`` recomputes each cell in the backward pass
-    (``torch.utils.checkpoint``) instead of keeping its activations."""
+    (``torch.utils.checkpoint``) instead of keeping its activations;
+    ``remat_policy="dots"`` keeps the outputs the JAX policy of that name
+    keeps (:func:`dots_policy`) and recomputes the rest.  Neither reads the
+    RNG state (DARTS draws no random number in a cell), so both capture in
+    a CUDA graph."""
 
     def __init__(self, primitives: Sequence[str] = DEFAULT_PRIMITIVES, init_channels: int = 16,
                  num_layers: int = 8, n_nodes: int = 4, num_classes: int = 10,
                  stem_multiplier: int = 3, in_channels: int = 3, remat: bool = True,
                  remat_policy: str | None = None, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if remat_policy is not None:
-            if remat_policy == "dots":
-                raise NotImplementedError(
-                    'remat_policy="dots" (selective checkpointing that keeps conv '
-                    "and matmul outputs) is not ported yet; see ROADMAP.md"
-                )
+        # validated even with remat off, as the JAX network does
+        if remat_policy not in REMAT_POLICIES:
             raise ValueError(
                 f"unknown remat_policy {remat_policy!r}; expected 'dots' or None"
             )
         self.remat, self.dtype = remat, dtype
-        c_cur = init_channels * stem_multiplier
+        policy = REMAT_POLICIES[remat_policy]
+        self._context_fn = (
+            functools.partial(create_selective_checkpoint_contexts, policy)
+            if policy is not None else None
+        )
+        c_cur, layers, c_p = macro_layout(init_channels, num_layers, stem_multiplier,
+                                          lambda c: n_nodes * c)
         self.stem = Conv(in_channels, c_cur, 3, dtype=dtype)
-        c_pp, c_p, c = c_cur, c_cur, init_channels
-        reduction_prev = False
-        reductions = _reduction_layers(num_layers)
-        self.cells = nn.ModuleList()
-        for layer in range(num_layers):
-            reduction = layer in reductions
-            if reduction:
-                c *= 2
-            self.cells.append(Cell(primitives, c_pp, c_p, c, n_nodes, reduction,
-                                   reduction_prev, dtype))
-            c_pp, c_p = c_p, n_nodes * c
-            reduction_prev = reduction
+        self.cells = nn.ModuleList(
+            Cell(primitives, c_pp, c_p_in, c, n_nodes, reduction, reduction_prev, dtype)
+            for c_pp, c_p_in, c, reduction, reduction_prev in layers
+        )
         self.classifier = Dense(c_p, num_classes, dtype=torch.float32)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -169,8 +236,9 @@ class DartsNetwork(nn.Module):
                 # to the recompute explicitly: the backward pass re-runs the
                 # cell after any outer parameter swap has been undone
                 params = dict(cell.named_parameters())
+                extra = {} if self._context_fn is None else {"context_fn": self._context_fn}
                 out = checkpoint(_call_cell, cell, params, s0, s1, weights,
-                                 use_reentrant=False)
+                                 use_reentrant=False, preserve_rng_state=False, **extra)
             else:
                 out = cell(s0, s1, weights)
             s0, s1 = s1, out

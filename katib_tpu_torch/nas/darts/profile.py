@@ -1,11 +1,14 @@
 """Where one bilevel search step spends its time on the GPU.
 
-    python3 -m katib_tpu_torch.nas.darts.profile [--steps N] [--trace PATH]
+    python3 -m katib_tpu_torch.nas.darts.profile [--steps N] [--trace PATH] [--step-loop]
 
 Builds the search at the DARTS search width (8 cells, 16 channels, 4 nodes,
 the 8 default primitives, batch 64, bf16, second order, no remat) and
 prints the summary of ``katib_tpu_torch.profiling.profile_step``, the
-mixed-op kernel's share among it.  Needs a CUDA GPU.
+mixed-op kernel's share among it.  ``--step-loop`` profiles the step as the
+search's step loop runs it: one replay of the captured CUDA graph (batches
+gathered on the device from the split), so the busy share under replay
+can be read.  Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ def main() -> int:
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--trace", help="write the Chrome trace here")
+    ap.add_argument("--step-loop", action="store_true",
+                    help="profile CUDA-graph replays of the step (the search's default path)")
     args = ap.parse_args()
 
     dev = resolve_device("cuda")
@@ -55,9 +60,21 @@ def main() -> int:
         type(alphas)(*(a.to(dev) for a in alphas)), hyper,
     )
 
-    def search_step():
-        nonlocal state
-        state, _ = step(state, train, val)
+    if args.step_loop:
+        import numpy as np
+
+        from katib_tpu_torch.nas.darts.step_loop import StepLoop
+
+        splits = (*train, *val)
+        loop = StepLoop(step, state, splits, steps=1, batch_size=batch)
+        rows = np.arange(batch, dtype=np.int64)[None]
+
+        def search_step():
+            loop.run_epoch(rows, rows, window=1)
+    else:
+        def search_step():
+            nonlocal state
+            state, _ = step(state, train, val)
 
     profile_step(search_step, steps=args.steps, warmup=args.warmup, top=args.top,
                  trace=args.trace, kernel_names=("mixed_op",))

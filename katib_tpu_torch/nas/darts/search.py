@@ -6,12 +6,27 @@ step per batch pair, evaluate each epoch, and write the discrete genotype
 to ``genotype.json`` in the trial's checkpoint dir.  The splits live on the
 device for the whole search and each batch is gathered there from the
 per-epoch permutation indices, which are the JAX package's own draws, so
-batch composition is the same in both packages.  Steps run eagerly, one
-Python step per iteration.
+batch composition is the same in both packages.
+
+Two ways to step, chosen as the JAX package chooses them (parameter, then
+environment variable, then default):
+
+- **the step loop** (the default): windows of steps over the device-resident
+  splits, each step one replay of a captured CUDA graph on the card and one
+  eager call of the same function on the CPU (``step_loop.py``); per-step
+  losses stay on the device and are fetched once per epoch;
+- **eager stepping** (``step_loop=False`` or ``KATIB_STEP_LOOP=0``): one
+  Python call of the bilevel step per batch, each history row carrying its
+  steps' metrics; ``KATIB_DEVICE_DATA=0`` gathers these batches on the host.
+
+With a checkpoint dir the state is saved after every epoch and a restarted
+search resumes at the newest snapshot that verifies, its history, best
+accuracy and elapsed time continued (``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -21,12 +36,15 @@ import numpy as np
 import torch
 
 from katib_tpu_torch.device import resolve_device
+from katib_tpu_torch.models.augmentation import KEY_OFFSET
 from katib_tpu_torch.models.data import Dataset, load_named_dataset
 from katib_tpu_torch.nas.darts.architect import (
     DartsHyper,
     SearchState,
     init_search_state,
     make_search_step,
+    state_from_items,
+    state_items,
 )
 from katib_tpu_torch.nas.darts.model import (
     Alphas,
@@ -35,10 +53,19 @@ from katib_tpu_torch.nas.darts.model import (
     init_alphas,
 )
 from katib_tpu_torch.nas.darts.ops import DEFAULT_PRIMITIVES
+from katib_tpu_torch.nas.darts.step_loop import METRICS, StepLoop
 from katib_tpu_torch.parallel.train import accuracy, cross_entropy_loss
 from katib_tpu_torch.utils.booleans import parse_bool
+from katib_tpu_torch.utils.checkpoint import TrialCheckpointer
+from katib_tpu_torch.utils.fsio import atomic_replace
 
 EVAL_IMAGES = 1024
+SEARCH_META = "search_meta.json"
+
+
+class StepLoopUnavailable(RuntimeError):
+    """An explicitly requested step loop cannot engage (the JAX package's
+    class of the same name): raised instead of running the eager path."""
 
 
 def _draw_epoch_indices(seed: int, epoch: int, n_w: int, n_a: int, n_used: int):
@@ -61,6 +88,29 @@ def split_train(dataset: Dataset, seed: int):
     )
 
 
+def read_search_meta(checkpoint_dir: str) -> dict | None:
+    try:
+        with open(os.path.join(checkpoint_dir, SEARCH_META)) as f:
+            return json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None
+
+
+def _write_search_meta(checkpoint_dir: str, meta: dict) -> None:
+    atomic_replace(os.path.join(checkpoint_dir, SEARCH_META), json.dumps(meta).encode())
+
+
+@dataclasses.dataclass
+class Resumed:
+    """Where a restarted search continues: the first epoch to run, the
+    history before it, the best accuracy and the elapsed seconds so far."""
+
+    start_epoch: int = 0
+    history: list = dataclasses.field(default_factory=list)
+    best_accuracy: float = 0.0
+    elapsed_s: float = 0.0
+
+
 def search_epochs(
     net: DartsNetwork,
     state: SearchState,
@@ -73,69 +123,173 @@ def search_epochs(
     device: torch.device,
     report: Callable | None = None,
     step_times: list | None = None,
+    step_loop: bool = False,
+    window: int | None = None,
+    device_data: bool = True,
+    augment_fn: Callable | None = None,
+    checkpointer: TrialCheckpointer | None = None,
+    resumed: Resumed | None = None,
+    timings: dict | None = None,
 ) -> tuple[SearchState, list[dict]]:
-    """The epoch loop from ``state``: returns the final state and one history
-    row per epoch; its ``steps`` holds each step's metrics (floats, and the
-    raw ``alpha_grad`` on the CPU when ``hyper.debug_alpha_grad`` is set).
+    """The epoch loop from ``state``: returns the final state and the
+    history, one row per epoch (after ``resumed.history``, when resuming).
+
+    ``step_loop``: windows of ``window`` steps (default the whole epoch)
+    through :class:`StepLoop`; the rows then carry what the JAX package's
+    carry.  Otherwise eager steps, each row's ``steps`` holding each step's
+    metrics (floats, and the raw ``alpha_grad`` on the CPU when
+    ``hyper.debug_alpha_grad`` is set); ``device_data=False`` gathers their
+    batches on the host.  ``augment_fn(key, step, x)`` transforms each
+    w-batch, keyed with ``seed + 0x5EED`` and the state's step counter.
 
     ``step_times``, when given, receives each step's wall seconds, measured
-    to the device's completion of the step."""
+    to the device's completion of the step.  ``checkpointer``: save the
+    state after each epoch, before the report, with ``search_meta.json``
+    beside it.  ``timings`` receives ``graph_capture_s`` under the step
+    loop on the card."""
 
     def loss_fn(w, a, batch):
         x, y = batch
         return cross_entropy_loss(torch.func.functional_call(net, w, (x, a)), y)
 
+    resumed = resumed or Resumed()
     search_step = make_search_step(loss_fn, hyper)
+    aug_key = seed + KEY_OFFSET
     (x_w, y_w), (x_a, y_a) = split_train(dataset, seed)
-    xw_d, yw_d, xa_d, ya_d = (
-        torch.from_numpy(np.ascontiguousarray(t)).to(device) for t in (x_w, y_w, x_a, y_a)
-    )
+    splits = tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                   for t in (x_w, y_w, x_a, y_a)) if device_data else None
     ne = min(len(dataset.x_test), EVAL_IMAGES)
     x_eval = torch.from_numpy(dataset.x_test[:ne]).to(device)
     y_eval = torch.from_numpy(dataset.y_test[:ne]).to(device)
     steps = len(x_w) // batch_size
-    best_acc = 0.0
-    history: list[dict] = []
-    t0 = time.perf_counter()
-    for epoch in range(num_epochs):
+    loop = None
+    if step_loop:
+        loop = StepLoop(search_step, state, splits, steps, batch_size, augment_fn, aug_key)
+        state = loop.state
+    window = steps if window is None else max(1, min(window, steps))
+    best_acc = resumed.best_accuracy
+    history = list(resumed.history)
+    t0 = time.perf_counter() - resumed.elapsed_s
+    for epoch in range(resumed.start_epoch, num_epochs):
         n_used = steps * batch_size
         w_ix, a_ix = _draw_epoch_indices(seed, epoch, len(x_w), len(x_a), n_used)
-        w_ix = torch.from_numpy(w_ix.reshape(steps, batch_size)).to(device)
-        a_ix = torch.from_numpy(a_ix.reshape(steps, batch_size)).to(device)
-        step_metrics = []
-        for i in range(steps):
-            t_step = time.perf_counter()
-            wi, ai = w_ix[i], a_ix[i]
-            state, metrics = search_step(state, (xw_d[wi], yw_d[wi]), (xa_d[ai], ya_d[ai]))
-            # metrics stay on the device until the epoch ends: one transfer
-            step_metrics.append(metrics)
-            if step_times is not None:
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                step_times.append(time.perf_counter() - t_step)
-        step_metrics = [
-            {k: Alphas(*(t.cpu() for t in v)) if k == "alpha_grad" else float(v)
-             for k, v in m.items()}
-            for m in step_metrics
-        ]
+        w_ix, a_ix = w_ix.reshape(steps, batch_size), a_ix.reshape(steps, batch_size)
+        row: dict[str, Any] = {"epoch": epoch}
+        if loop is not None:
+            loop.run_epoch(w_ix, a_ix, window, step_times)
+            # one device-to-host transfer per epoch
+            train_loss = float(loop.metrics[METRICS.index("train_loss")].sum()) / steps
+            if timings is not None and loop.graph is not None:
+                timings["graph_capture_s"] = loop.capture_s
+        else:
+            step_metrics = []
+            for i in range(steps):
+                t_step = time.perf_counter()
+                if splits is not None:
+                    wi = torch.from_numpy(w_ix[i]).to(device)
+                    ai = torch.from_numpy(a_ix[i]).to(device)
+                    train = (splits[0][wi], splits[1][wi])
+                    val = (splits[2][ai], splits[3][ai])
+                else:  # gathered on the host, shipped per step
+                    train, val = (
+                        tuple(torch.from_numpy(t[ix]).to(device) for t in pair)
+                        for pair, ix in (((x_w, y_w), w_ix[i]), ((x_a, y_a), a_ix[i]))
+                    )
+                if augment_fn is not None:
+                    train = (augment_fn(aug_key, state.step, train[0]), train[1])
+                state, metrics = search_step(state, train, val)
+                # metrics stay on the device until the epoch ends: one transfer
+                step_metrics.append(metrics)
+                if step_times is not None:
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    step_times.append(time.perf_counter() - t_step)
+            step_metrics = [
+                {k: Alphas(*(t.cpu() for t in v)) if k == "alpha_grad" else float(v)
+                 for k, v in m.items()}
+                for m in step_metrics
+            ]
+            train_loss = sum(m["train_loss"] for m in step_metrics) / max(steps, 1)
         with torch.no_grad():
             logits = torch.func.functional_call(net, state.weights, (x_eval, state.alphas))
             val_acc = float(accuracy(logits, y_eval))
             val_loss = float(cross_entropy_loss(logits, y_eval))
         best_acc = max(best_acc, val_acc)
-        train_loss = sum(m["train_loss"] for m in step_metrics) / max(steps, 1)
-        history.append({
-            "epoch": epoch,
-            "val_accuracy": val_acc,
-            "val_loss": val_loss,
-            "train_loss": train_loss,
-            "steps": step_metrics,
-            "elapsed_s": round(time.perf_counter() - t0, 3),
-            "best_accuracy": best_acc,
-        })
+        row.update(val_accuracy=val_acc, train_loss=train_loss)
+        if loop is None:
+            row.update(val_loss=val_loss, steps=step_metrics)
+        row.update(elapsed_s=round(time.perf_counter() - t0, 3), best_accuracy=best_acc)
+        history.append(row)
+        if checkpointer is not None:
+            # snapshot index = epochs completed: a restart resumes at epoch + 1
+            checkpointer.save(dict(state_items(state)), epoch + 1)
+            _write_search_meta(checkpointer.directory, {
+                "epochs_completed": epoch + 1,
+                "best_accuracy": best_acc,
+                "history": [{k: v for k, v in h.items() if k != "steps"} for h in history],
+                "elapsed_s": round(time.perf_counter() - t0, 3),
+            })
         if report is not None and report(epoch=epoch, accuracy=val_acc, loss=train_loss) is False:
             break
     return state, history
+
+
+def resolve_step_loop(
+    *,
+    step_loop: bool | None,
+    step_loop_window: int | None,
+    device_data: bool | None,
+    native_prefetch: bool | None,
+    steps: int,
+) -> tuple[bool, int, bool]:
+    """``(step_loop, window, device_data)`` as the JAX package resolves them
+    (``katib_tpu/nas/darts/search.py:287-377``): parameter, then
+    ``KATIB_STEP_LOOP`` / ``KATIB_STEP_LOOP_WINDOW`` / ``KATIB_DEVICE_DATA``
+    / ``KATIB_NATIVE_LOADER``, then the defaults (step loop on, window the
+    whole epoch, splits on the device).
+
+    An explicit step loop that cannot engage (splits not on the device, or
+    a split smaller than one batch) raises :class:`StepLoopUnavailable`; a
+    default one quietly steps eagerly.  A native prefetch that would engage
+    (requested, with the splits off the device) raises
+    ``NotImplementedError``: the C++ loader is not ported."""
+    prefetch_requested = native_prefetch is True or parse_bool(
+        os.environ.get("KATIB_NATIVE_LOADER"))
+    env_sl = os.environ.get("KATIB_STEP_LOOP")
+    explicit = step_loop is True or (env_sl is not None and parse_bool(env_sl))
+    if step_loop is None:
+        step_loop = parse_bool(env_sl, default=True)
+    env_dd = os.environ.get("KATIB_DEVICE_DATA")
+    if device_data is None:
+        device_data = not prefetch_requested if env_dd is None else parse_bool(env_dd)
+    if prefetch_requested and not device_data:
+        raise NotImplementedError(
+            "native prefetch (native_prefetch=True or KATIB_NATIVE_LOADER=1) asks for the C++ "
+            "batch loader (katib_tpu/native), not ported yet"
+        )
+    if step_loop and (not device_data or steps < 1):
+        reasons = []
+        if env_dd is not None and not parse_bool(env_dd):
+            reasons.append("KATIB_DEVICE_DATA=0 disables the device-data path")
+        elif not device_data:
+            reasons.append("device_data=False was passed")
+        if steps < 1:
+            reasons.append("the train split is smaller than one batch")
+        if explicit:
+            raise StepLoopUnavailable(
+                "the device-resident step loop was explicitly requested "
+                "(step_loop/KATIB_STEP_LOOP) but cannot engage: " + "; ".join(reasons)
+            )
+        step_loop = False
+    if step_loop_window is None:
+        env_w = os.environ.get("KATIB_STEP_LOOP_WINDOW", "").strip()
+        step_loop_window = int(env_w) if env_w else None
+    if step_loop_window is not None and step_loop_window < 1:
+        raise ValueError(
+            f"step_loop_window must be a positive step count, got {step_loop_window}"
+        )
+    window = steps if step_loop_window is None else max(1, min(step_loop_window, steps))
+    return step_loop, window, device_data
 
 
 def run_darts_search(
@@ -151,17 +305,29 @@ def run_darts_search(
     hyper: DartsHyper | None = None,
     seed: int = 0,
     report=None,
+    native_prefetch: bool | None = None,
+    checkpoint_dir: str | None = None,
     remat: bool = True,
     remat_policy: str | None = None,
+    device_data: bool | None = None,
+    step_loop: bool | None = None,
+    step_loop_window: int | None = None,
+    augment_fn=None,
+    search_augment: bool | None = None,
     device: str | torch.device | None = None,
     step_times: list | None = None,
+    timings: dict | None = None,
 ) -> dict[str, Any]:
     """Run the bilevel architecture search; returns genotype + final metrics.
 
     Runs in bf16 on ``device`` (``cuda`` unless the caller names another;
     raises when CUDA is asked for and absent).  Weights and alphas are drawn
-    from a ``torch.Generator`` seeded with ``seed``.  ``step_times``: see
-    :func:`search_epochs`."""
+    from a ``torch.Generator`` seeded with ``seed``.  The step-loop,
+    device-data and native-prefetch settings resolve as in
+    :func:`resolve_step_loop`; ``search_augment`` (else ``KATIB_SEARCH_AUG``)
+    picks ``augment_fn`` = :func:`~katib_tpu_torch.models.augmentation.random_crop_flip`.
+    ``checkpoint_dir``: snapshot every epoch and resume from it.
+    ``step_times`` and ``timings``: see :func:`search_epochs`."""
     dev = resolve_device(device)
     net = DartsNetwork(
         primitives=tuple(primitives),
@@ -183,41 +349,58 @@ def run_darts_search(
     hyper = (hyper or DartsHyper())._replace(total_steps=max(1, steps_per_epoch * num_epochs))
     weights = {k: v.detach() for k, v in net.named_parameters()}
     state = init_search_state(weights, Alphas(*(a.to(dev) for a in alphas)), hyper)
+
+    step_loop, window, device_data = resolve_step_loop(
+        step_loop=step_loop, step_loop_window=step_loop_window, device_data=device_data,
+        native_prefetch=native_prefetch, steps=half // batch_size,
+    )
+    if search_augment is None:
+        search_augment = parse_bool(os.environ.get("KATIB_SEARCH_AUG"))
+    if augment_fn is None and search_augment:
+        from katib_tpu_torch.models.augmentation import random_crop_flip
+
+        augment_fn = random_crop_flip
+
+    checkpointer, resumed = None, Resumed()
+    if checkpoint_dir is not None:
+        checkpointer = TrialCheckpointer(checkpoint_dir, max_to_keep=2)
+        items = state_items(state)
+        restored = checkpointer.restore(template=dict(items))
+        if restored is not None:
+            tree, latest = restored
+            state = state_from_items(state, [tree[k].to(dev) for k, _ in items])
+            resumed.start_epoch = latest  # snapshot index == epochs completed
+            # the sidecar carries what the state cannot: the history and
+            # the wall-clock base, so a resumed run reports the whole search
+            meta = read_search_meta(checkpoint_dir)
+            if meta is not None and meta.get("epochs_completed") == latest:
+                resumed.history = [h for h in meta.get("history", ()) if h["epoch"] < latest]
+                resumed.best_accuracy = float(meta.get("best_accuracy", 0.0))
+                resumed.elapsed_s = float(meta.get("elapsed_s", 0.0))
+
     state, history = search_epochs(
         net, state, dataset, hyper=hyper, num_epochs=num_epochs, batch_size=batch_size,
-        seed=seed, device=dev, report=report, step_times=step_times,
+        seed=seed, device=dev, report=report, step_times=step_times, step_loop=step_loop,
+        window=window, device_data=device_data, augment_fn=augment_fn,
+        checkpointer=checkpointer, resumed=resumed, timings=timings,
     )
     alphas = Alphas(*(a.cpu() for a in state.alphas))
     return {
         "genotype": extract_genotype(alphas, primitives, n_nodes=n_nodes),
-        "best_accuracy": max((h["val_accuracy"] for h in history), default=0.0),
+        "best_accuracy": max([resumed.best_accuracy] + [h["val_accuracy"] for h in history]),
         "history": history,
         "alphas": alphas,
     }
 
 
-_STEP_LOOP = "the lax.scan step loop (device-resident windowed steps)"
-
-
 def _reject_unported(settings: dict) -> None:
     """Raise for settings that ask for parts of the JAX trial not ported yet
     (ROADMAP.md): never run without what was asked for."""
-    asked = [
-        ("step_loop", _STEP_LOOP, parse_bool(settings.get("step_loop"))),
-        ("step_loop_window", _STEP_LOOP, settings.get("step_loop_window") is not None),
-        ("stepLoopWindow", _STEP_LOOP, settings.get("stepLoopWindow") is not None),
-        ("fused", "the fused mixed-op plan (nas/darts/fused.py)",
-         parse_bool(settings.get("fused"))),
-        ("search_augment", "search augmentation (models/augmentation.py)",
-         parse_bool(settings.get("search_augment"))),
-        ("augment_epochs", "the augment phase (nas/darts/augment.py)",
-         int(settings.get("augment_epochs", 0)) > 0),
-    ]
-    for name, what, engaged in asked:
-        if engaged:
-            raise NotImplementedError(
-                f"setting {name}={settings[name]!r} asks for {what}, not ported yet"
-            )
+    if parse_bool(settings.get("fused")):
+        raise NotImplementedError(
+            f"setting fused={settings['fused']!r} asks for the fused mixed-op plan "
+            "(nas/darts/fused.py), not ported yet"
+        )
 
 
 def darts_trial(ctx) -> None:
@@ -226,16 +409,17 @@ def darts_trial(ctx) -> None:
     Consumes the three parameters the DARTS suggester emits:
     ``algorithm-settings`` (JSON dict), ``search-space`` (JSON list of
     primitives), ``num-layers``.  Runs on ``ctx.device`` (``cuda`` unless
-    it names the CPU)."""
+    it names the CPU), snapshots the search under
+    ``<checkpoint_dir>/search`` and resumes from it, and with
+    ``augment_epochs`` > 0 trains the genotype found and reports its
+    ``augment_accuracy`` at step ``num_epochs + augment_epochs`` (skipped
+    when the search was stopped or the trial asked to stop)."""
     settings = json.loads(ctx.params.get("algorithm-settings", "{}"))
     primitives = tuple(json.loads(ctx.params.get("search-space", "null")) or DEFAULT_PRIMITIVES)
     num_layers = int(ctx.params.get("num-layers", 8))
     _reject_unported(settings)
-    if ctx.checkpoint_dir and os.path.isdir(os.path.join(ctx.checkpoint_dir, "search")):
-        raise NotImplementedError(
-            "the trial's checkpoint dir holds a search snapshot to resume from; "
-            "checkpoint and resume (utils/checkpoint.py) are not ported yet"
-        )
+    if ctx.mesh is not None:
+        raise NotImplementedError("a trial mesh asks for the sharded search step, not ported yet")
 
     n_train = settings.get("n_train")
     n_test = settings.get("n_test")
@@ -258,28 +442,48 @@ def darts_trial(ctx) -> None:
             overrides[name] = float(raw)
     hyper = DartsHyper(**overrides)
 
-    def report(epoch, accuracy, loss):
-        return ctx.report(step=epoch, accuracy=accuracy, loss=loss)
+    stopped = False
 
+    def report(epoch, accuracy, loss):
+        nonlocal stopped
+        cont = ctx.report(step=epoch, accuracy=accuracy, loss=loss)
+        stopped = stopped or not cont
+        return cont
+
+    init_channels = int(settings.get("init_channels", 16))
+    batch_size = int(settings.get("batch_size", 128))
+    stem_multiplier = int(settings.get("stem_multiplier", 3))
+    num_epochs = int(settings.get("num_epochs", 10))
+    # both spellings of the window resolve: snake_case and Katib's camelCase
+    raw_window = settings.get("step_loop_window", settings.get("stepLoopWindow"))
     result = run_darts_search(
         dataset,
         primitives=primitives,
         num_layers=num_layers,
-        init_channels=int(settings.get("init_channels", 16)),
+        init_channels=init_channels,
         n_nodes=int(settings.get("num_nodes", 4)),
-        stem_multiplier=int(settings.get("stem_multiplier", 3)),
-        num_epochs=int(settings.get("num_epochs", 10)),
-        batch_size=int(settings.get("batch_size", 128)),
+        stem_multiplier=stem_multiplier,
+        num_epochs=num_epochs,
+        batch_size=batch_size,
         hyper=hyper,
         report=report,
+        step_loop=parse_bool(settings["step_loop"]) if "step_loop" in settings else None,
+        step_loop_window=int(raw_window) if raw_window is not None else None,
         remat=parse_bool(settings.get("remat"), default=True),
         remat_policy=(
             str(settings["remat_policy"])
             if settings.get("remat_policy") not in (None, "")
             else None
         ),
+        search_augment=(
+            parse_bool(settings["search_augment"]) if "search_augment" in settings else None
+        ),
+        checkpoint_dir=(
+            os.path.join(ctx.checkpoint_dir, "search") if ctx.checkpoint_dir else None
+        ),
         device=ctx.device,
         step_times=ctx.step_times,
+        timings=ctx.timings,
     )
     out_dir = ctx.ensure_checkpoint_dir()
     with open(os.path.join(out_dir, "genotype.json"), "w") as f:
@@ -292,3 +496,24 @@ def darts_trial(ctx) -> None:
             f,
             indent=2,
         )
+
+    aug_epochs = int(settings.get("augment_epochs", 0))
+    # an early-stopped search, or a stop asked for since, skips the phase:
+    # the genotype is already written, so leaving here loses nothing
+    if aug_epochs > 0 and not stopped and not ctx.should_stop():
+        from katib_tpu_torch.nas.darts.augment import train_genotype
+
+        acc = train_genotype(
+            result["genotype"],
+            dataset,
+            init_channels=init_channels,
+            num_layers=num_layers,
+            stem_multiplier=stem_multiplier,
+            lr=float(settings.get("augment_lr", 0.025)),
+            epochs=aug_epochs,
+            batch_size=batch_size,
+            mesh=ctx.mesh,
+            device=ctx.device,
+        )
+        # the step continues past the search epochs, so the series stays monotonic
+        ctx.report(step=num_epochs + aug_epochs, augment_accuracy=float(acc))

@@ -1,0 +1,167 @@
+"""The windowed step loop: bilevel steps over device-resident splits, each
+step one replay of a captured CUDA graph (the counterpart of the JAX
+package's ``lax.scan`` step loop, ``katib_tpu/nas/darts/search.py:390-447``).
+
+Design (one step per graph):
+
+- The search state lives in fixed tensors for the whole search; each step
+  writes its new state back into them (``architect.copy_state_``), so a
+  replay reads and writes the same addresses as the capture did.
+- The epoch's ``[steps, batch]`` permutation indices live in a fixed device
+  buffer that the host fills one window of rows at a time.  The step reads
+  its row through a device-side position counter that it advances itself,
+  gathers its w- and alpha-batch on the device, augments the w-batch
+  (keyed off the state's step counter), runs the bilevel step, and writes
+  its four scalar metrics into row ``position`` of a fixed ``[4, steps]``
+  metrics buffer, fetched once per epoch.
+- One captured step serves every window length, so a ragged last window
+  needs no second graph.
+
+On a CUDA device the step is warmed up on a side stream, on a copy of every
+buffer (so no step is applied twice), which also builds and loads the
+kernel library, creates the cuBLAS and cuDNN handles and starts the autograd
+engine; then it is captured once and replayed.  A capture or replay that
+fails raises: nothing falls back to eager stepping.  On the CPU the same
+step function runs eagerly, one call per step, over the same buffers.
+
+Launch accounting: the mixed-op wrapper counts each launch in Python, so a
+capture counts launches that do not happen and a replay counts none.  The
+loop takes the capture's count back off and adds it again on every replay,
+so ``mixed_op.launches`` stays the number of kernels the device ran.  The
+warm-up's launches are real and stay counted.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from katib_tpu_torch.nas.darts.architect import SearchState, clone_state, copy_state_
+from katib_tpu_torch.ops import mixed_op
+
+METRICS = ("train_loss", "val_loss", "w_lr", "grad_norm")
+WARMUP_STEPS = 1  # steps run (on copies) before the capture
+
+# one side stream per device for every warm-up and capture in the process:
+# cuBLAS keeps a workspace for each stream it has run on until the process
+# ends, so a fresh stream per search would hold more memory with each trial
+_capture_streams: dict[int, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _capture_streams:
+        _capture_streams[index] = torch.cuda.Stream(index)
+    return _capture_streams[index]
+
+
+class StepLoop:
+    """Bilevel steps of one search over device-resident splits.
+
+    ``search_step(state, train_batch, val_batch) -> (state, metrics)`` is
+    the architect's step; ``splits`` the ``(x_w, y_w, x_a, y_a)`` tensors on
+    the state's device; ``augment(key, step, x)`` (or ``None``) transforms
+    the w-batch, keyed with ``aug_key``.  ``capture``: replay a CUDA graph
+    (``None`` = exactly when the state lives on a CUDA device)."""
+
+    def __init__(self, search_step: Callable, state: SearchState, splits, steps: int,
+                 batch_size: int, augment: Callable | None = None, aug_key: int = 0,
+                 capture: bool | None = None):
+        if steps < 1:
+            raise ValueError(f"the step loop needs at least one step per epoch, got {steps}")
+        device = state.step.device
+        self.search_step, self.splits = search_step, splits
+        self.augment, self.aug_key = augment, aug_key
+        self.steps = steps
+        self.capture = device.type == "cuda" if capture is None else capture
+        if self.capture and device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, the state is on {device}")
+        # fixed buffers: the state, the epoch's indices, the position, the metrics
+        self.bufs = (
+            clone_state(state),
+            torch.zeros(steps, batch_size, dtype=torch.int64, device=device),
+            torch.zeros(steps, batch_size, dtype=torch.int64, device=device),
+            torch.zeros(1, dtype=torch.int64, device=device),
+            torch.zeros(len(METRICS), steps, dtype=torch.float32, device=device),
+        )
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.launches_per_replay = 0
+        self.capture_s = 0.0
+
+    @property
+    def state(self) -> SearchState:
+        return self.bufs[0]
+
+    @property
+    def metrics(self) -> torch.Tensor:
+        """``[4, steps]`` float32 on the device: row ``i`` is ``METRICS[i]``."""
+        return self.bufs[4]
+
+    def _step(self, bufs) -> None:
+        """One bilevel step on ``bufs``, written back into them: the function
+        that is captured, and that runs eagerly on the CPU."""
+        state, w_ix, a_ix, pos, metrics = bufs
+        x_w, y_w, x_a, y_a = self.splits
+        wi = w_ix.index_select(0, pos)[0]
+        ai = a_ix.index_select(0, pos)[0]
+        xb = x_w.index_select(0, wi)
+        if self.augment is not None:
+            xb = self.augment(self.aug_key, state.step, xb)
+        new, m = self.search_step(state, (xb, y_w.index_select(0, wi)),
+                                  (x_a.index_select(0, ai), y_a.index_select(0, ai)))
+        copy_state_(state, new)
+        metrics.index_copy_(1, pos, torch.stack([m[k].float() for k in METRICS])[:, None])
+        pos.add_(1)
+
+    def _build_graph(self) -> None:
+        t0 = time.perf_counter()
+        copies = (clone_state(self.bufs[0]), *(t.clone() for t in self.bufs[1:]))
+        side = _capture_stream(self.bufs[0].step.device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                self._step(copies)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        del copies
+        graph = torch.cuda.CUDAGraph()
+        before = mixed_op.launches
+        with torch.cuda.graph(graph, stream=side):
+            self._step(self.bufs)
+        # the capture enqueued nothing on the device: take its count back off
+        self.launches_per_replay = mixed_op.launches - before
+        mixed_op.launches = before
+        torch.cuda.synchronize()
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+    def run_epoch(self, w_ix: np.ndarray, a_ix: np.ndarray, window: int,
+                  step_times: list | None = None) -> None:
+        """Run the epoch whose ``[steps, batch]`` permutation indices are
+        ``w_ix`` and ``a_ix``, ``window`` steps per shipment of indices.
+        ``step_times``, when given, receives each step's wall seconds to the
+        device's completion (a sync after each step); otherwise replays are
+        queued without waiting."""
+        if self.capture and self.graph is None:
+            self._build_graph()
+        _, w_buf, a_buf, pos, metrics = self.bufs
+        pos.zero_()
+        metrics.zero_()
+        for start in range(0, self.steps, window):
+            k = min(window, self.steps - start)
+            w_buf[start:start + k].copy_(torch.from_numpy(w_ix[start:start + k]))
+            a_buf[start:start + k].copy_(torch.from_numpy(a_ix[start:start + k]))
+            for _ in range(k):
+                t0 = time.perf_counter()
+                if self.graph is not None:
+                    self.graph.replay()
+                    mixed_op.launches += self.launches_per_replay
+                else:
+                    self._step(self.bufs)
+                if step_times is not None:
+                    if self.capture:
+                        torch.cuda.synchronize()
+                    step_times.append(time.perf_counter() - t0)

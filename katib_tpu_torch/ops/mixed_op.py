@@ -23,7 +23,9 @@ import torch
 MAX_OPS = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches since import or the last reset; the CPU path does not count
+# kernel launches since import or the last reset; the CPU path does not count.
+# A captured CUDA graph launches without calling the wrapper: its owner adds
+# the launches the capture recorded on each replay (nas/darts/step_loop.py)
 launches = 0
 _lib = None
 

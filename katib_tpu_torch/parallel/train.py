@@ -1,12 +1,57 @@
-"""Loss, accuracy, gradient clipping and the optimizer setup shared by the
-trial workloads (port of the matching helpers in
-``katib_tpu/parallel/train.py``, and of the optax pieces the trials use)."""
+"""Loss, accuracy, gradient clipping, the train state and step factories,
+and the optimizer setup shared by the trial workloads (port of the matching
+helpers in ``katib_tpu/parallel/train.py``, and of the optax pieces the
+trials use)."""
 
 from __future__ import annotations
 
 import math
+from typing import Any, Callable, NamedTuple
 
 import torch
+
+
+class TrainState(NamedTuple):
+    """``katib_tpu.parallel.train.TrainState``: the step counter (0-d int32
+    on the parameters' device), the parameters (a ``{name: tensor}`` dict
+    that ``torch.func.functional_call`` binds) and the optimizer state."""
+
+    step: torch.Tensor
+    params: dict
+    opt_state: Any
+
+    @classmethod
+    def create(cls, params: dict, tx) -> "TrainState":
+        device = next(iter(params.values())).device
+        params = {k: v.detach() for k, v in params.items()}
+        return cls(torch.zeros((), dtype=torch.int32, device=device), params, tx.init(params))
+
+
+def make_train_step(loss_fn: Callable[[dict, Any], torch.Tensor], tx) -> Callable:
+    """``step(state, batch) -> (state, {"loss": loss})`` for
+    ``loss_fn(params, batch) -> scalar`` and an optimizer ``tx`` with
+    ``update(grads, opt_state, params) -> (params, opt_state)``; one device
+    of the JAX function (``katib_tpu/parallel/train.py:53``)."""
+
+    def step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        params = {k: v.detach().requires_grad_() for k, v in state.params.items()}
+        loss = loss_fn(params, batch)
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()),
+                                                     allow_unused=True, materialize_grads=True)))
+        new_params, opt_state = tx.update(grads, state.opt_state, state.params)
+        return TrainState(state.step + 1, new_params, opt_state), {"loss": loss.detach()}
+
+    return step
+
+
+def make_eval_step(metric_fn: Callable[[dict, Any], dict]) -> Callable:
+    """``evaluate(params, batch) -> metrics`` without autograd."""
+
+    def evaluate(params: dict, batch) -> dict:
+        with torch.no_grad():
+            return metric_fn(params, batch)
+
+    return evaluate
 
 
 def global_norm(tensors) -> torch.Tensor:

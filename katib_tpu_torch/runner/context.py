@@ -20,7 +20,9 @@ class TrialContext:
     or ``None`` to skip the per-step device sync that measuring needs.
     ``mesh``: the device mesh the trial should train on, as in the JAX
     context; ``None`` is one device (the only layout the port runs yet).
-    ``reports`` keeps every ``report()`` call as ``(step, metrics)``."""
+    ``reports`` keeps every ``report()`` call as ``(step, metrics)``;
+    ``timings`` receives set-up seconds the trial measures (the DARTS trial
+    writes ``graph_capture_s`` when it captures its step on the card)."""
 
     def __init__(self, params: Mapping[str, Any], checkpoint_dir: str | None = None,
                  device: str | None = None, step_times: list | None = None,
@@ -31,6 +33,7 @@ class TrialContext:
         self.step_times = step_times
         self.mesh = mesh
         self.reports: list[tuple[int, dict[str, float]]] = []
+        self.timings: dict[str, float] = {}
         self._step = 0
         self._stop = threading.Event()
 

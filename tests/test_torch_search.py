@@ -183,20 +183,57 @@ def test_darts_trial_stops_when_report_says_so(tmp_path):
     assert [step for step, _ in ctx.reports] == [0]
 
 
-@pytest.mark.parametrize("setting", [
-    {"step_loop": "true"}, {"stepLoopWindow": "8"}, {"step_loop_window": "2"},
-    {"fused": "true"}, {"search_augment": "1"}, {"augment_epochs": "1"},
-    {"remat": "true", "remat_policy": "dots"},
-])
+@pytest.mark.parametrize("setting", [{"fused": "true"}])
 def test_unported_settings_raise(tmp_path, setting):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="fused"):
         darts_trial(_ctx(tmp_path, {**SMALL, **setting}))
 
 
-def test_resume_is_not_ported(tmp_path):
-    os.makedirs(tmp_path / "trial" / "search")
-    with pytest.raises(NotImplementedError, match="resume"):
-        darts_trial(_ctx(tmp_path, SMALL))
+def test_trial_mesh_raises(tmp_path):
+    with pytest.raises(NotImplementedError, match="mesh"):
+        darts_trial(_ctx(tmp_path, SMALL, mesh=object()))
+
+
+@pytest.mark.parametrize("spec", ["darts.yaml", "darts-paper-protocol.yaml"])
+def test_shipped_specs_run_on_the_cpu(tmp_path, spec):
+    """Every setting of the shipped DARTS specs is accepted; only the data
+    and widths are cut to test size."""
+    with open(os.path.join(os.path.dirname(EXAMPLE), spec)) as f:
+        raw = yaml.safe_load(f)["spec"]
+    settings = {s["name"]: s["value"] for s in raw["algorithm"]["algorithmSettings"]}
+    params = tservice.trial_parameters(
+        raw["nasConfig"]["operations"], raw["nasConfig"]["graphConfig"]["numLayers"], settings
+    )
+    assigned = json.loads(params["algorithm-settings"])
+    assigned.update(n_train=16, n_test=8, batch_size=4, init_channels=4, num_nodes=2)
+    params["algorithm-settings"] = json.dumps(assigned)
+    ctx = TrialContext(params, checkpoint_dir=str(tmp_path / "trial"), device="cpu")
+    darts_trial(ctx)
+    epochs = int(assigned["num_epochs"])
+    augment = int(assigned.get("augment_epochs", 0))
+    assert [step for step, _ in ctx.reports] == list(range(epochs)) + (
+        [epochs + augment] if augment else [])
+    assert os.path.isfile(tmp_path / "trial" / "search" / "search_meta.json")
+
+
+def test_trial_resumes_from_its_checkpoint_dir(tmp_path):
+    class StopAfterFirst(TrialContext):
+        def report(self, step=None, **metrics):
+            return super().report(step, **metrics) and step != 0
+
+    first = StopAfterFirst(_ctx(tmp_path, SMALL).params, checkpoint_dir=str(tmp_path / "trial"),
+                           device="cpu")
+    darts_trial(first)
+    second = _ctx(tmp_path, SMALL)
+    darts_trial(second)
+    assert [step for step, _ in first.reports] == [0]
+    assert [step for step, _ in second.reports] == [1]
+    full = _ctx(tmp_path / "full", SMALL)
+    darts_trial(full)
+    assert second.reports[0] == full.reports[1]
+    with open(tmp_path / "trial" / "genotype.json") as a, open(
+            tmp_path / "full" / "trial" / "genotype.json") as b:
+        assert json.load(a) == json.load(b)
 
 
 def test_trial_needs_a_gpu_unless_it_names_the_cpu(tmp_path, monkeypatch):
