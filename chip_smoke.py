@@ -22,7 +22,20 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    then the same trial stopped after epoch 0 and resumed on its dir, against
    the uninterrupted run; then a small f32 supernet on the card against the
    same weights on the CPU;
-7. drive the second main path: ``transformer_trial`` at the long-context
+7. drive the orchestrator path: ``examples/nas/darts.yaml`` at the search
+   width (8 cells, 16 channels, batch 64, 1,024 images, 2 epochs, windows
+   of 3, search augmentation, its own 3 operations) through the loader's
+   ``experiment_spec_from_dict``, ``Orchestrator.run`` on ``cuda``, the
+   DARTS suggester, ``run_trial`` and ``darts_trial``, with the mixed-op
+   launch count set to 0 just before and read just after; the same trial
+   parameters through ``darts_trial`` directly, for the orchestrator's
+   overhead;
+8. drive the CLI: ``python -m katib_tpu_torch run examples/nas/darts.yaml``
+   as shipped, in a fresh interpreter, SIGTERM once the trial is journaled
+   running (the drain lands at epoch 0's report; exit 75), then
+   ``--resume`` to its end, ``fsck`` clean and each epoch reported once;
+   then ``python -m katib_tpu_torch doctor``;
+9. drive the second main path: ``transformer_trial`` at the long-context
    width (vocab 256, d_model 512, 8 heads, 4 layers, seq 4096, batch 4,
    bf16) for 10 steps, with the three flash-attention launch counts set to
    0 just before and read just after.
@@ -35,6 +48,7 @@ and exits nonzero without printing a result when either is missing.
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import json
 import math
@@ -590,6 +604,224 @@ def phase_resume(full_dir: str, full_reports: list) -> None:
           "resumed epoch-1 accuracy differs by more than 4 images")
 
 
+HERE = os.path.dirname(os.path.abspath(__file__))
+DARTS_YAML = os.path.join(HERE, "examples", "nas", "darts.yaml")
+# the orchestrator path: darts.yaml's algorithm settings set to the search width
+ORCH_LAYERS = 8
+ORCH_SETTINGS = {
+    "batch_size": "64", "init_channels": "16", "num_epochs": "2", "n_train": "1024",
+    "n_test": "1024", "remat": "false", "stepLoopWindow": "3", "search_augment": "true",
+}
+# experiment conditions of a run that ended well (darts.yaml's maxTrialCount: 1
+# settles as MaxTrialsReached before the suggester's exhaustion)
+SUCCESS = ("Succeeded", "MaxTrialsReached", "GoalReached")
+
+
+def search_width_spec():
+    """``darts.yaml`` through the SDK entry with the search width set."""
+    import yaml
+
+    from katib_tpu_torch.sdk.yaml_spec import experiment_spec_from_dict
+
+    with open(DARTS_YAML) as f:
+        doc = yaml.safe_load(f)
+    algo = doc["spec"]["algorithm"]
+    algo["algorithmSettings"] = [s for s in algo["algorithmSettings"]
+                                 if s["name"] not in ORCH_SETTINGS]
+    algo["algorithmSettings"] += [{"name": k, "value": v} for k, v in ORCH_SETTINGS.items()]
+    doc["spec"]["nasConfig"]["graphConfig"]["numLayers"] = ORCH_LAYERS
+    return experiment_spec_from_dict(doc)
+
+
+def span_totals(workdir: str, experiment: str) -> str:
+    """The experiment's span journal summed by span name: ``name count x
+    seconds``, the breakdown of a run's wall, and the graph captures the
+    DARTS epochs carry."""
+    totals: dict[str, list] = {"graph_capture_s": [0, 0.0]}
+    with open(os.path.join(workdir, experiment, "trace.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            for name, dur in ((rec["name"], rec["dur"]),
+                              ("graph_capture_s", rec["args"].get("graph_capture_s"))):
+                if dur is not None:
+                    entry = totals.setdefault(name, [0, 0.0])
+                    entry[0] += 1
+                    entry[1] += dur
+    return ", ".join(f"{name} {n}x {dur:.3f}s" for name, (n, dur) in totals.items() if n)
+
+
+def phase_orchestrator(torch, mixed_op) -> None:
+    """The search-width spec through ``Orchestrator.run`` on ``cuda``,
+    between runs of its trial's parameters through ``darts_trial`` directly:
+    one before (it pays what a network's first run in a process pays), one
+    on a pool thread as the orchestrator runs trials, one after."""
+    from katib_tpu_torch.core.types import Experiment
+    from katib_tpu_torch.nas.darts.model import mixed_op_launches_per_forward
+    from katib_tpu_torch.nas.darts.search import darts_trial
+    from katib_tpu_torch.nas.darts.step_loop import WARMUP_STEPS
+    from katib_tpu_torch.orchestrator import Orchestrator
+    from katib_tpu_torch.orchestrator.fsck import fsck_experiment
+    from katib_tpu_torch.runner.context import TrialContext
+    from katib_tpu_torch.suggest.base import make_suggester
+
+    spec = search_width_spec()
+    (proposal,) = make_suggester(spec).get_suggestions(Experiment(spec=spec), 1)
+    params = {a.name: a.value for a in proposal.assignments}
+
+    def direct():
+        ctx = TrialContext(params, device="cuda",
+                           checkpoint_dir=tempfile.mkdtemp(prefix="chip-smoke-direct-"))
+        t0 = time.perf_counter()
+        darts_trial(ctx)
+        torch.cuda.synchronize()
+        return ctx, time.perf_counter() - t0
+
+    ctx, before_wall = direct()
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-orch-")
+    orch = Orchestrator(workdir=workdir, device="cuda")
+    mixed_op.launches = 0
+    t0 = time.perf_counter()
+    exp = orch.run(spec)
+    torch.cuda.synchronize()
+    run_wall = time.perf_counter() - t0
+    launches = mixed_op.launches
+    (trial,) = exp.trials.values()
+    trial_wall = trial.completion_time - trial.start_time
+
+    check(trial.params() == params, "the orchestrator's trial has the suggester's parameters")
+    # the orchestrator runs its trials on pool threads: the same, directly
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        pooled, pooled_wall = pool.submit(direct).result()
+    after, after_wall = direct()
+    direct_wall = min(before_wall, after_wall)
+
+    s = ORCH_SETTINGS
+    epochs, steps = int(s["num_epochs"]), (int(s["n_train"]) // 2) // int(s["batch_size"])
+    # second order, no remat: 5 network passes a step (the warm-up's included)
+    # and one evaluation forward an epoch, as on the main path
+    predicted = ((epochs * steps + WARMUP_STEPS) * 5 + epochs) * mixed_op_launches_per_forward(
+        ORCH_LAYERS, int(json.loads(trial.params()["algorithm-settings"])["num_nodes"]))
+    accuracy = exp.optimal.objective_value if exp.optimal is not None else float("nan")
+    report = fsck_experiment(os.path.join(workdir, spec.name), repair=False)
+    print(f"orchestrator: darts.yaml at the search width ({ORCH_LAYERS} layers, "
+          f"{json.loads(trial.params()['search-space'])}, {s}) through Orchestrator.run on cuda: "
+          f"experiment {exp.condition.value} ({exp.message}); trial {trial.name} "
+          f"{trial.condition.value}; optimal accuracy={accuracy}", flush=True)
+    print(f"orchestrator: wall run={run_wall:.3f}s trial={trial_wall:.3f}s; direct darts_trial "
+          f"before={before_wall:.3f}s, on a pool thread={pooled_wall:.3f}s, after={after_wall:.3f}s "
+          f"(graph capture {ctx.timings.get('graph_capture_s', math.nan):.3f}s, "
+          f"{pooled.timings.get('graph_capture_s', math.nan):.3f}s and "
+          f"{after.timings.get('graph_capture_s', math.nan):.3f}s); "
+          f"overhead per trial against the "
+          f"faster direct run: run-direct={run_wall - direct_wall:.3f}s "
+          f"trial-direct={trial_wall - direct_wall:.3f}s", flush=True)
+    print(f"orchestrator: spans {span_totals(workdir, spec.name)}", flush=True)
+    print(f"orchestrator: mixed_op launches={launches} predicted={predicted}; fsck "
+          f"{'consistent' if report.ok() else report.lines()}", flush=True)
+    check(exp.condition.value in SUCCESS, f"experiment ended {exp.condition.value}: {exp.message}")
+    check(trial.condition.value == "Succeeded", f"trial {trial.condition.value}: {trial.message}")
+    check(0.0 <= accuracy <= 1.0, f"optimal accuracy {accuracy}")
+    check(launches == predicted, f"mixed-op kernel launched {launches}, the path predicts {predicted}")
+    check(report.ok(), f"fsck: {report.lines()}")
+    check([st for st, _ in ctx.reports] == [0, 1], f"direct run reports {ctx.reports}")
+
+
+def _cli(*args: str, log: str) -> subprocess.Popen:
+    """``python -m katib_tpu_torch ...`` in a fresh interpreter, its output to ``log``."""
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, "-m", "katib_tpu_torch", *args], cwd=HERE,
+                                env={**os.environ, "PYTHONPATH": HERE}, stdout=f,
+                                stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(proc: subprocess.Popen, log: str, timeout: float) -> tuple[int, str]:
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log) as f:
+        return proc.returncode, f.read()
+
+
+def phase_cli() -> None:
+    """``python -m katib_tpu_torch run examples/nas/darts.yaml`` as shipped:
+    drained by SIGTERM during epoch 0 (exit 75), resumed with ``--resume``,
+    fsck'd; then ``doctor``."""
+    from katib_tpu_torch.orchestrator.status import read_status
+    from katib_tpu_torch.store.sqlite import SqliteObservationStore
+
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-cli-")
+    store_path = os.path.join(workdir, "observations.sqlite")
+    config = os.path.join(workdir, "config.yaml")
+    with open(config, "w") as f:
+        json.dump({"store": {"backend": "sqlite", "path": store_path}}, f)  # JSON is YAML
+    run = ("--config", config, "run", DARTS_YAML, "--workdir", workdir,
+           "--drain-grace-seconds", "300")
+    name = "darts-example"
+
+    def steps(trial: str) -> list[int]:
+        store = SqliteObservationStore(store_path)
+        try:
+            return sorted(log.step for log in store.get(trial, "accuracy"))
+        finally:
+            store.close()
+
+    log = os.path.join(workdir, "run.log")
+    t0 = time.perf_counter()
+    proc = _cli(*run, log=log)
+    trial = None
+    while proc.poll() is None and time.perf_counter() - t0 < 300:
+        status = read_status(workdir, name)
+        if status and status.get("trials"):
+            trial = next(iter(status["trials"]))
+            break
+        time.sleep(0.05)
+    if trial is None:
+        check(False, f"the CLI run journaled no trial: {_wait(proc, log, 5)}")
+    signalled = time.perf_counter() - t0
+    proc.send_signal(15)  # SIGTERM
+    rc, out = _wait(proc, log, 600)
+    drained_wall = time.perf_counter() - t0
+    status = read_status(workdir, name)
+    first_steps = steps(trial)
+    print(f"cli: run darts.yaml as shipped: SIGTERM at {signalled:.2f}s once {trial} was journaled "
+          f"running; exit {rc} at {drained_wall:.2f}s; trial "
+          f"{status['trials'][trial]['condition']}; accuracy reported at epochs {first_steps}",
+          flush=True)
+    print(f"cli: drained run spans {span_totals(workdir, name)}", flush=True)
+    check(rc == 75, f"drained CLI run exited {rc}:\n{out[-3000:]}")
+    check(status["trials"][trial]["condition"] == "Drained", "the trial settled Drained")
+    check(first_steps == [0], f"the drained run reported epochs {first_steps}, not [0]")
+
+    t0 = time.perf_counter()
+    rc, out = _wait(_cli(*run, "--resume", log=log), log, 600)
+    resume_wall = time.perf_counter() - t0
+    status = read_status(workdir, name)
+    lines = [ln for ln in out.splitlines() if ln.startswith(("experiment ", "optimal trial "))]
+    print(f"cli: --resume exit {rc} in {resume_wall:.2f}s: {lines}; trial "
+          f"{status['trials'][trial]['condition']}; accuracy reported at epochs {steps(trial)}",
+          flush=True)
+    print(f"cli: both runs' spans {span_totals(workdir, name)}", flush=True)
+    check(rc == 0 and status["condition"] in SUCCESS, f"resumed run exited {rc}:\n{out[-3000:]}")
+    check(list(status["trials"]) == [trial], "the resumed run reran the drained trial only")
+    check(status["trials"][trial]["condition"] == "Succeeded", "the resumed trial succeeded")
+    check(steps(trial) == [0, 1], f"epochs reported {steps(trial)}, each should be once")
+    check(any(ln.startswith(f"optimal trial {trial}: accuracy=") for ln in lines),
+          "the CLI printed the optimal accuracy")
+
+    rc, out = _wait(_cli("fsck", os.path.join(workdir, name), log=log), log, 120)
+    print(f"cli: fsck exit {rc}: {out.strip().splitlines()[-1]}", flush=True)
+    check(rc == 0 and "result: consistent" in out, f"fsck:\n{out}")
+
+    t0 = time.perf_counter()
+    rc, out = _wait(_cli("doctor", log=log), log, 180)
+    print(f"doctor: exit {rc} in {time.perf_counter() - t0:.2f}s: "
+          f"{' | '.join(out.strip().splitlines())}", flush=True)
+    check(rc == 0 and out.startswith("pool healthy"), f"doctor:\n{out}")
+
+
 def phase_transformer(torch, fa, kernel_ms: float) -> dict[str, int]:
     """``transformer_trial`` at the long-context width; returns the flash
     launches.  ``kernel_ms``: one forward + dq + dk/dv at its attention
@@ -696,6 +928,8 @@ def main() -> int:
     launches, darts_dir, darts_reports = phase_main_path(torch, mixed_op)
     phase_resume(darts_dir, darts_reports)
     phase_small_reference(torch)
+    phase_orchestrator(torch, mixed_op)
+    phase_cli()
     flash_launches = phase_transformer(
         torch, fa, sum(t["ms"] for t in flash_timing.values()))
 

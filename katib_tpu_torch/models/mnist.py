@@ -6,14 +6,15 @@ and momentum as runtime state (``_family_optimizer("momentum")`` and
 
 Each epoch draws one permutation from a numpy generator seeded with the
 run's seed, as the JAX trainer does on both of its data paths, and runs one
-eager step per batch over the train split held on the device; losses are
-fetched once per epoch.  The MLP and CNN
+eager step per batch, gathered from the train split held on the device (or,
+with ``device_data`` off, on the host); losses are fetched once per epoch.  The MLP and CNN
 models, the other optimizers, ``mnist_trial``, cohorts, meshes and the
 CUDA-graph epoch are the HP-tuning slice (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -23,6 +24,7 @@ from torch import nn
 from katib_tpu_torch.device import resolve_device
 from katib_tpu_torch.models.augmentation import KEY_OFFSET
 from katib_tpu_torch.models.data import Dataset
+from katib_tpu_torch.utils.booleans import parse_bool
 from katib_tpu_torch.parallel.train import (
     TrainState,
     accuracy,
@@ -97,6 +99,7 @@ def train_classifier(
     eval_batch: int = 1024,
     init_transform=None,
     on_finish=None,
+    device_data: bool | None = None,
     augment_fn: Callable | None = None,
     device: str | torch.device | None = None,
 ) -> float:
@@ -105,7 +108,11 @@ def train_classifier(
     loss=)`` per epoch and stops when it returns False.
 
     ``augment_fn(key, step, x)`` transforms each batch, keyed with
-    ``seed + 0x5EED`` and the train state's step counter.  ``device``:
+    ``seed + 0x5EED`` and the train state's step counter.  ``device_data``
+    (default on for single-device runs, ``KATIB_DEVICE_DATA`` overrides, as
+    in the JAX trainer): the train split lives on the device and each batch
+    is gathered there; off, each batch is gathered on the host from the same
+    permutation and copied over, so both give the same batches.  ``device``:
     ``cuda`` unless the caller names another.  ``mesh``,
     ``init_transform`` and ``on_finish`` raise ``NotImplementedError``."""
     for name, value in (("mesh", mesh), ("init_transform", init_transform),
@@ -127,22 +134,30 @@ def train_classifier(
     step, evaluate = make_train_step(loss_fn, tx), make_eval_step(metric_fn)
     state = TrainState.create(dict(model.named_parameters()), tx)
     state = state._replace(opt_state=set_hyperparams(state.opt_state, lr, momentum))
-    x_train = torch.from_numpy(dataset.x_train).to(dev)
-    y_train = torch.from_numpy(dataset.y_train).to(dev)
+    if device_data is None:
+        env = os.environ.get("KATIB_DEVICE_DATA")
+        device_data = mesh is None if env is None else parse_bool(env)
+    if device_data:
+        x_train = torch.from_numpy(dataset.x_train).to(dev)
+        y_train = torch.from_numpy(dataset.y_train).to(dev)
     ne = min(eval_batch, len(dataset.x_test))
     ebatch = (torch.from_numpy(dataset.x_test[:ne]).to(dev),
               torch.from_numpy(dataset.y_test[:ne]).to(dev))
     aug_key = seed + KEY_OFFSET
     rng = np.random.default_rng(seed)
-    n = len(x_train) // batch_size
+    n = len(dataset.x_train) // batch_size
     test_acc = 0.0
     for epoch in range(epochs):
         # one permutation per epoch, the JAX trainer's draw on both of its paths
-        idx = rng.permutation(len(x_train))[: n * batch_size].reshape(n, batch_size)
+        idx = rng.permutation(len(dataset.x_train))[: n * batch_size].reshape(n, batch_size)
         losses = []
         for rows in idx:
-            ix = torch.from_numpy(rows).to(dev)
-            xb, yb = x_train[ix], y_train[ix]
+            if device_data:
+                ix = torch.from_numpy(rows).to(dev)
+                xb, yb = x_train[ix], y_train[ix]
+            else:
+                xb = torch.from_numpy(dataset.x_train[rows]).to(dev)
+                yb = torch.from_numpy(dataset.y_train[rows]).to(dev)
             if augment_fn is not None:
                 xb = augment_fn(aug_key, state.step, xb)
             state, metrics = step(state, (xb, yb))

@@ -22,6 +22,14 @@ environment variable, then default):
 With a checkpoint dir the state is saved after every epoch and a restarted
 search resumes at the newest snapshot that verifies, its history, best
 accuracy and elapsed time continued (``utils/checkpoint.py``).
+
+``KATIB_EPOCH_TRACE=1`` prints the JAX package's ``epoch-trace:`` tags (the
+seconds since the previous tag, per phase of each epoch).
+``KATIB_SCAN_UNROLL`` (the JAX ``lax.scan`` unroll of the step loop) has no
+counterpart under graph replay: ``1`` is accepted, anything else raises.
+Each epoch publishes the JAX package's step-time, throughput, device-memory
+and steps-per-dispatch gauges and one ``darts.epoch`` span; the epoch that
+captured the step's graph also carries ``graph_capture_s`` in its span.
 """
 
 from __future__ import annotations
@@ -55,6 +63,8 @@ from katib_tpu_torch.nas.darts.model import (
 from katib_tpu_torch.nas.darts.ops import DEFAULT_PRIMITIVES
 from katib_tpu_torch.nas.darts.step_loop import METRICS, StepLoop
 from katib_tpu_torch.parallel.train import accuracy, cross_entropy_loss
+from katib_tpu_torch.utils import observability as obs
+from katib_tpu_torch.utils import tracing
 from katib_tpu_torch.utils.booleans import parse_bool
 from katib_tpu_torch.utils.checkpoint import TrialCheckpointer
 from katib_tpu_torch.utils.fsio import atomic_replace
@@ -170,15 +180,30 @@ def search_epochs(
     best_acc = resumed.best_accuracy
     history = list(resumed.history)
     t0 = time.perf_counter() - resumed.elapsed_s
+    trace_epochs = parse_bool(os.environ.get("KATIB_EPOCH_TRACE"))
+
+    def _trace(tag: str, since: float) -> float:
+        now = time.perf_counter()
+        if trace_epochs:
+            print(f"epoch-trace: {tag} {now - since:.2f}s", flush=True)
+        return now
+
     for epoch in range(resumed.start_epoch, num_epochs):
+        t_mark = t_epoch = time.perf_counter()
         n_used = steps * batch_size
         w_ix, a_ix = _draw_epoch_indices(seed, epoch, len(x_w), len(x_a), n_used)
         w_ix, a_ix = w_ix.reshape(steps, batch_size), a_ix.reshape(steps, batch_size)
         row: dict[str, Any] = {"epoch": epoch}
+        span_attrs = {}
         if loop is not None:
+            capturing = loop.capture and loop.graph is None
             loop.run_epoch(w_ix, a_ix, window, step_times)
+            if capturing:
+                span_attrs["graph_capture_s"] = round(loop.capture_s, 3)
+            t_mark = _trace("scan-dispatch", t_mark)
             # one device-to-host transfer per epoch
             train_loss = float(loop.metrics[METRICS.index("train_loss")].sum()) / steps
+            t_mark = _trace("loss-fetch", t_mark)
             if timings is not None and loop.graph is not None:
                 timings["graph_capture_s"] = loop.capture_s
         else:
@@ -204,17 +229,43 @@ def search_epochs(
                     if device.type == "cuda":
                         torch.cuda.synchronize(device)
                     step_times.append(time.perf_counter() - t_step)
+            t_mark = _trace("step-dispatch", t_mark)
             step_metrics = [
                 {k: Alphas(*(t.cpu() for t in v)) if k == "alpha_grad" else float(v)
                  for k, v in m.items()}
                 for m in step_metrics
             ]
             train_loss = sum(m["train_loss"] for m in step_metrics) / max(steps, 1)
+            t_mark = _trace("loss-fetch", t_mark)
         with torch.no_grad():
             logits = torch.func.functional_call(net, state.weights, (x_eval, state.alphas))
             val_acc = float(accuracy(logits, y_eval))
             val_loss = float(cross_entropy_loss(logits, y_eval))
+        t_mark = _trace("eval", t_mark)
         best_acc = max(best_acc, val_acc)
+        # per-epoch telemetry, as the JAX search publishes it: step time,
+        # throughput, device memory, steps per dispatch (one replay or one
+        # eager call per step: 1.0) and one "darts.epoch" span
+        epoch_s = time.perf_counter() - t_epoch
+        obs.trial_step_seconds.observe(epoch_s / max(steps, 1), workload="darts")
+        images_per_s = (steps * batch_size) / epoch_s if epoch_s > 0 else 0.0
+        obs.trial_images_per_second.set(images_per_s, workload="darts")
+        obs.record_device_memory()
+        spd = 1.0 if steps else 0.0
+        obs.steps_per_dispatch.set(spd, workload="darts")
+        tracing.record_span(
+            "darts.epoch",
+            epoch_s,
+            epoch=epoch,
+            steps=steps,
+            images_per_s=round(images_per_s, 1),
+            val_accuracy=round(val_acc, 4),
+            step_loop=loop is not None,
+            step_loop_window=window if loop is not None else 0,
+            device_data=device_data,
+            steps_per_dispatch=spd,
+            **span_attrs,
+        )
         row.update(val_accuracy=val_acc, train_loss=train_loss)
         if loop is None:
             row.update(val_loss=val_loss, steps=step_metrics)
@@ -222,7 +273,10 @@ def search_epochs(
         history.append(row)
         if checkpointer is not None:
             # snapshot index = epochs completed: a restart resumes at epoch + 1
-            checkpointer.save(dict(state_items(state)), epoch + 1)
+            host_state = {k: t.detach().cpu() for k, t in state_items(state)}
+            t_mark = _trace("state-download", t_mark)
+            checkpointer.save(host_state, epoch + 1)
+            t_mark = _trace("ckpt-save", t_mark)
             _write_search_meta(checkpointer.directory, {
                 "epochs_completed": epoch + 1,
                 "best_accuracy": best_acc,
@@ -292,6 +346,21 @@ def resolve_step_loop(
     return step_loop, window, device_data
 
 
+def check_scan_unroll(scan_unroll: int | None) -> None:
+    """The JAX search unrolls its ``lax.scan`` step loop ``scan_unroll``
+    steps per XLA while-loop iteration (parameter, else
+    ``KATIB_SCAN_UNROLL``, default 1).  A replayed CUDA graph has no loop to
+    unroll, so the port accepts 1 and raises for anything else."""
+    if scan_unroll is None:
+        scan_unroll = int(os.environ.get("KATIB_SCAN_UNROLL", "1"))
+    if scan_unroll != 1:
+        raise NotImplementedError(
+            f"scan unroll {scan_unroll} (scan_unroll or KATIB_SCAN_UNROLL) unrolls "
+            "the JAX lax.scan step loop; the port replays one captured step per "
+            "graph and has no counterpart (only 1 is accepted)"
+        )
+
+
 def run_darts_search(
     dataset: Dataset,
     *,
@@ -317,6 +386,7 @@ def run_darts_search(
     device: str | torch.device | None = None,
     step_times: list | None = None,
     timings: dict | None = None,
+    scan_unroll: int | None = None,
 ) -> dict[str, Any]:
     """Run the bilevel architecture search; returns genotype + final metrics.
 
@@ -327,7 +397,9 @@ def run_darts_search(
     :func:`resolve_step_loop`; ``search_augment`` (else ``KATIB_SEARCH_AUG``)
     picks ``augment_fn`` = :func:`~katib_tpu_torch.models.augmentation.random_crop_flip`.
     ``checkpoint_dir``: snapshot every epoch and resume from it.
-    ``step_times`` and ``timings``: see :func:`search_epochs`."""
+    ``step_times`` and ``timings``: see :func:`search_epochs`.
+    ``scan_unroll`` (else ``KATIB_SCAN_UNROLL``): see :func:`check_scan_unroll`."""
+    check_scan_unroll(scan_unroll)
     dev = resolve_device(device)
     net = DartsNetwork(
         primitives=tuple(primitives),

@@ -1,10 +1,13 @@
-"""DARTS suggester, config-only half (port of ``katib_tpu/nas/darts/service.py``
-without the experiment types and the suggester registry).
+"""DARTS suggester (port of ``katib_tpu/nas/darts/service.py``).
 
 All search happens inside the single trial.  The suggester converts the NAS
 operations into a primitive list, merges algorithm settings over the
 defaults, validates them, and emits exactly ONE trial carrying three string
 parameters: ``algorithm-settings``, ``search-space``, ``num-layers``.
+
+The config half works on the YAML spec's dicts (:func:`trial_parameters`);
+:class:`DartsSuggester` registers ``darts`` with the orchestrator and goes
+through the same functions.
 """
 
 from __future__ import annotations
@@ -12,8 +15,21 @@ from __future__ import annotations
 import json
 from typing import Any, Mapping, Sequence
 
+from katib_tpu_torch.core.types import (
+    Experiment,
+    ExperimentSpec,
+    NasConfig,
+    ParameterAssignment,
+    TrialAssignmentSet,
+)
 from katib_tpu_torch.models.data import NAMED_DATASETS
 from katib_tpu_torch.nas.darts.architect import DartsHyper
+from katib_tpu_torch.suggest.base import (
+    SearchExhausted,
+    Suggester,
+    SuggesterError,
+    register,
+)
 
 DEFAULT_SETTINGS: dict[str, object] = {
     # reference defaults ``darts/service.py:118-135``; the optimizer-side
@@ -47,10 +63,6 @@ _POSITIVE_FLOAT = {
     "alpha_weight_decay",
     "augment_lr",
 }
-
-
-class SuggesterError(ValueError):
-    """The experiment's DARTS configuration is invalid."""
 
 
 def search_space_from_nas_config(operations: Sequence[Mapping[str, Any]]) -> list[str]:
@@ -116,3 +128,46 @@ def trial_parameters(
         "search-space": json.dumps(primitives),
         "num-layers": str(num_layers),
     }
+
+
+def operations_of(nas_config: NasConfig) -> list[dict[str, Any]]:
+    """A parsed ``NasConfig``'s operations in the YAML spec's dict form."""
+    return [
+        {
+            "operationType": op.operation_type,
+            "parameters": [
+                {"name": p.name, "feasibleSpace": {"list": list(p.feasible.list or ())}}
+                for p in op.parameters
+            ],
+        }
+        for op in nas_config.operations
+    ]
+
+
+@register("darts")
+class DartsSuggester(Suggester):
+    @classmethod
+    def validate(cls, spec: ExperimentSpec) -> None:
+        if spec.nas_config is None or not spec.nas_config.operations:
+            raise SuggesterError("darts requires nas_config with operations")
+        search_space_from_nas_config(operations_of(spec.nas_config))
+        validate_settings(spec.algorithm.settings)
+
+    def get_suggestions(
+        self, experiment: Experiment, count: int
+    ) -> list[TrialAssignmentSet]:
+        if experiment.trials:
+            # one search trial per experiment (reference emits exactly one,
+            # ``service.py:49``: "DARTS algorithm uses only one trial")
+            raise SearchExhausted("darts runs exactly one search trial")
+        params = trial_parameters(
+            operations_of(self.spec.nas_config),
+            self.spec.nas_config.graph_config.num_layers,
+            self.spec.algorithm.settings,
+        )
+        return [
+            TrialAssignmentSet(
+                assignments=[ParameterAssignment(k, v) for k, v in params.items()],
+                labels={"nas": "darts"},
+            )
+        ]

@@ -25,14 +25,17 @@ fails raises: nothing falls back to eager stepping.  On the CPU the same
 step function runs eagerly, one call per step, over the same buffers.
 
 Launch accounting: the mixed-op wrapper counts each launch in Python, so a
-capture counts launches that do not happen and a replay counts none.  The
-loop takes the capture's count back off and adds it again on every replay,
-so ``mixed_op.launches`` stays the number of kernels the device ran.  The
-warm-up's launches are real and stay counted.
+capture would count launches that do not happen and a replay counts none.
+The capture therefore runs inside ``mixed_op.recording_launches``, which
+tallies this thread's launches instead of counting them, and every replay
+adds the tally, so ``mixed_op.launches`` stays the number of kernels the
+device ran, whatever other threads launch meanwhile.  The warm-up's
+launches are real and stay counted.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable
 
@@ -47,15 +50,22 @@ WARMUP_STEPS = 1  # steps run (on copies) before the capture
 
 # one side stream per device for every warm-up and capture in the process:
 # cuBLAS keeps a workspace for each stream it has run on until the process
-# ends, so a fresh stream per search would hold more memory with each trial
+# ends, so a fresh stream per search would hold more memory with each trial.
+# The stream is shared, so the warm-up and capture on it hold the device's
+# lock: two trials of one process (parallelTrialCount > 1) take turns.
 _capture_streams: dict[int, torch.cuda.Stream] = {}
+_capture_locks: dict[int, threading.Lock] = {}
+_streams_lock = threading.Lock()
 
 
-def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+def _capture_stream(device: torch.device) -> tuple[torch.cuda.Stream, threading.Lock]:
+    """The device's capture stream and the lock that guards its use."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _capture_streams:
-        _capture_streams[index] = torch.cuda.Stream(index)
-    return _capture_streams[index]
+    with _streams_lock:
+        if index not in _capture_streams:
+            _capture_streams[index] = torch.cuda.Stream(index)
+            _capture_locks[index] = threading.Lock()
+        return _capture_streams[index], _capture_locks[index]
 
 
 class StepLoop:
@@ -117,24 +127,39 @@ class StepLoop:
         pos.add_(1)
 
     def _build_graph(self) -> None:
+        """Warm up on copies, then capture one step on the device's side
+        stream, holding the stream's lock throughout.
+
+        The capture runs in ``thread_local`` mode: it forbids unsafe CUDA
+        calls (a device sync, an event query, a plain ``cudaMalloc``) on
+        this thread only.  Under the orchestrator other threads live
+        beside the trial's (the main loop, the watchdog, the status
+        writer); they make no CUDA calls, but a second trial of the same
+        process might, and in the default ``global`` mode its sync or
+        allocation would invalidate this capture.  That is safe here
+        because no other thread ever issues work to the side stream or
+        waits on an event recorded in it (the lock), and PyTorch's caching
+        allocator sends only the capturing stream's allocations to the
+        graph's private pool."""
         t0 = time.perf_counter()
-        copies = (clone_state(self.bufs[0]), *(t.clone() for t in self.bufs[1:]))
-        side = _capture_stream(self.bufs[0].step.device)
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                self._step(copies)
-        torch.cuda.current_stream().wait_stream(side)
-        torch.cuda.synchronize()
-        del copies
-        graph = torch.cuda.CUDAGraph()
-        before = mixed_op.launches
-        with torch.cuda.graph(graph, stream=side):
-            self._step(self.bufs)
-        # the capture enqueued nothing on the device: take its count back off
-        self.launches_per_replay = mixed_op.launches - before
-        mixed_op.launches = before
-        torch.cuda.synchronize()
+        side, lock = _capture_stream(self.bufs[0].step.device)
+        with lock:
+            copies = (clone_state(self.bufs[0]), *(t.clone() for t in self.bufs[1:]))
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_STEPS):
+                    self._step(copies)
+            torch.cuda.current_stream().wait_stream(side)
+            torch.cuda.synchronize()
+            del copies
+            graph = torch.cuda.CUDAGraph()
+            # the capture enqueues nothing on the device: its launches are
+            # tallied, and counted on each replay
+            with mixed_op.recording_launches() as recorded, torch.cuda.graph(
+                    graph, stream=side, capture_error_mode="thread_local"):
+                self._step(self.bufs)
+            self.launches_per_replay = recorded[0]
+            torch.cuda.synchronize()
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
 
@@ -158,7 +183,7 @@ class StepLoop:
                 t0 = time.perf_counter()
                 if self.graph is not None:
                     self.graph.replay()
-                    mixed_op.launches += self.launches_per_replay
+                    mixed_op.count_launches(self.launches_per_replay)
                 else:
                     self._step(self.bufs)
                 if step_times is not None:

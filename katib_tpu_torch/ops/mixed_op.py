@@ -9,6 +9,12 @@ computes :func:`mixed_op_sum_reference`, the same contraction in plain
 PyTorch.  There is no other fallback: a CUDA tensor the kernel does not
 take raises.
 
+``KATIB_PALLAS_MIXED_OP`` resolves as in the JAX package (:func:`_mode`):
+``auto`` and ``pallas`` take the CUDA kernel on a CUDA tensor;
+``interpret`` and ``lax`` ask for a non-kernel path, which the port does not
+have on CUDA, so they raise there; a CPU tensor takes the plain version
+under every valid value; any other value raises ``ValueError``.
+
 The backward pass is plain PyTorch on both devices, as the JAX package's is
 (``katib_tpu/ops/mixed_op.py::_bwd``): ``dw`` is a full f32 reduction over
 the activation, ``dx`` a rank-1 broadcast, both bound by memory bandwidth.
@@ -16,11 +22,15 @@ the activation, ``dx`` a rank-1 broadcast, both bound by memory bandwidth.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import os
+import threading
 
 import torch
 
 MAX_OPS = 16
+_VALID_MODES = ("auto", "pallas", "interpret", "lax")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since import or the last reset; the CPU path does not count.
@@ -28,6 +38,53 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the launches the capture recorded on each replay (nas/darts/step_loop.py)
 launches = 0
 _lib = None
+_count_lock = threading.Lock()
+# per thread: the tally of a graph capture in progress on that thread
+_recording = threading.local()
+
+
+def count_launches(n: int = 1) -> None:
+    """Add ``n`` launches to :data:`launches` (thread-safe).  A launch made
+    by a thread inside :func:`recording_launches` is recorded into that
+    thread's graph, not run, so it goes to the capture's tally instead."""
+    global launches
+    tally = getattr(_recording, "tally", None)
+    if tally is not None:
+        tally[0] += n
+        return
+    with _count_lock:
+        launches += n
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Tally the launches this thread makes inside, without counting them:
+    for a CUDA graph capture, whose launches run only when it is replayed.
+    Yields a one-element list holding the tally.  Launches of other threads
+    meanwhile count as usual."""
+    tally = [0]
+    _recording.tally = tally
+    try:
+        yield tally
+    finally:
+        _recording.tally = None
+
+
+def _mode() -> str:
+    """``KATIB_PALLAS_MIXED_OP`` with the JAX package's spellings
+    (``katib_tpu/ops/mixed_op.py::_mode``)."""
+    raw = os.environ.get("KATIB_PALLAS_MIXED_OP", "auto").strip().lower()
+    if raw in ("", "auto"):
+        return "auto"
+    if raw in ("1", "true", "yes", "on", "pallas"):
+        return "pallas"
+    if raw == "interpret":
+        return "interpret"
+    if raw in ("0", "false", "no", "off", "lax"):
+        return "lax"
+    raise ValueError(
+        f"KATIB_PALLAS_MIXED_OP={raw!r} is not one of {_VALID_MODES}"
+    )
 
 
 def mixed_op_sum_reference(weights: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:
@@ -82,7 +139,6 @@ def _library() -> ctypes.CDLL:
 
 
 def _launch(weights: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:
-    global launches
     lib = _library()
     e, n_ops, m = stacked.shape
     out = torch.empty((e, m), dtype=stacked.dtype, device=stacked.device)
@@ -95,17 +151,23 @@ def _launch(weights: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:
     if err != 0:
         reason = lib.katib_cuda_error_string(err).decode()
         raise RuntimeError(f"mixed_op kernel launch failed: {reason} ({err})")
-    launches += 1
+    count_launches()
     return out
 
 
 class _MixedOpSum(torch.autograd.Function):
     @staticmethod
     def forward(weights, stacked):
+        mode = _mode()
         if stacked.device.type == "cpu":
             return mixed_op_sum_reference(weights, stacked)
         if stacked.device.type != "cuda":
             raise ValueError(f"mixed_op_sum runs on cpu or cuda, not {stacked.device}")
+        if mode not in ("auto", "pallas"):
+            raise NotImplementedError(
+                f"KATIB_PALLAS_MIXED_OP={mode} asks for the mixed op without its "
+                "kernel; on CUDA the port has only the kernel (auto or pallas)"
+            )
         return _launch(weights, stacked)
 
     @staticmethod

@@ -55,8 +55,10 @@ def test_banned_check_compares_module_names_exactly():
 
 
 def test_port_imports_and_steps_with_jax_and_katib_tpu_blocked():
-    """Every module imports, and one DARTS search step and a short
-    transformer trial run, with JAX and the JAX package unimportable."""
+    """Every module imports, and one DARTS search step, a short transformer
+    trial and the shipped DARTS spec through the port's loader and
+    orchestrator (one tiny epoch) run, with JAX and the JAX package
+    unimportable."""
     script = textwrap.dedent(f"""
         import sys
         for name in {BANNED!r}:
@@ -89,6 +91,24 @@ def test_port_imports_and_steps_with_jax_and_katib_tpu_blocked():
         transformer_trial(ctx)
         assert len(ctx.reports) == 2 and all(
             math.isfinite(v) for _, m in ctx.reports for v in m.values()), ctx.reports
+        # the shipped DARTS spec through the port's loader and orchestrator,
+        # cut to one tiny epoch through its own algorithm settings
+        import tempfile, yaml
+        from katib_tpu_torch.core.types import TrialCondition
+        from katib_tpu_torch.orchestrator import Orchestrator
+        from katib_tpu_torch.sdk.yaml_spec import experiment_spec_from_dict
+        with open("examples/nas/darts.yaml") as f:
+            doc = yaml.safe_load(f)
+        tiny = {{"num_epochs": "1", "n_train": "16", "n_test": "8", "init_channels": "2"}}
+        doc["spec"]["algorithm"]["algorithmSettings"] = [
+            s for s in doc["spec"]["algorithm"]["algorithmSettings"] if s["name"] not in tiny
+        ] + [{{"name": k, "value": v}} for k, v in tiny.items()]
+        spec = experiment_spec_from_dict(doc)
+        assert spec.train_fn.__module__ == "katib_tpu_torch.nas.darts.search", spec.train_fn
+        exp = Orchestrator(workdir=tempfile.mkdtemp(), device="cpu").run(spec)
+        (trial,) = exp.trials.values()
+        assert trial.condition is TrialCondition.SUCCEEDED, (trial.condition, trial.message)
+        assert exp.optimal is not None and exp.optimal.trial_name == trial.name
         leaked = sorted(n for n in sys.modules if n.split(".")[0] in {BANNED!r} and sys.modules[n])
         assert not leaked, leaked
         print("ok")
