@@ -38,7 +38,18 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 9. drive the second main path: ``transformer_trial`` at the long-context
    width (vocab 256, d_model 512, 8 heads, 4 layers, seq 4096, batch 4,
    bf16) for 10 steps, with the three flash-attention launch counts set to
-   0 just before and read just after.
+   0 just before and read just after;
+10. hold the HP-tuning trial's classifier epoch replayed from its captured
+   step graph against the same epoch stepped eagerly, from the same weights
+   (``SmallCNN`` with 32 channels in bf16, batch 64, 8,192 synthetic MNIST
+   images: 2 epochs with momentum; ``MLP`` one epoch each with adam and
+   sgd), profile a captured epoch, and check that 8 successive
+   ``train_classifier`` calls give their device memory back;
+11. drive the HP-tuning path: ``python -m katib_tpu_torch run
+   katib_tpu_torch/specs/hyperband-mnist.yaml`` in a fresh interpreter (a
+   32-trial Hyperband sweep of ``mnist_trial``, 16 trials at a time), then
+   check the experiment, its rungs, each trial's reported epochs and
+   ``fsck``.
 
 Its last three lines are the ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -49,6 +60,7 @@ and exits nonzero without printing a result when either is missing.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import functools
 import json
 import math
@@ -435,11 +447,13 @@ def move_diff(got: dict, want: dict, start: dict, prefix: str) -> tuple[float, f
     return diff, moved
 
 
-def check_moves(got: dict, want: dict, start: dict, what: str) -> str:
-    """Weights and alphas of ``got`` within ``MOVE_RTOL`` of their move
-    from ``start`` to ``want``; returns the printed differences."""
+def check_moves(got: dict, want: dict, start: dict, what: str,
+                prefixes: tuple = ("weights/", "alphas/")) -> str:
+    """The tensors under each prefix (weights and alphas by default) of
+    ``got`` within ``MOVE_RTOL`` of their move from ``start`` to ``want``;
+    returns the printed differences."""
     out = []
-    for prefix in ("weights/", "alphas/"):
+    for prefix in prefixes:
         diff, moved = move_diff(got, want, start, prefix)
         out.append(f"{prefix[:-1]} max |diff| {diff:.3e} (moved up to {moved:.3e})")
         check(moved > 0 and diff <= MOVE_RTOL * moved,
@@ -524,10 +538,11 @@ def phase_main_path(torch, mixed_op) -> tuple[int, str, list]:
     ctx = darts_context(out_dir)
     torch.cuda.reset_peak_memory_stats()
     mixed_op.launches = 0
-    t0 = time.perf_counter()
-    darts_trial(ctx)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with classifier_captures() as augment_captures:
+        t0 = time.perf_counter()
+        darts_trial(ctx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = mixed_op.launches
     with open(os.path.join(out_dir, "genotype.json")) as f:
         genotype = json.load(f)
@@ -554,6 +569,10 @@ def phase_main_path(torch, mixed_op) -> tuple[int, str, list]:
           flush=True)
     print(f"main path: reports={ctx.reports}", flush=True)
     print(f"main path: mixed_op launches={launches} predicted={predicted}", flush=True)
+    print(f"main path: augment phase through the captured classifier epoch: "
+          f"{len(augment_captures)} capture(s), {[round(t, 3) for t in augment_captures]}s",
+          flush=True)
+    check(len(augment_captures) == 1, "the augment phase captured its classifier step once")
     check(len(times) == epochs * steps, f"expected {epochs * steps} steps, timed {len(times)}")
     check("graph_capture_s" in ctx.timings, "the step loop captured no graph")
     check([st for st, _ in ctx.reports] == [0, 1, epochs + s["augment_epochs"]],
@@ -568,6 +587,26 @@ def phase_main_path(torch, mixed_op) -> tuple[int, str, list]:
     check(launches == predicted and launches > 0,
           f"mixed-op kernel launched {launches} times, the path predicts {predicted}")
     return launches, out_dir, ctx.reports
+
+
+@contextlib.contextmanager
+def classifier_captures():
+    """Collect the seconds of every classifier-step capture (warm-up
+    included) that ``EpochLoop`` makes inside the block."""
+    from katib_tpu_torch.models.mnist import EpochLoop
+
+    seconds: list[float] = []
+    build = EpochLoop._build_graph
+
+    def recording(loop):
+        build(loop)
+        seconds.append(loop.capture_s)
+
+    EpochLoop._build_graph = recording
+    try:
+        yield seconds
+    finally:
+        EpochLoop._build_graph = build
 
 
 def phase_resume(full_dir: str, full_reports: list) -> None:
@@ -895,6 +934,179 @@ def phase_small_reference(torch) -> None:
     check(logit_err <= 1e-4 and grad_err <= 1e-3, "small supernet disagrees between card and CPU")
 
 
+def _classifier_run(torch, capture: bool, optimizer: str, arch: str, epochs: int):
+    """One classifier loop at the sweep's cell from seed 0's weights:
+    ``epochs`` epochs, each ended by reading its losses; returns the losses,
+    the epoch walls, the start and final parameters (``params/<name>``), the
+    loop and its permutation rows."""
+    from katib_tpu_torch.models.profile import classifier_loop
+
+    loop, idx = classifier_loop(capture, optimizer, arch)
+    start = {f"params/{k}": v.to("cpu", copy=True) for k, v in loop.state.params.items()}
+    losses, walls = [], []
+    for epoch in range(epochs):
+        t0 = time.perf_counter()
+        loop.run_epoch(idx if epoch % 2 == 0 else idx[::-1].copy())
+        losses.append(loop.losses.to("cpu", copy=True))
+        walls.append(time.perf_counter() - t0)
+    final = {f"params/{k}": v.to("cpu", copy=True) for k, v in loop.state.params.items()}
+    return torch.cat(losses), walls, start, final, loop, idx
+
+
+def phase_classifier(torch) -> None:
+    """The classifier epoch replayed from its captured step graph against
+    the same epoch stepped eagerly from the same weights; a profiled
+    captured epoch; device memory over 8 successive ``train_classifier``
+    calls."""
+    import gc
+
+    from katib_tpu_torch.models.mnist import SmallCNN, _cached_mnist, train_classifier
+    from katib_tpu_torch.models.profile import CLASSIFIER
+    from katib_tpu_torch.profiling import profile_step
+
+    c = CLASSIFIER
+    torch.cuda.reset_peak_memory_stats()
+    for arch, optimizer, epochs in (("cnn", "momentum", 2), ("mlp", "adam", 1),
+                                    ("mlp", "sgd", 1)):
+        eager_l, eager_w, start, eager, _, _ = _classifier_run(torch, False, optimizer, arch,
+                                                               epochs)
+        graph_l, graph_w, _, graph, loop, idx = _classifier_run(torch, True, optimizer, arch,
+                                                                epochs)
+        equal = torch.equal(graph_l, eager_l) and all(torch.equal(graph[k], eager[k])
+                                                      for k in eager)
+        loss_rel = float(((graph_l - eager_l).abs() / eager_l.abs().clamp(min=1e-30)).max())
+        what = f"classifier: {arch} {optimizer}, {epochs} epoch(s) of {loop.steps} steps"
+        means = [[round(float(v), 6) for v in t.view(epochs, -1).mean(1)] for t in (graph_l, eager_l)]
+        print(f"{what}: captured vs eager bit-equal={equal}; losses max rel diff {loss_rel:.2e}, "
+              f"epoch means captured {means[0]} eager {means[1]}; "
+              f"{check_moves(graph, eager, start, what, ('params/',))}", flush=True)
+        print(f"{what}: epoch seconds captured {[round(t, 4) for t in graph_w]} (the first "
+              f"includes the capture, {loop.capture_s:.3f}s with its warm-up step), eager "
+              f"{[round(t, 4) for t in eager_w]}", flush=True)
+        check(bool(torch.isfinite(graph_l).all()), f"{what}: finite losses")
+        check(loss_rel <= LOSS_RTOL, f"{what}: captured losses differ from eager by {loss_rel:.2e}")
+        if arch == "cnn":
+            cnn = (loop, idx)
+    print(f"classifier: max_memory_allocated={torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+          flush=True)
+    loop, idx = cnn
+    print("classifier: profile of a captured SmallCNN epoch:", flush=True)
+    prof = profile_step(lambda: loop.run_epoch(idx), steps=3, warmup=1, top=5, kernel_names=(),
+                        substeps=loop.steps)
+    print(f"classifier: captured epoch {prof.wall_s:.4f}s = "
+          f"{loop.steps * c['batch_size'] / prof.wall_s:.0f} images/s, device busy "
+          f"{prof.busy:.1%}", flush=True)
+    del loop, cnn
+
+    ds = _cached_mnist(c["n_train"], 2048)
+
+    def one_trial():
+        model = SmallCNN(channels=c["channels"])
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        train_classifier(model, ds, lr=c["lr"], epochs=1, batch_size=c["batch_size"],
+                         device="cuda")
+
+    one_trial()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for _ in range(8):
+        one_trial()
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    print(f"classifier: memory_allocated before 8 train_classifier calls {before / 2**20:.1f} MiB, "
+          f"after {after / 2**20:.1f} MiB", flush=True)
+    check(after - before <= 64 * 2**20,
+          f"8 train_classifier calls kept {(after - before) / 2**20:.1f} MiB of device memory")
+
+
+HYPERBAND_YAML = os.path.join(HERE, "katib_tpu_torch", "specs", "hyperband-mnist.yaml")
+# r_l 16, eta 4: (bracket s, rung i) -> (trials, epochs)
+HYPERBAND_RUNGS = {("2", "0"): (16, 1), ("2", "1"): (4, 4), ("2", "2"): (1, 16),
+                   ("1", "0"): (6, 4), ("1", "1"): (2, 16), ("0", "0"): (3, 16)}
+
+
+def trial_spans(workdir: str, experiment: str) -> tuple[dict, dict]:
+    """Per trial of an experiment's span journal: its ``classifier.epoch``
+    spans (those on the trial's thread within its ``train_fn`` span) and
+    its graph capture's seconds."""
+    with open(os.path.join(workdir, experiment, "trace.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    fns = [r for r in records if r["name"] == "train_fn"]
+    epochs: dict = {r["args"]["trial"]: [] for r in fns}
+    captures: dict = {}
+    for r in records:
+        if r["name"] != "classifier.epoch":
+            continue
+        (owner,) = [f["args"]["trial"] for f in fns if f["tid"] == r["tid"]
+                    and f["ts"] <= r["ts"] and r["ts"] + r["dur"] <= f["ts"] + f["dur"]]
+        epochs[owner].append(r["args"]["epoch"])
+        if "graph_capture_s" in r["args"]:
+            captures[owner] = r["args"]["graph_capture_s"]
+    return epochs, captures
+
+
+def phase_hyperband() -> None:
+    """``python -m katib_tpu_torch run katib_tpu_torch/specs/hyperband-mnist.yaml``
+    in a fresh interpreter: 32 trials ``Succeeded``, ``MaxTrialsReached``,
+    the Hyperband rung table, every trial's epochs run once each, one graph
+    capture per trial, ``fsck`` clean."""
+    from katib_tpu_torch.orchestrator.status import read_status
+
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-hyperband-")
+    name, log = "hyperband-mnist", os.path.join(workdir, "run.log")
+    t0 = time.perf_counter()
+    rc, out = _wait(_cli("run", HYPERBAND_YAML, "--workdir", workdir, log=log), log, 600)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"the Hyperband run exited {rc}:\n{out[-3000:]}")
+    status = read_status(workdir, name)
+    trials = status["trials"]
+    epochs_run, captures = trial_spans(workdir, name)
+    rungs: dict = {}
+    for t, rec in trials.items():
+        key = (rec["labels"].get("hyperband-s"), rec["labels"].get("hyperband-i"))
+        rungs.setdefault(key, []).append(int(rec["assignments"]["epochs"]))
+    table = {k: (len(v), sorted(set(v))) for k, v in sorted(rungs.items(), reverse=True)}
+    seconds = sorted(rec["completion_time"] - rec["start_time"] for rec in trials.values())
+    capture_s = sorted(captures.values())
+    # accuracy at chance: the lr drove the loss to inf or nan
+    chance = sorted(rec["assignments"]["lr"] for rec in trials.values()
+                    if rec["observation"] and rec["observation"][0]["latest"] < 0.2)
+    optimal = status.get("optimal") or {}
+    conditions = sorted({rec["condition"] for rec in trials.values()})
+    print(f"hyperband: run {os.path.relpath(HYPERBAND_YAML, HERE)}: exit {rc} in {wall:.2f}s = "
+          f"{len(trials) / wall * 3600:.0f} trials/hour; experiment {status['condition']}; "
+          f"{len(trials)} trials {conditions}", flush=True)
+    print(f"hyperband: rungs (s, i) -> (trials, epochs) {table}", flush=True)
+    print(f"hyperband: best accuracy (synthetic MNIST) {optimal.get('objective_value')} by "
+          f"{optimal.get('trial_name')} {optimal.get('assignments')}; {len(chance)} trials "
+          f"ended below 0.2 accuracy, at lr {[round(v, 4) for v in chance]}",
+          flush=True)
+    print(f"hyperband: trial seconds min {seconds[0]:.3f} median {statistics.median(seconds):.3f} "
+          f"max {seconds[-1]:.3f}; graph capture seconds per trial ({len(capture_s)}, under "
+          f"the device's capture lock): min {min(capture_s, default=math.nan):.3f} median "
+          f"{statistics.median(capture_s) if capture_s else math.nan:.3f} max "
+          f"{max(capture_s, default=math.nan):.3f}", flush=True)
+    print(f"hyperband: run spans {span_totals(workdir, name)}", flush=True)
+    for t, rec in sorted(trials.items()):
+        if rec["condition"] != "Succeeded":
+            print(f"hyperband: {t} {rec['condition']}: {rec['message']}", flush=True)
+    check(status["condition"] == "MaxTrialsReached", f"experiment {status['condition']}")
+    check(len(trials) == 32 and conditions == ["Succeeded"], f"trials {conditions}")
+    check(table == {k: (n, [r]) for k, (n, r) in HYPERBAND_RUNGS.items()},
+          f"rung table {table}")
+    bad = {t: (trials[t]["assignments"]["epochs"], e) for t, e in epochs_run.items()
+           if sorted(e) != list(range(int(trials[t]["assignments"]["epochs"])))}
+    check(set(epochs_run) == set(trials) and not bad,
+          f"trials whose epochs differ from their resource: {bad}")
+    check(len(captures) == 32, f"{len(captures)} trials captured a graph, of 32")
+    check(0.0 <= float(optimal.get("objective_value", -1)) <= 1.0, f"optimal {optimal}")
+    rc, out = _wait(_cli("fsck", os.path.join(workdir, name), log=log), log, 120)
+    print(f"hyperband: fsck exit {rc}: {out.strip().splitlines()[-1]}", flush=True)
+    check(rc == 0 and "result: consistent" in out, f"fsck:\n{out}")
+
+
 def main() -> int:
     import torch
 
@@ -932,6 +1144,8 @@ def main() -> int:
     phase_cli()
     flash_launches = phase_transformer(
         torch, fa, sum(t["ms"] for t in flash_timing.values()))
+    phase_classifier(torch)
+    phase_hyperband()
 
     kernels = [{
         "name": "mixed_op_sum",

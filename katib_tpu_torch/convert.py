@@ -20,6 +20,12 @@ holding the preprocessing modules and then the kept ops in node order,
 
 The transformer LM (:func:`transformer_state_dict_from_flax`) follows the
 same rule with an explicit table, since its modules are named for reading.
+
+The HP-tuning models (:func:`mnist_state_dict_from_flax`) keep PyTorch's
+layouts instead: a Dense kernel ``(in, out)`` becomes a Linear weight
+``[out, in]`` and a Conv kernel ``HWIO`` an ``OIHW`` weight.  ``SmallCNN``
+flattens its last feature map in NHWC order, as flax does, so its first
+Dense needs no permutation of rows.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from katib_tpu_torch.models.mnist import Conv3x3, Linear
 from katib_tpu_torch.nas.darts.model import Alphas, Cell
 from katib_tpu_torch.nas.darts.ops import EdgeGroup
 
@@ -83,7 +90,8 @@ def state_dict_from_flax(tree: Any, module: nn.Module) -> dict[str, torch.Tensor
     return _from_flax(params, flax_paths(module, remat), module)
 
 
-def _from_flax(params: dict, mapping: dict, module: nn.Module) -> dict[str, torch.Tensor]:
+def _from_flax(params: dict, mapping: dict, module: nn.Module,
+               layout: dict | None = None) -> dict[str, torch.Tensor]:
     own = dict(module.named_parameters())
     result, used = {}, set()
     for key, (path, stack) in mapping.items():
@@ -96,6 +104,8 @@ def _from_flax(params: dict, mapping: dict, module: nn.Module) -> dict[str, torc
         leaf = np.asarray(node, dtype=np.float32)
         if stack is not None:
             leaf = leaf[stack]
+        if layout and key in layout:
+            leaf = leaf.transpose(layout[key])
         if leaf.shape != tuple(own[key].shape):
             raise ValueError(
                 f"{key}: flax {'/'.join(path)} has shape {leaf.shape}, "
@@ -139,6 +149,29 @@ def transformer_state_dict_from_flax(tree: Any, model: nn.Module) -> dict[str, t
     Raises if a parameter is missing, left over, or of another shape."""
     params = tree["params"] if "params" in tree else tree
     return _from_flax(params, transformer_flax_paths(model), model)
+
+
+def mnist_state_dict_from_flax(tree: Any, model: nn.Module) -> dict[str, torch.Tensor]:
+    """The port's state dict for an ``MLP`` or a ``SmallCNN``
+    (``katib_tpu_torch.models.mnist``) from the flax tree of its JAX
+    counterpart: ``Dense_<n>`` and ``Conv_<n>`` in creation order, each
+    kernel transposed into PyTorch's layout.
+
+    ``tree`` is the flax variables (``{"params": ...}``) or the params alone.
+    Raises if a parameter is missing, left over, or of another shape."""
+    params = tree["params"] if "params" in tree else tree
+    mapping, layout = {}, {}
+    counts: Counter = Counter()
+    for name, child in model.named_modules():
+        if isinstance(child, (Linear, Conv3x3)):
+            cls = "Dense" if isinstance(child, Linear) else "Conv"
+            flax_name = f"{cls}_{counts[cls]}"
+            counts[cls] += 1
+            mapping[f"{name}.weight"] = ((flax_name, "kernel"), None)
+            mapping[f"{name}.bias"] = ((flax_name, "bias"), None)
+            # (in, out) -> [out, in]; HWIO -> OIHW
+            layout[f"{name}.weight"] = (1, 0) if cls == "Dense" else (3, 2, 0, 1)
+    return _from_flax(params, mapping, model, layout)
 
 
 def _leaf_paths(tree: dict, path: tuple = ()) -> Iterator[tuple]:

@@ -14,7 +14,14 @@ from __future__ import annotations
 
 import statistics
 import time
-from typing import Callable, Sequence
+from typing import Callable, NamedTuple, Sequence
+
+
+class StepProfile(NamedTuple):
+    """What :func:`profile_step` measured, per call of the step function."""
+
+    wall_s: float  # the median untraced call's wall seconds
+    busy: float  # CUDA kernel time per call under the profiler / wall_s
 
 
 def profile_step(
@@ -25,10 +32,13 @@ def profile_step(
     kernel_names: Sequence[str],
     top: int,
     trace: str | None = None,
-) -> float:
-    """Run ``warmup`` steps, time ``steps`` steps, trace ``steps`` more and
-    print the summary; ``trace`` also writes the Chrome trace there.
-    Returns the median untraced step's wall seconds."""
+    substeps: int = 1,
+) -> StepProfile:
+    """Run ``warmup`` calls of ``step``, time ``steps`` calls, trace
+    ``steps`` more and print the summary; ``trace`` also writes the Chrome
+    trace there.  A call that runs ``substeps`` training steps (an epoch of
+    replays, say) has its kernels, operator calls and times also printed per
+    training step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -66,6 +76,11 @@ def profile_step(
           f"{device_us / 1e6 / wall_s:.1%} of the unprofiled wall time; "
           f"{n_kernels:.0f} kernels; {n_host_ops:.0f} aten operator calls "
           f"({wall_s / max(n_host_ops, 1) * 1e6:.1f} us of wall per call)")
+    if substeps > 1:
+        print(f"per training step ({substeps} a call): wall {wall_s / substeps * 1e3:.4f} ms, "
+              f"device kernel time {device_us / substeps / 1e3:.4f} ms, "
+              f"{n_kernels / substeps:.1f} kernels, {n_host_ops / substeps:.1f} aten operator "
+              "calls")
     print(f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for name in kernel_names:
         mine = [e for e in kernels if name in e.key]
@@ -81,4 +96,4 @@ def profile_step(
     for e in sorted(host_ops, key=lambda e: -e.self_cpu_time_total)[:top]:
         print(f"  {e.self_cpu_time_total / steps / 1e3:9.3f} ms "
               f"{e.count / steps:7.0f}x  {e.key}")
-    return wall_s
+    return StepProfile(wall_s, device_us / 1e6 / wall_s)

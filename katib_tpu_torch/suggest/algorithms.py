@@ -1,14 +1,18 @@
 """Import side-effect module: registers the suggesters the port has.
 
 Copy of ``katib_tpu/suggest/algorithms.py`` limited to the ported
-suggesters: ``grid`` and ``random`` register here, ``darts`` lazily from
+suggesters: ``asha``, ``grid``, ``hyperband``, ``random``, ``tpe`` and
+``multivariate-tpe`` register here, ``darts`` lazily from
 ``nas/darts/service.py``.  Every other algorithm of the JAX registry is
 listed in :data:`UNPORTED_ALGORITHMS` with the JAX module it would port, and
 ``base.make_suggester`` raises ``NotImplementedError`` naming that module.
 """
 
+from katib_tpu_torch.suggest import asha  # noqa: F401
 from katib_tpu_torch.suggest import grid  # noqa: F401
+from katib_tpu_torch.suggest import hyperband  # noqa: F401
 from katib_tpu_torch.suggest import random_search  # noqa: F401
+from katib_tpu_torch.suggest import tpe  # noqa: F401
 
 #: registered on first use by ``base.make_suggester``
 LAZY_ALGORITHMS = {
@@ -17,10 +21,6 @@ LAZY_ALGORITHMS = {
 
 #: the JAX registry's other algorithms -> the module each would port
 UNPORTED_ALGORITHMS = {
-    "tpe": "katib_tpu/suggest/tpe.py",
-    "multivariate-tpe": "katib_tpu/suggest/tpe.py",
-    "hyperband": "katib_tpu/suggest/hyperband.py",
-    "asha": "katib_tpu/suggest/asha.py",
     "bayesianoptimization": "katib_tpu/suggest/bayesopt.py",
     "cmaes": "katib_tpu/suggest/cmaes.py",
     "sobol": "katib_tpu/suggest/sobol.py",

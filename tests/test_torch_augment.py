@@ -21,11 +21,9 @@ from katib_tpu.nas.darts.augment import GenotypeNetwork as JGenotypeNetwork
 from katib_tpu.nas.darts.model import Genotype as JGenotype
 from katib_tpu_torch.convert import state_dict_from_flax
 from katib_tpu_torch.models import data as tdata
-from katib_tpu_torch.models.mnist import (
-    make_optimizer,
-    set_hyperparams,
-    train_classifier,
-)
+from katib_tpu_torch.models.mnist import _family_optimizer as t_family_optimizer
+from katib_tpu_torch.models.mnist import _set_hyperparams as t_set_hyperparams
+from katib_tpu_torch.models.mnist import train_classifier
 from katib_tpu_torch.nas.darts.augment import GenotypeNetwork, train_genotype
 from katib_tpu_torch.nas.darts.model import Genotype
 from katib_tpu_torch.nas.darts.search import darts_trial
@@ -96,9 +94,9 @@ def test_momentum_optimizer_matches_optax():
     tx = _family_optimizer("momentum")
     j_params = jax.tree_util.tree_map(jnp.asarray, params)
     j_state = _set_hyperparams(tx.init(j_params), 0.05, 0.9)
-    t_opt = make_optimizer("momentum")
+    t_opt = t_family_optimizer("momentum")
     t_params = {k: torch.from_numpy(v) for k, v in params.items()}
-    t_state = set_hyperparams(t_opt.init(t_params), 0.05, 0.9)
+    t_state = t_set_hyperparams(t_opt.init(t_params), 0.05, 0.9)
     for _ in range(3):
         grads = {k: rng.normal(size=v.shape).astype(np.float32) for k, v in params.items()}
         updates, j_state = tx.update(jax.tree_util.tree_map(jnp.asarray, grads), j_state, j_params)
@@ -111,7 +109,6 @@ def test_momentum_optimizer_matches_optax():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"optimizer": "adam"}, "optimizer 'adam'"),
     ({"mesh": object()}, "mesh"),
     ({"init_transform": lambda p: p}, "init_transform"),
     ({"on_finish": lambda p: None}, "on_finish"),

@@ -1,8 +1,9 @@
-"""The DARTS step loop under an orchestrator's threads (port only): one
-capture at a time on a device's shared capture stream, captured in
-``thread_local`` mode, and a mixed-op launch count that other threads'
-launches cannot corrupt.  The CUDA calls of the capture are stubs here; the
-card runs the real ones in ``chip_smoke.py``."""
+"""The DARTS step loop and the classifier epoch loop under an
+orchestrator's threads (port only): one capture at a time on a device's
+shared capture stream, captured in ``thread_local`` mode, and a mixed-op
+launch count that other threads' launches cannot corrupt.  The CUDA calls
+of the capture are stubs here; the card runs the real ones in
+``chip_smoke.py``."""
 
 from __future__ import annotations
 
@@ -112,3 +113,51 @@ def test_concurrent_counts_are_not_lost():
     for t in threads:
         t.join(timeout=60)
     assert mixed_op.launches - before == 8000
+
+
+def _classifier_loop(steps_run: list):
+    """A classifier epoch loop whose step only records that it ran."""
+    from katib_tpu_torch.models import mnist
+
+    loop = object.__new__(mnist.EpochLoop)
+    loop.bufs = (mnist.TrainState(torch.zeros((), dtype=torch.int32), {}, {}),)
+    loop._step = lambda bufs: steps_run.append(bufs[0])
+    return loop
+
+
+def test_classifier_and_darts_captures_take_turns_on_one_lock(monkeypatch):
+    """The sweep's trials capture their classifier steps beside a DARTS
+    trial's: one capture at a time per device, each in thread_local mode,
+    each warming up on copies of its buffers."""
+    guard = threading.Lock()
+    active, peak, modes = [0], [0], []
+
+    @contextlib.contextmanager
+    def capture(graph, stream=None, capture_error_mode="global"):
+        modes.append(capture_error_mode)
+        with guard:
+            active[0] += 1
+            peak[0] = max(peak[0], active[0])
+        time.sleep(0.02)
+        yield
+        with guard:
+            active[0] -= 1
+
+    _stub_cuda(monkeypatch, capture)
+    steps_run: list = []
+    loops = [_classifier_loop(steps_run) for _ in range(6)] + [_loop() for _ in range(2)]
+    threads = [threading.Thread(target=loop._build_graph) for loop in loops]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert peak[0] == 1, "two captures ran on the shared stream at once"
+    assert modes == ["thread_local"] * 8
+    assert len(step_loop._capture_locks) == 1
+    # each classifier loop: one warm-up step on a copy, then its capture
+    warm, captured = steps_run[0::2], steps_run[1::2]
+    assert len(steps_run) == 12
+    assert all(w is not loop.bufs[0] for w, loop in zip(warm, loops[:6]))
+    assert {id(c) for c in captured} == {id(loop.bufs[0]) for loop in loops[:6]}
+    assert all(loop.graph is not None for loop in loops[:6])

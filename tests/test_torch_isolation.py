@@ -56,8 +56,9 @@ def test_banned_check_compares_module_names_exactly():
 
 def test_port_imports_and_steps_with_jax_and_katib_tpu_blocked():
     """Every module imports, and one DARTS search step, a short transformer
-    trial and the shipped DARTS spec through the port's loader and
-    orchestrator (one tiny epoch) run, with JAX and the JAX package
+    trial, the shipped DARTS spec through the port's loader and orchestrator
+    (one tiny epoch), one ``mnist_trial`` epoch and one round of the
+    Hyperband sweep's suggestions run, with JAX and the JAX package
     unimportable."""
     script = textwrap.dedent(f"""
         import sys
@@ -109,6 +110,19 @@ def test_port_imports_and_steps_with_jax_and_katib_tpu_blocked():
         (trial,) = exp.trials.values()
         assert trial.condition is TrialCondition.SUCCEEDED, (trial.condition, trial.message)
         assert exp.optimal is not None and exp.optimal.trial_name == trial.name
+        # one mnist_trial epoch, and one round of the Hyperband sweep's suggester
+        from katib_tpu_torch.models.mnist import mnist_trial
+        from katib_tpu_torch.sdk.yaml_spec import load_experiment_yaml
+        from katib_tpu_torch.suggest.base import make_suggester
+        from katib_tpu_torch.core.types import Experiment
+        ctx = TrialContext({{"arch": "cnn", "channels": "2", "n_train": "64", "n_test": "16",
+                            "epochs": "1", "batch_size": "32"}}, device="cpu")
+        mnist_trial(ctx)
+        assert [s for s, _ in ctx.reports] == [0], ctx.reports
+        spec = load_experiment_yaml("katib_tpu_torch/specs/hyperband-mnist.yaml")
+        assert spec.train_fn is mnist_trial
+        props = make_suggester(spec).get_suggestions(Experiment(spec=spec), 16)
+        assert len(props) == 16 and {{p.labels["hyperband-s"] for p in props}} == {{"2"}}
         leaked = sorted(n for n in sys.modules if n.split(".")[0] in {BANNED!r} and sys.modules[n])
         assert not leaked, leaked
         print("ok")

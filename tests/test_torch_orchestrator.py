@@ -306,7 +306,7 @@ REFUSALS = {
         "config": KatibConfig.from_dict({"init": {"enable_profiler": True}})}),
     "async-spec": dict(match="async", algorithm="tpe", async_orch=True),
     "async-default": dict(match="async", algorithm="tpe", async_orch=None),
-    "unported-suggester": dict(match="tpe.py", algorithm="tpe", async_orch=False),
+    "unported-suggester": dict(match="cmaes.py", algorithm="cmaes", async_orch=False),
 }
 
 

@@ -48,7 +48,6 @@ EXAMPLES = sorted(
 )
 # the JAX train functions the port does not have yet
 UNPORTED_TRAIN_FNS = {
-    "katib_tpu.models.mnist.mnist_trial",
     "katib_tpu.models.pbt_digits.pbt_digits_trial",
     "katib_tpu.models.pbt_toy.pbt_toy_trial",
     "katib_tpu.nas.enas.trial.enas_trial",
@@ -195,7 +194,8 @@ def test_config_refuses_mesh_axes():
 
 
 def test_registry_holds_the_ported_suggesters():
-    assert registered_algorithms() == ["darts", "grid", "random"]
+    assert registered_algorithms() == ["asha", "darts", "grid", "hyperband",
+                                       "multivariate-tpe", "random", "tpe"]
 
 
 @pytest.mark.parametrize("name", sorted(algorithms.UNPORTED_ALGORITHMS))
