@@ -25,16 +25,16 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 7. drive the orchestrator path: ``examples/nas/darts.yaml`` at the search
    width (8 cells, 16 channels, batch 64, 1,024 images, 2 epochs, windows
    of 3, search augmentation, its own 3 operations) through the loader's
-   ``experiment_spec_from_dict``, ``Orchestrator.run`` on ``cuda``, the
-   DARTS suggester, ``run_trial`` and ``darts_trial``, with the mixed-op
-   launch count set to 0 just before and read just after; the same trial
-   parameters through ``darts_trial`` directly, for the orchestrator's
-   overhead;
+   ``experiment_spec_from_dict``, ``Orchestrator.run`` on ``cuda`` under
+   the async engine (its default), the DARTS suggester, ``run_trial`` and
+   ``darts_trial``, with the mixed-op launch count set to 0 just before and
+   read just after; the same trial parameters through ``darts_trial``
+   directly, for the orchestrator's overhead;
 8. drive the CLI: ``python -m katib_tpu_torch run examples/nas/darts.yaml``
-   as shipped, in a fresh interpreter, SIGTERM once the trial is journaled
-   running (the drain lands at epoch 0's report; exit 75), then
-   ``--resume`` to its end, ``fsck`` clean and each epoch reported once;
-   then ``python -m katib_tpu_torch doctor``;
+   as shipped, in a fresh interpreter, under the async engine, SIGTERM once
+   the trial is journaled running (the drain lands at epoch 0's report;
+   exit 75), then ``--resume`` to its end, ``fsck`` clean and each epoch
+   reported once; then ``python -m katib_tpu_torch doctor``;
 9. drive the second main path: ``transformer_trial`` at the long-context
    width (vocab 256, d_model 512, 8 heads, 4 layers, seq 4096, batch 4,
    bf16) for 10 steps, with the three flash-attention launch counts set to
@@ -47,9 +47,23 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``train_classifier`` calls give their device memory back;
 11. drive the HP-tuning path: ``python -m katib_tpu_torch run
    katib_tpu_torch/specs/hyperband-mnist.yaml`` in a fresh interpreter (a
-   32-trial Hyperband sweep of ``mnist_trial``, 16 trials at a time), then
-   check the experiment, its rungs, each trial's reported epochs and
-   ``fsck``.
+   32-trial Hyperband sweep of ``mnist_trial``, 16 trials at a time) under
+   the async engine and with ``KATIB_ASYNC_ORCH=0`` (the synchronous loop),
+   in turns (engine, sync, sync, engine), and check each run's experiment,
+   rungs, each trial's reported epochs and ``fsck``;
+12. an ASHA sweep of ``mnist_trial`` (24 trials, 4 at a time) built from
+   the Hyperband spec through the port's loader, on the async engine:
+   every trial succeeds and promotions raise the epochs at the same lr;
+13. an 8-point ``grid`` over ``mnist_trial`` (MLP, one epoch, sgd, 4 trials
+   at a time) through ``Orchestrator.run`` on ``cuda`` with the synchronous
+   loop and with the async engine, in turns, 3 runs each: every outcome set
+   is bit-equal to the first;
+14. ``python -m katib_tpu_torch chaos --soak 30 --seed 1 --trials 10``, the
+   seeded chaos soak of the async engine (on the CPU: its trainer sleeps).
+
+Every run of the async engine prints its ``async_stats`` (a CLI run prints
+them on its ``async engine:`` line) and fails the script if a loop
+restarted or the engine fell back to the synchronous loop.
 
 Its last three lines are the ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -689,6 +703,21 @@ def span_totals(workdir: str, experiment: str) -> str:
     return ", ".join(f"{name} {n}x {dur:.3f}s" for name, (n, dur) in totals.items() if n)
 
 
+ENGINE_KEYS = ("sustained_occupancy", "trials_per_sec", "lookahead", "loop_restarts", "fallback")
+
+
+def engine_stats(what: str, stats: dict | None) -> None:
+    """Print an async engine run's ``async_stats`` and fail unless the run
+    went through the engine with no loop restarted and no fallback to the
+    synchronous loop."""
+    check(stats is not None, f"{what}: the run did not go through the async engine")
+    print(f"{what}: async engine {({k: stats[k] for k in ENGINE_KEYS})} "
+          f"(elapsed {stats['elapsed_s']}s, {stats['trials_settled']} settled, "
+          f"member limit {stats['member_limit']})", flush=True)
+    check(not any(stats["loop_restarts"].values()), f"{what}: loops restarted {stats}")
+    check(stats["fallback"] is None, f"{what}: the engine fell back to the sync loop {stats}")
+
+
 def phase_orchestrator(torch, mixed_op) -> None:
     """The search-width spec through ``Orchestrator.run`` on ``cuda``,
     between runs of its trial's parameters through ``darts_trial`` directly:
@@ -755,6 +784,7 @@ def phase_orchestrator(torch, mixed_op) -> None:
           f"faster direct run: run-direct={run_wall - direct_wall:.3f}s "
           f"trial-direct={trial_wall - direct_wall:.3f}s", flush=True)
     print(f"orchestrator: spans {span_totals(workdir, spec.name)}", flush=True)
+    engine_stats("orchestrator", orch.async_stats)
     print(f"orchestrator: mixed_op launches={launches} predicted={predicted}; fsck "
           f"{'consistent' if report.ok() else report.lines()}", flush=True)
     check(exp.condition.value in SUCCESS, f"experiment ended {exp.condition.value}: {exp.message}")
@@ -765,12 +795,26 @@ def phase_orchestrator(torch, mixed_op) -> None:
     check([st for st, _ in ctx.reports] == [0, 1], f"direct run reports {ctx.reports}")
 
 
-def _cli(*args: str, log: str) -> subprocess.Popen:
-    """``python -m katib_tpu_torch ...`` in a fresh interpreter, its output to ``log``."""
+def _cli(*args: str, log: str, env: dict | None = None) -> subprocess.Popen:
+    """``python -m katib_tpu_torch ...`` in a fresh interpreter, its output to
+    ``log``."""
     with open(log, "w") as f:
         return subprocess.Popen([sys.executable, "-m", "katib_tpu_torch", *args], cwd=HERE,
-                                env={**os.environ, "PYTHONPATH": HERE}, stdout=f,
-                                stderr=subprocess.STDOUT, text=True)
+                                env={**os.environ, "PYTHONPATH": HERE, **(env or {})},
+                                stdout=f, stderr=subprocess.STDOUT, text=True)
+
+
+def cli_engine(what: str, out: str, engine: bool = True) -> None:
+    """Read a CLI run's ``async engine:`` line (the run's ``async_stats``;
+    the supervisor's restarts and fallback are in it): print it, fail unless
+    the run went through the engine (``engine``) or did not, and on any
+    restart or fallback."""
+    lines = [ln for ln in out.splitlines() if ln.startswith("async engine: ")]
+    if engine:
+        check(len(lines) == 1, f"{what}: {len(lines)} async engine lines, not 1")
+        engine_stats(what, json.loads(lines[0][len("async engine: "):]))
+    else:
+        check(not lines, f"{what}: the synchronous run went through the engine: {lines}")
 
 
 def _wait(proc: subprocess.Popen, log: str, timeout: float) -> tuple[int, str]:
@@ -812,9 +856,12 @@ def phase_cli() -> None:
     proc = _cli(*run, log=log)
     trial = None
     while proc.poll() is None and time.perf_counter() - t0 < 300:
+        # the engine journals a proposal Pending before it dispatches it
         status = read_status(workdir, name)
-        if status and status.get("trials"):
-            trial = next(iter(status["trials"]))
+        running = [t for t, rec in ((status or {}).get("trials") or {}).items()
+                   if rec["condition"] == "Running"]
+        if running:
+            trial = running[0]
             break
         time.sleep(0.05)
     if trial is None:
@@ -830,6 +877,7 @@ def phase_cli() -> None:
           f"{status['trials'][trial]['condition']}; accuracy reported at epochs {first_steps}",
           flush=True)
     print(f"cli: drained run spans {span_totals(workdir, name)}", flush=True)
+    cli_engine("cli: drained run", out)
     check(rc == 75, f"drained CLI run exited {rc}:\n{out[-3000:]}")
     check(status["trials"][trial]["condition"] == "Drained", "the trial settled Drained")
     check(first_steps == [0], f"the drained run reported epochs {first_steps}, not [0]")
@@ -843,6 +891,7 @@ def phase_cli() -> None:
           f"{status['trials'][trial]['condition']}; accuracy reported at epochs {steps(trial)}",
           flush=True)
     print(f"cli: both runs' spans {span_totals(workdir, name)}", flush=True)
+    cli_engine("cli: resumed run", out)
     check(rc == 0 and status["condition"] in SUCCESS, f"resumed run exited {rc}:\n{out[-3000:]}")
     check(list(status["trials"]) == [trial], "the resumed run reran the drained trial only")
     check(status["trials"][trial]["condition"] == "Succeeded", "the resumed trial succeeded")
@@ -1047,17 +1096,20 @@ def trial_spans(workdir: str, experiment: str) -> tuple[dict, dict]:
     return epochs, captures
 
 
-def phase_hyperband() -> None:
+def hyperband_run(engine: bool) -> tuple[float, dict]:
     """``python -m katib_tpu_torch run katib_tpu_torch/specs/hyperband-mnist.yaml``
-    in a fresh interpreter: 32 trials ``Succeeded``, ``MaxTrialsReached``,
+    in a fresh interpreter, on the async engine (the spec's default) or with
+    ``KATIB_ASYNC_ORCH=0``: 32 trials ``Succeeded``, ``MaxTrialsReached``,
     the Hyperband rung table, every trial's epochs run once each, one graph
-    capture per trial, ``fsck`` clean."""
+    capture per trial, ``fsck`` clean.  Returns the wall and the rung table."""
     from katib_tpu_torch.orchestrator.status import read_status
 
+    what = "hyperband" if engine else "hyperband (KATIB_ASYNC_ORCH=0)"
     workdir = tempfile.mkdtemp(prefix="chip-smoke-hyperband-")
     name, log = "hyperband-mnist", os.path.join(workdir, "run.log")
     t0 = time.perf_counter()
-    rc, out = _wait(_cli("run", HYPERBAND_YAML, "--workdir", workdir, log=log), log, 600)
+    rc, out = _wait(_cli("run", HYPERBAND_YAML, "--workdir", workdir, log=log,
+                         env={"KATIB_ASYNC_ORCH": "1" if engine else "0"}), log, 600)
     wall = time.perf_counter() - t0
     check(rc == 0, f"the Hyperband run exited {rc}:\n{out[-3000:]}")
     status = read_status(workdir, name)
@@ -1075,23 +1127,24 @@ def phase_hyperband() -> None:
                     if rec["observation"] and rec["observation"][0]["latest"] < 0.2)
     optimal = status.get("optimal") or {}
     conditions = sorted({rec["condition"] for rec in trials.values()})
-    print(f"hyperband: run {os.path.relpath(HYPERBAND_YAML, HERE)}: exit {rc} in {wall:.2f}s = "
+    print(f"{what}: run {os.path.relpath(HYPERBAND_YAML, HERE)}: exit {rc} in {wall:.2f}s = "
           f"{len(trials) / wall * 3600:.0f} trials/hour; experiment {status['condition']}; "
           f"{len(trials)} trials {conditions}", flush=True)
-    print(f"hyperband: rungs (s, i) -> (trials, epochs) {table}", flush=True)
-    print(f"hyperband: best accuracy (synthetic MNIST) {optimal.get('objective_value')} by "
+    print(f"{what}: rungs (s, i) -> (trials, epochs) {table}", flush=True)
+    print(f"{what}: best accuracy (synthetic MNIST) {optimal.get('objective_value')} by "
           f"{optimal.get('trial_name')} {optimal.get('assignments')}; {len(chance)} trials "
           f"ended below 0.2 accuracy, at lr {[round(v, 4) for v in chance]}",
           flush=True)
-    print(f"hyperband: trial seconds min {seconds[0]:.3f} median {statistics.median(seconds):.3f} "
+    print(f"{what}: trial seconds min {seconds[0]:.3f} median {statistics.median(seconds):.3f} "
           f"max {seconds[-1]:.3f}; graph capture seconds per trial ({len(capture_s)}, under "
           f"the device's capture lock): min {min(capture_s, default=math.nan):.3f} median "
           f"{statistics.median(capture_s) if capture_s else math.nan:.3f} max "
           f"{max(capture_s, default=math.nan):.3f}", flush=True)
-    print(f"hyperband: run spans {span_totals(workdir, name)}", flush=True)
+    print(f"{what}: run spans {span_totals(workdir, name)}", flush=True)
     for t, rec in sorted(trials.items()):
         if rec["condition"] != "Succeeded":
-            print(f"hyperband: {t} {rec['condition']}: {rec['message']}", flush=True)
+            print(f"{what}: {t} {rec['condition']}: {rec['message']}", flush=True)
+    cli_engine(what, out, engine=engine)
     check(status["condition"] == "MaxTrialsReached", f"experiment {status['condition']}")
     check(len(trials) == 32 and conditions == ["Succeeded"], f"trials {conditions}")
     check(table == {k: (n, [r]) for k, (n, r) in HYPERBAND_RUNGS.items()},
@@ -1103,8 +1156,179 @@ def phase_hyperband() -> None:
     check(len(captures) == 32, f"{len(captures)} trials captured a graph, of 32")
     check(0.0 <= float(optimal.get("objective_value", -1)) <= 1.0, f"optimal {optimal}")
     rc, out = _wait(_cli("fsck", os.path.join(workdir, name), log=log), log, 120)
-    print(f"hyperband: fsck exit {rc}: {out.strip().splitlines()[-1]}", flush=True)
+    print(f"{what}: fsck exit {rc}: {out.strip().splitlines()[-1]}", flush=True)
     check(rc == 0 and "result: consistent" in out, f"fsck:\n{out}")
+    return wall, table
+
+
+def phase_hyperband() -> None:
+    """The Hyperband sweep on the async engine and on the synchronous loop,
+    in turns (engine, sync, sync, engine) in one process tree on one card:
+    the walls side by side, and the same rung table from every run."""
+    walls: dict = {True: [], False: []}
+    tables = []
+    for engine in (True, False, False, True):
+        wall, table = hyperband_run(engine)
+        walls[engine].append(wall)
+        tables.append(table)
+    mean = {k: statistics.mean(v) for k, v in walls.items()}
+    print(f"hyperband: in turns (engine, sync, sync, engine): async engine "
+          f"{[round(w, 2) for w in walls[True]]}s, mean {mean[True]:.2f}s = "
+          f"{32 / mean[True] * 3600:.0f} trials/hour; synchronous loop "
+          f"{[round(w, 2) for w in walls[False]]}s, mean {mean[False]:.2f}s = "
+          f"{32 / mean[False] * 3600:.0f} trials/hour; engine/sync mean wall "
+          f"{mean[True] / mean[False]:.3f}", flush=True)
+    check(all(t == tables[0] for t in tables), f"rung tables differ: {tables}")
+
+
+def phase_asha(torch) -> None:
+    """An ASHA sweep of ``mnist_trial`` on SmallCNN at batch 64, on the
+    Hyperband spec's synthetic data, through ``Orchestrator.run`` on
+    ``cuda`` under the async engine: ``tests/test_hyperband_e2e.py::
+    test_asha_async_sweep_e2e``'s shape (r_max 9, r_min 1, eta 3, lr in
+    [0.01, 0.5], 24 trials, 4 at a time).  The spec is the Hyperband spec's,
+    changed through the port's loader.  The store is the memory one: a
+    diverging trial reports a NaN loss, which the sqlite store refuses
+    (ROADMAP Queue 3, F3)."""
+    import yaml
+
+    from katib_tpu_torch.orchestrator import Orchestrator
+    from katib_tpu_torch.sdk.yaml_spec import experiment_spec_from_dict
+    from katib_tpu_torch.store.base import MemoryObservationStore
+
+    with open(HYPERBAND_YAML) as f:
+        doc = yaml.safe_load(f)
+    spec = doc["spec"]
+    doc["metadata"]["name"] = "asha-mnist"
+    spec["algorithm"] = {"algorithmName": "asha", "algorithmSettings": [
+        {"name": k, "value": v}
+        for k, v in {"r_max": "9", "r_min": "1", "eta": "3", "resource_name": "epochs"}.items()]}
+    spec["maxTrialCount"], spec["parallelTrialCount"] = 24, 4
+    for p in spec["parameters"]:
+        if p["name"] == "lr":
+            p["feasibleSpace"] = {"min": "0.01", "max": "0.5"}
+        elif p["name"] == "epochs":
+            p["feasibleSpace"] = {"min": "1", "max": "9"}
+    spec = experiment_spec_from_dict(doc)
+    check(spec.async_orch is None, "the ASHA spec selects no loop: the async engine is the default")
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-asha-")
+    orch = Orchestrator(workdir=workdir, device="cuda", store=MemoryObservationStore())
+    t0 = time.perf_counter()
+    exp = orch.run(spec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trials = exp.trials.values()
+    conditions = sorted({t.condition.value for t in trials})
+    promoted = [t for t in trials if t.labels.get("asha-parent")]
+    epochs = sorted(int(t.params()["epochs"]) for t in trials)
+    print(f"asha: 24-trial sweep of mnist_trial (SmallCNN, batch 64) through Orchestrator.run "
+          f"on cuda: experiment {exp.condition.value}; {len(exp.trials)} trials {conditions} in "
+          f"{wall:.2f}s = {len(exp.trials) / wall * 3600:.0f} trials/hour; epochs per trial "
+          f"{epochs}; {len(promoted)} promotions; best accuracy "
+          f"{exp.optimal.objective_value if exp.optimal else None}", flush=True)
+    engine_stats("asha", orch.async_stats)
+    check(exp.condition.value in SUCCESS, f"experiment {exp.condition.value}: {exp.message}")
+    check(len(exp.trials) == 24 and conditions == ["Succeeded"], f"trials {conditions}")
+    check(promoted, "no asynchronous promotion in 24 trials")
+    for t in promoted:
+        parent = exp.trials[t.labels["asha-parent"]]
+        check(int(t.params()["epochs"]) > int(parent.params()["epochs"])
+              and t.params()["lr"] == parent.params()["lr"],
+              f"promotion {parent.params()} -> {t.params()}")
+
+
+# the async phase's grid: MLP, sgd, one epoch of 8,192 synthetic MNIST
+# images at batch 64, over 8 learning rates, 4 trials at a time
+GRID_FIXED = {"arch": "mlp", "optimizer": "sgd", "epochs": "1", "batch_size": "64",
+              "n_train": "8192", "n_test": "2048"}
+GRID_LRS = ["0.01", "0.02", "0.05", "0.1", "0.15", "0.2", "0.3", "0.4"]
+GRID_PAIRS = 3  # runs of each loop, in turns
+
+
+def run_grid(torch, engine: bool):
+    """One run of the grid through ``Orchestrator.run`` on ``cuda``, on the
+    async engine or the synchronous loop; returns the experiment, the
+    orchestrator, the wall and the outcome ``[(lr, {metric: [values]})]``."""
+    from katib_tpu_torch.core import types as t
+    from katib_tpu_torch.models.mnist import mnist_trial
+    from katib_tpu_torch.orchestrator import Orchestrator
+    from katib_tpu_torch.store.base import MemoryObservationStore
+
+    spec = t.ExperimentSpec(
+        name="grid-mnist",
+        objective=t.ObjectiveSpec(type=t.ObjectiveType.MAXIMIZE,
+                                  objective_metric_name="accuracy"),
+        algorithm=t.AlgorithmSpec(name="grid"),
+        parameters=[t.ParameterSpec("lr", t.ParameterType.CATEGORICAL,
+                                    t.FeasibleSpace(list=GRID_LRS))] + [
+            t.ParameterSpec(k, t.ParameterType.CATEGORICAL, t.FeasibleSpace(list=[v]))
+            for k, v in GRID_FIXED.items()],
+        max_trial_count=len(GRID_LRS),
+        parallel_trial_count=4,
+        prewarm=False,
+        async_orch=engine,
+        train_fn=mnist_trial,
+    )
+    store = MemoryObservationStore()
+    orch = Orchestrator(workdir=tempfile.mkdtemp(prefix="chip-smoke-grid-"), device="cuda",
+                        store=store)
+    t0 = time.perf_counter()
+    exp = orch.run(spec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outcome = sorted(
+        (tr.params()["lr"], {m: [log.value for log in store.get(tr.name, m)]
+                             for m in ("accuracy", "loss")})
+        for tr in exp.trials.values())
+    return exp, orch, wall, outcome
+
+
+def phase_async(torch) -> None:
+    """The 8-point ``grid`` of ``mnist_trial`` through ``Orchestrator.run`` on
+    ``cuda``, with the synchronous loop and with the async engine, in turns,
+    ``GRID_PAIRS`` times each: every run's outcome set (assignments to the
+    reported accuracy and loss) is bit-equal to the first's, across loops and
+    across runs of one loop, while 4 trials capture and replay at once."""
+    outcomes, walls = [], {False: [], True: []}
+    for i in range(GRID_PAIRS):
+        for engine in (False, True) if i % 2 == 0 else (True, False):
+            exp, orch, wall, outcome = run_grid(torch, engine)
+            what = "async: engine" if engine else "async: synchronous loop"
+            print(f"{what}: grid of 8 MLP trials (sgd, one epoch) on cuda: experiment "
+                  f"{exp.condition.value} in {wall:.2f}s; {outcome}", flush=True)
+            if engine:
+                engine_stats("async", orch.async_stats)
+            else:
+                check(orch.async_stats is None, "the synchronous run went through the engine")
+            check(exp.condition.value in SUCCESS and len(outcome) == 8,
+                  f"grid experiment {exp.condition.value}: {exp.message}")
+            outcomes.append(outcome)
+            walls[engine].append(round(wall, 3))
+    differ = [i for i, o in enumerate(outcomes) if o != outcomes[0]]
+    check(not differ, f"grid runs {differ} differ from the first: "
+          f"{[outcomes[i] for i in differ]} vs {outcomes[0]}")
+    print(f"async: {len(outcomes)} runs in turns (walls: synchronous loop "
+          f"{walls[False]}s, engine {walls[True]}s), every outcome set bit-equal", flush=True)
+
+
+def phase_chaos() -> None:
+    """``python -m katib_tpu_torch chaos --soak 30 --seed 1 --trials 10``:
+    the seeded chaos soak of the async engine exits 0."""
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-chaos-")
+    log = os.path.join(workdir, "soak.log")
+    t0 = time.perf_counter()
+    rc, out = _wait(_cli("chaos", "--soak", "30", "--seed", "1", "--trials", "10", log=log),
+                    log, 300)
+    wall = time.perf_counter() - t0
+    for line in out.strip().splitlines():
+        print(f"chaos: {line.strip()}", flush=True)
+    summary = [ln for ln in out.splitlines() if ln.startswith(("SOAK PASS", "SOAK FAIL"))]
+    base = after = math.nan
+    if summary and summary[-1].startswith("SOAK PASS"):
+        base, after = (float(v) for v in summary[-1].rsplit("occupancy", 1)[1].split("->"))
+    print(f"chaos: exit {rc} in {wall:.2f}s; post-fault occupancy {after} / baseline {base} "
+          f"= {after / base if base else math.nan:.3f}", flush=True)
+    check(rc == 0 and summary and summary[-1].startswith("SOAK PASS"), f"soak:\n{out[-3000:]}")
 
 
 def main() -> int:
@@ -1146,6 +1370,9 @@ def main() -> int:
         torch, fa, sum(t["ms"] for t in flash_timing.values()))
     phase_classifier(torch)
     phase_hyperband()
+    phase_asha(torch)
+    phase_async(torch)
+    phase_chaos()
 
     kernels = [{
         "name": "mixed_op_sum",

@@ -1,13 +1,19 @@
 """``katib-tpu-torch`` command-line interface (``python -m katib_tpu_torch``).
 
-Port of ``katib_tpu/cli.py``'s ``run``, ``fsck`` and ``doctor`` verbs:
+Port of ``katib_tpu/cli.py``'s ``run``, ``fsck``, ``doctor`` and
+``chaos --soak`` verbs:
 
 - ``run <experiment.yaml>``   create + run an experiment to completion (--resume);
                               ``--device`` names where trials run (``cuda``
-                              unless it says ``cpu``)
+                              unless it says ``cpu``); a run on the async
+                              engine ends with an ``async engine: {...}``
+                              line on stderr (``Orchestrator.async_stats``)
 - ``fsck <workdir>/<exp>``    validate + repair an experiment dir (torn journal tail,
                               snapshot checksums, suggester fence)
 - ``doctor``                  bounded device preflight + environment report
+- ``chaos --soak SECONDS``    seeded chaos soak of the async engine
+                              (``orchestrator/soak.py``); ``chaos``'s other
+                              modes raise ``NotImplementedError``
 
 The JAX CLI's other verbs are listed in :data:`UNPORTED_VERBS`; each raises
 ``NotImplementedError`` naming it.  This module imports no JAX, and no verb
@@ -17,6 +23,7 @@ does.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
@@ -24,7 +31,7 @@ from katib_tpu_torch.core.config import KatibConfig
 
 #: the JAX CLI's verbs the port does not have yet
 UNPORTED_VERBS = (
-    "list", "describe", "metrics", "export", "logs", "trace", "chaos",
+    "list", "describe", "metrics", "export", "logs", "trace",
     "cost", "profile", "prewarm", "cache", "ui", "sim", "lint",
     "suggest-server", "db-manager", "conformance",
 )
@@ -106,6 +113,10 @@ def cmd_run(args: argparse.Namespace) -> int:
             return 2
     else:
         exp = orch.run(spec)
+    if orch.async_stats is not None:
+        # the engine's summary: its occupancy, rate, lookahead, and what the
+        # loop supervisor did (restarts per loop, a fallback to the sync loop)
+        print(f"async engine: {json.dumps(orch.async_stats, default=str)}", file=sys.stderr)
     if orch.drained:
         # resumable preemption exit: SIGTERM arrived, running trials were
         # checkpointed (or journaled Drained), the journal + suggester state
@@ -203,10 +214,56 @@ def cmd_doctor(args: argparse.Namespace) -> int:
     return 0 if report.ok() else 1
 
 
+#: the flags of the JAX ``chaos`` verb's single fault-injection run
+#: (``katib_tpu/cli.py::cmd_chaos``), which the port has not ported
+SINGLE_RUN_FLAGS = (
+    "--max-retries", "--suggester-max-errors", "--fail-trial", "--fail-suggester",
+    "--flake-rate", "--hang-trial", "--preempt-at", "--compile-hang",
+    "--progress-deadline", "--compile-deadline", "--drain-grace", "--kill-loop",
+    "--stall-suggester", "--loop-stall-deadline",
+)
+
+
+def cmd_chaos(args: argparse.Namespace) -> int:
+    """``chaos --soak SECONDS --seed N [--trials N]``: the seeded chaos soak
+    of the async engine (``orchestrator/soak.py``); exit 0 when every
+    round's invariants held.  The JAX verb's other modes raise, each naming
+    itself."""
+    if args.crash_at or args.kill_at:
+        raise NotImplementedError(
+            "chaos --crash-at/--kill-at, the crash-consistency scenario of "
+            "katib_tpu/cli.py (_chaos_crash), is not ported yet"
+        )
+    if args.wedge_device:
+        raise NotImplementedError(
+            "chaos --wedge-device, the wedged-device scenario of "
+            "katib_tpu/cli.py (cmd_chaos), is not ported yet"
+        )
+    given = [f for f in SINGLE_RUN_FLAGS if getattr(args, f[2:].replace("-", "_")) is not None]
+    if args.soak is None:
+        raise NotImplementedError(
+            "chaos without --soak, the single fault-injection run of "
+            f"katib_tpu/cli.py (cmd_chaos{'; ' + ' '.join(given) if given else ''}), "
+            "is not ported yet; the port has chaos --soak SECONDS --seed N "
+            "[--trials N]"
+        )
+    if given:
+        raise NotImplementedError(
+            "chaos --soak: the single fault-injection run's flags "
+            f"({' '.join(given)}) are not ported yet (katib_tpu/cli.py "
+            "cmd_chaos); the soak takes --seed and --trials"
+        )
+    from katib_tpu_torch.orchestrator.soak import run_soak
+
+    # soak rounds want enough trials per round for occupancy and mid-run
+    # kills to mean something; --trials can only raise it
+    return run_soak(seconds=args.soak, seed=args.seed, trials=max(args.trials, 10))
+
+
 def _cmd_unported(args: argparse.Namespace) -> int:
     raise NotImplementedError(
         f"verb {args.cmd!r} of katib_tpu/cli.py is not ported yet; the port "
-        "has run, fsck and doctor"
+        "has run, fsck, doctor and chaos --soak"
     )
 
 
@@ -293,6 +350,32 @@ def main(argv: list[str] | None = None) -> int:
         help="which devices to probe: every visible CUDA device (default) or the CPU",
     )
     p.set_defaults(fn=cmd_doctor)
+
+    p = sub.add_parser(
+        "chaos",
+        help="seeded chaos soak of the async engine (only --soak is ported)",
+    )
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--trials", type=int, default=4)
+    p.add_argument(
+        "--soak",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="seeded chaos soak: run scripted fault rounds (loop kills, "
+        "suggester stalls, trial faults, speculation) for ~SECONDS, "
+        "asserting zero lost/duplicated settlements, restart budgets "
+        "respected, and post-fault occupancy recovery; deterministic "
+        "per --seed",
+    )
+    p.add_argument("--crash-at", metavar="SITE[:N]", default=None, help="not ported yet")
+    p.add_argument("--kill-at", metavar="SITE[:N]", default=None, help="not ported yet")
+    p.add_argument("--wedge-device", action="append", type=int, metavar="N",
+                   help="not ported yet")
+    for flag in SINGLE_RUN_FLAGS:
+        p.add_argument(flag, default=None,
+                       help="the single fault-injection run's; not ported yet")
+    p.set_defaults(fn=cmd_chaos)
 
     for verb in UNPORTED_VERBS:
         p = sub.add_parser(verb, help="not ported yet", add_help=False)

@@ -722,8 +722,9 @@ class ExperimentSpec:
     async_orch: bool | None = None
     # Async suggest loop: how many proposed-but-undispatched trials to keep
     # journaled and ready ahead of the scheduler, so suggester latency hides
-    # behind training instead of idling the mesh.  None = auto
-    # (4 x max(parallel_trial_count, effective cohort width)).
+    # behind training instead of idling the mesh.  None = auto:
+    # max(parallel_trial_count, effective cohort width) for an adaptive
+    # suggester, 4 x that for one whose points never depend on results.
     suggest_lookahead: int | None = None
     # Async schedule loop backpressure: dispatch new work while measured
     # device occupancy (busy executor slots / parallel_trial_count) is below

@@ -316,9 +316,9 @@ class EpochLoop:
     the host about as much as one kernel launch.
 
     On a CUDA device (``capture=None``) the step is warmed up on copies of
-    every buffer on the device's shared capture stream, captured once in
-    ``thread_local`` mode under that stream's lock (as the DARTS step loop
-    does, ``nas/darts/step_loop.py``) and replayed; a failed capture or
+    every buffer on the thread's capture stream, captured once in
+    ``thread_local`` mode under the device's capture lock (as the DARTS step
+    loop does, ``nas/darts/step_loop.py``) and replayed; a failed capture or
     replay raises.  On the CPU, or with ``capture=False``, the same step
     function runs eagerly, one call per step, over the same buffers."""
 

@@ -17,12 +17,13 @@ Design (one step per graph):
 - One captured step serves every window length, so a ragged last window
   needs no second graph.
 
-On a CUDA device the step is warmed up on a side stream, on a copy of every
-buffer (so no step is applied twice), which also builds and loads the
-kernel library, creates the cuBLAS and cuDNN handles and starts the autograd
-engine; then it is captured once and replayed.  A capture or replay that
-fails raises: nothing falls back to eager stepping.  On the CPU the same
-step function runs eagerly, one call per step, over the same buffers.
+On a CUDA device the step is warmed up on the thread's capture stream, on
+a copy of every buffer (so no step is applied twice), which also builds
+and loads the kernel library, creates the cuBLAS and cuDNN handles and
+starts the autograd engine; then it is captured once and replayed.  A
+capture or replay that fails raises: nothing falls back to eager
+stepping.  On the CPU the same step function runs eagerly, one call per
+step, over the same buffers.
 
 Launch accounting: the mixed-op wrapper counts each launch in Python, so a
 capture would count launches that do not happen and a replay counts none.
@@ -48,24 +49,46 @@ from katib_tpu_torch.ops import mixed_op
 METRICS = ("train_loss", "val_loss", "w_lr", "grad_norm")
 WARMUP_STEPS = 1  # steps run (on copies) before the capture
 
-# one side stream per device for every warm-up and capture in the process:
-# cuBLAS keeps a workspace for each stream it has run on until the process
-# ends, so a fresh stream per search would hold more memory with each trial.
-# The stream is shared, so the warm-up and capture on it hold the device's
-# lock: two trials of one process (parallelTrialCount > 1) take turns.
-_capture_streams: dict[int, torch.cuda.Stream] = {}
+# one capture stream per thread and device.  A graph captured on a stream
+# stays tied to it: another thread's eager warm-up on that stream while the
+# graph replays changes what the replay computes (on an H100, concurrent
+# captured trials sharing one stream trained to results that changed from
+# run to run).  A thread keeps its stream for life, so its trials' graphs
+# are dead before the stream goes back to the free list as the thread ends;
+# a stream is made only when the list is empty (PyTorch hands out its 32
+# pooled streams per device in turn, so more than 32 threads capturing at
+# once would share again).  Warm-ups and captures take turns under the
+# device's lock.
+_free_streams: dict[int, list[torch.cuda.Stream]] = {}
 _capture_locks: dict[int, threading.Lock] = {}
 _streams_lock = threading.Lock()
+_thread_streams = threading.local()
+
+
+class _Lease:
+    """A thread's capture stream on one device; back to its free list when
+    the thread's local storage is dropped, as the thread ends."""
+
+    def __init__(self, free: list, stream: torch.cuda.Stream):
+        self.free, self.stream = free, stream
+
+    def __del__(self):
+        self.free.append(self.stream)
 
 
 def _capture_stream(device: torch.device) -> tuple[torch.cuda.Stream, threading.Lock]:
-    """The device's capture stream and the lock that guards its use."""
+    """This thread's capture stream on ``device`` and the device's capture
+    lock."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    with _streams_lock:
-        if index not in _capture_streams:
-            _capture_streams[index] = torch.cuda.Stream(index)
-            _capture_locks[index] = threading.Lock()
-        return _capture_streams[index], _capture_locks[index]
+    leases = getattr(_thread_streams, "leases", None)
+    if leases is None:
+        leases = _thread_streams.leases = {}
+    if index not in leases:
+        with _streams_lock:
+            free = _free_streams.setdefault(index, [])
+            leases[index] = _Lease(free, free.pop() if free else torch.cuda.Stream(index))
+            _capture_locks.setdefault(index, threading.Lock())
+    return leases[index].stream, _capture_locks[index]
 
 
 class StepLoop:
@@ -127,8 +150,8 @@ class StepLoop:
         pos.add_(1)
 
     def _build_graph(self) -> None:
-        """Warm up on copies, then capture one step on the device's side
-        stream, holding the stream's lock throughout.
+        """Warm up on copies, then capture one step on this thread's capture
+        stream, holding the device's capture lock throughout.
 
         The capture runs in ``thread_local`` mode: it forbids unsafe CUDA
         calls (a device sync, an event query, a plain ``cudaMalloc``) on
@@ -137,10 +160,10 @@ class StepLoop:
         writer); they make no CUDA calls, but a second trial of the same
         process might, and in the default ``global`` mode its sync or
         allocation would invalidate this capture.  That is safe here
-        because no other thread ever issues work to the side stream or
-        waits on an event recorded in it (the lock), and PyTorch's caching
-        allocator sends only the capturing stream's allocations to the
-        graph's private pool."""
+        because no other thread ever issues work to this thread's stream or
+        waits on an event recorded in it, and PyTorch's caching allocator
+        sends only the capturing stream's allocations to the graph's
+        private pool."""
         t0 = time.perf_counter()
         side, lock = _capture_stream(self.bufs[0].step.device)
         with lock:

@@ -19,14 +19,16 @@ API server, this is a single event loop owning the whole experiment:
 - trials run on a thread pool; PyTorch releases the GIL during device work
   so parallel trials on one host overlap host-side work with GPU steps.
 
-Port of ``katib_tpu/orchestrator/orchestrator.py``: the synchronous loop,
-settlement, drain, retries, the journal and the cleanup.  Trials run on
-``device`` (``cuda`` unless the caller names the CPU).  What the port does
-not have yet raises ``NotImplementedError`` when a run asks for it
-(:meth:`Orchestrator._refuse_unported`): a mesh, cohorts, ``prewarm``, the
-compile cache and artifact directory, ``command:`` trials, a slice
-allocator, the profiler, and the async loops outside
-:data:`SYNC_ALGORITHMS`.
+Port of ``katib_tpu/orchestrator/orchestrator.py``: the async engine
+(``orchestrator/async_loops.py`` under ``orchestrator/supervisor.py``),
+which runs every experiment unless ``asyncOrch: false`` or
+``KATIB_ASYNC_ORCH=0`` selects the synchronous loop, and the synchronous
+loop, settlement, drain, retries, the journal and the cleanup.  Trials run
+on ``device`` (``cuda`` unless the caller names the CPU).  What the port
+does not have yet raises ``NotImplementedError`` when a run asks for it
+(:meth:`Orchestrator._refuse_unported`): a mesh, cohorts, a declared
+prewarm twin, the compile cache and artifact directory, ``command:``
+trials, a slice allocator and the profiler.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from katib_tpu_torch.core.types import (
 from katib_tpu_torch.core.validation import validate_experiment
 from katib_tpu_torch.device import resolve_device
 from katib_tpu_torch.earlystop.rules import make_early_stopper
+from katib_tpu_torch.runner.cohort import cohort_fn_of
 from katib_tpu_torch.runner.trial_runner import (
     TrialResult,
     init_compile_cache,
@@ -68,15 +71,9 @@ from katib_tpu_torch.utils.watchdog import Watchdog
 #: (or a katib-tpu black-box parent!) reads it as "re-run me with --resume"
 DRAIN_EXIT_CODE = 75
 
-#: the attributes by which a train_fn declares its prewarm and cohort twins
-#: (``katib_tpu/compile/prewarm.py``, ``katib_tpu/runner/cohort.py``)
+#: the attribute by which a train_fn declares its prewarm twin
+#: (``katib_tpu/compile/prewarm.py``; the cohort twin's is in ``runner/cohort.py``)
 PREWARM_ATTR = "__prewarm_fn__"
-COHORT_ATTR = "__cohort_fn__"
-
-#: algorithms whose experiments run the synchronous loop whatever the async
-#: setting says: the JAX package pins its two loops bit-identical for the
-#: enumeration suggesters, and DARTS emits one trial
-SYNC_ALGORITHMS = ("grid", "random", "darts")
 
 
 class Orchestrator:
@@ -178,6 +175,9 @@ class Orchestrator:
         # Each write serializes EVERY trial; at scale that dominates.
         self._status_publish_interval = float(status_publish_interval)
         self._status_published_at: float | None = None
+        #: sustained-occupancy / throughput summary of the most recent async
+        #: run (orchestrator/async_loops.py); None under the sync path
+        self.async_stats: dict | None = None
 
     def stop(self) -> None:
         """Request the experiment wind down (the reference's experiment
@@ -381,6 +381,16 @@ class Orchestrator:
                 self._finish(exp)
                 raise RuntimeError(exp.message)
 
+        # the async engine (orchestrator/async_loops.py): default ON;
+        # spec.async_orch wins, else the KATIB_ASYNC_ORCH env var — "0" is
+        # the escape hatch back to the synchronous loop
+        self.async_stats = None
+        use_async = (
+            spec.async_orch
+            if spec.async_orch is not None
+            else os.environ.get("KATIB_ASYNC_ORCH", "1") != "0"
+        )
+
         with cf.ThreadPoolExecutor(
             max_workers=spec.parallel_trial_count, thread_name_prefix=f"trial-{exp.name}"
         ) as pool:
@@ -389,16 +399,66 @@ class Orchestrator:
             # PENDING): same name/assignments/checkpoint dir, so a
             # checkpoint-aware train_fn resumes mid-trial — the analog of
             # trial jobs surviving a controller restart in the reference.
+            # The sync loop resubmits them directly; the async engine seeds
+            # them into its ready queue so they flow through cohort packing
+            # and occupancy backpressure like any other proposal.
+            orphans: list[Trial] = []
             for trial in exp.trials.values():
                 if trial.condition in (TrialCondition.PENDING, TrialCondition.CREATED):
                     if early_stopper is not None and not trial.spec.early_stopping_rules:
                         trial.spec.early_stopping_rules = early_stopper.get_rules(exp)
                     if hasattr(suggester, "checkpoint_dir_for"):
                         self._suggester_owned_ckpts.add(trial.name)
+                    if use_async:
+                        trial.condition = TrialCondition.PENDING
+                        orphans.append(trial)
+                        continue
                     trial.condition = TrialCondition.RUNNING
                     trial.start_time = get_clock().time()
                     self._jappend("started", exp, trial=trial)
                     futures[get_clock().submit(pool, self._execute, exp, trial, mesh)] = trial
+            if use_async:
+                from katib_tpu_torch.orchestrator.async_loops import AsyncLoops
+
+                engine = AsyncLoops(
+                    self,
+                    exp,
+                    suggester,
+                    early_stopper,
+                    mesh,
+                    pool,
+                    breaker,
+                    stop_event,
+                    drain_event,
+                    futures,
+                    initial_ready=orphans,
+                )
+                result = engine.run()
+                if result is not None:
+                    return result
+                # supervisor exhausted its loop-restart budget: degrade to
+                # this synchronous loop instead of dying.  In-flight futures
+                # stay live in the shared dict and are harvested below; the
+                # engine already journaled the fallback and put queued
+                # proposals back to PENDING — resubmit them here like
+                # restart orphans.
+                exhausted = engine._exhausted.is_set()
+                inflight: set[str] = set()
+                for owner in futures.values():
+                    for t in owner if isinstance(owner, list) else [owner]:
+                        inflight.add(t.name)
+                resubmit = [
+                    t
+                    for t in exp.trials.values()
+                    if t.condition
+                    in (TrialCondition.PENDING, TrialCondition.CREATED)
+                    and t.name not in inflight
+                ]
+                for trial in resubmit:
+                    trial.condition = TrialCondition.RUNNING
+                    trial.start_time = get_clock().time()
+                    futures[get_clock().submit(pool, self._execute, exp, trial, mesh)] = trial
+                self._jappend_group("started", exp, resubmit)
             while True:
                 self._harvest(exp, futures)
                 if self._stop_requested.is_set():
@@ -707,7 +767,7 @@ class Orchestrator:
                 "for the background compile prewarmer "
                 "(katib_tpu/compile/prewarm.py), not ported yet"
             )
-        if spec.cohort_width > 1 and getattr(spec.train_fn, COHORT_ATTR, None) is not None:
+        if spec.cohort_width > 1 and cohort_fn_of(spec.train_fn) is not None:
             raise NotImplementedError(
                 f"cohortWidth={spec.cohort_width} with a train_fn that declares "
                 "a cohort twin asks for vectorized cohorts "
@@ -728,18 +788,6 @@ class Orchestrator:
                 "init.enable_profiler asks for per-trial profiles "
                 "(katib_tpu/costmodel/profiler.py), not ported yet"
             )
-        use_async = (
-            spec.async_orch
-            if spec.async_orch is not None
-            else os.environ.get("KATIB_ASYNC_ORCH", "1") != "0"
-        )
-        if use_async and spec.algorithm.name not in SYNC_ALGORITHMS:
-            raise NotImplementedError(
-                f"algorithm {spec.algorithm.name!r} runs under the async "
-                "loops (katib_tpu/orchestrator/async_loops.py), not ported "
-                "yet; set asyncOrch: false or KATIB_ASYNC_ORCH=0 for the "
-                f"synchronous loop (always used for {', '.join(SYNC_ALGORITHMS)})"
-            )
 
     def _resolve_mesh(self, spec: ExperimentSpec):
         """Explicit mesh wins; otherwise the config registry decides.  The
@@ -752,6 +800,25 @@ class Orchestrator:
         if self.config is not None:
             self.config.mesh_axes_for(spec.algorithm.name)  # raises for axes
         return None
+
+    #: implicit cohort key stamped when a trial-axis mesh is configured but
+    #: neither the proposals nor the spec name one (read by the async
+    #: engine's packing; the port has no trial-axis mesh yet)
+    _TRIAL_MESH_KEY = "trial-mesh"
+
+    def _submit_prewarm(self, spec: ExperimentSpec, trials: list[Trial], mesh) -> None:
+        """Enqueue one group's compile signature on the prewarm worker.  The
+        JAX worker compiles only for a train_fn that declares a prewarm
+        twin, a run :meth:`_refuse_unported` refuses before the engine
+        starts; for every other train_fn it does nothing, as here."""
+
+    def _execute_cohort(self, exp: Experiment, trials: list[Trial], mesh):
+        """A cohort on one pool thread: engaged only for a train_fn with a
+        cohort twin and a width above one, a run that
+        :meth:`_refuse_unported` refuses before the engine starts."""
+        raise NotImplementedError(
+            "vectorized cohorts (katib_tpu/runner/cohort.py) are not ported yet"
+        )
 
     def _execute(self, exp: Experiment, trial: Trial, mesh):
         # invariant: never raises — _harvest calls f.result() bare.

@@ -119,6 +119,11 @@ def test_darts_spec_runs_through_the_cli_and_fscks_clean(tmp_path):
     assert f"optimal trial {trial['name']}: accuracy=" in out
     assert accuracy_steps(workdir, trial["name"]) == [0, 1]
     assert os.path.isfile(os.path.join(trial["checkpoint_dir"], "genotype.json"))
+    # the run went through the async engine, which says so on stderr
+    (line,) = [ln for ln in err.splitlines() if ln.startswith("async engine: ")]
+    stats = json.loads(line[len("async engine: "):])
+    assert stats["trials_settled"] == 1 and stats["fallback"] is None
+    assert not any(stats["loop_restarts"].values()), stats
     rc, out, err = finish(cli("fsck", os.path.join(workdir, EXPERIMENT)))
     assert rc == 0 and "result: consistent" in out, out + err
 
@@ -149,7 +154,7 @@ def test_drain_after_epoch_0_then_resume_loses_and_repeats_no_epoch(tmp_path):
         if proc.poll() is None:
             proc.kill()
     assert rc == 75, err[-3000:]
-    assert "drained" in err
+    assert "drained" in err and "async engine: " in err
     status = read_status(workdir, EXPERIMENT)
     assert status["trials"][trial]["condition"] == "Drained"
     search_dir = os.path.join(status["trials"][trial]["checkpoint_dir"], "search")

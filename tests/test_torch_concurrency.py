@@ -1,6 +1,6 @@
 """The DARTS step loop and the classifier epoch loop under an
-orchestrator's threads (port only): one capture at a time on a device's
-shared capture stream, captured in ``thread_local`` mode, and a mixed-op
+orchestrator's threads (port only): one capture at a time on a device,
+each on its thread's capture stream, in ``thread_local`` mode, and a mixed-op
 launch count that other threads' launches cannot corrupt.  The CUDA calls
 of the capture are stubs here; the card runs the real ones in
 ``chip_smoke.py``."""
@@ -26,8 +26,9 @@ class _FakeStream:
 
 
 def _stub_cuda(monkeypatch, on_capture):
-    monkeypatch.setattr(step_loop, "_capture_streams", {})
+    monkeypatch.setattr(step_loop, "_free_streams", {})
     monkeypatch.setattr(step_loop, "_capture_locks", {})
+    monkeypatch.setattr(step_loop, "_thread_streams", threading.local())
     monkeypatch.setattr(step_loop, "clone_state", lambda s: s)
     monkeypatch.setattr(torch.cuda, "Stream", lambda index: _FakeStream())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: _FakeStream())
@@ -69,7 +70,7 @@ def test_captures_on_one_device_take_turns_in_thread_local_mode(monkeypatch):
         t.start()
     for t in threads:
         t.join(timeout=30)
-    assert peak[0] == 1, "two captures ran on the shared stream at once"
+    assert peak[0] == 1, "two captures ran on one device at once"
     assert modes == ["thread_local"] * 4
     # each capture tallied its own step; only the warm-up steps really ran
     assert [loop.launches_per_replay for loop in loops] == [LAUNCHES_PER_STEP] * 4
@@ -152,7 +153,7 @@ def test_classifier_and_darts_captures_take_turns_on_one_lock(monkeypatch):
     for t in threads:
         t.join(timeout=30)
     assert not any(t.is_alive() for t in threads)
-    assert peak[0] == 1, "two captures ran on the shared stream at once"
+    assert peak[0] == 1, "two captures ran on one device at once"
     assert modes == ["thread_local"] * 8
     assert len(step_loop._capture_locks) == 1
     # each classifier loop: one warm-up step on a copy, then its capture

@@ -1,9 +1,10 @@
-"""The HP-tuning path through the port's synchronous orchestrator: the
-Hyperband, ASHA and TPE experiments against the JAX orchestrator on a
-closed-form ``train_fn``, the 32-trial sweep invariants of
-``tests/test_hyperband_e2e.py``, the port's own spec
-(``katib_tpu_torch/specs/hyperband-mnist.yaml``) run end to end with
-``mnist_trial`` on the CPU, and the settings the port refuses."""
+"""The HP-tuning path through the port's orchestrator: the Hyperband, ASHA
+and TPE experiments against the JAX orchestrator's synchronous loop on a
+closed-form ``train_fn``, the async engine against the synchronous loop,
+the 32-trial sweep and ASHA invariants of ``tests/test_hyperband_e2e.py``,
+the port's own spec (``katib_tpu_torch/specs/hyperband-mnist.yaml``) run
+end to end with ``mnist_trial`` on the CPU under the async default, and the
+settings the port refuses."""
 
 from __future__ import annotations
 
@@ -150,7 +151,7 @@ def test_the_sweep_spec_keeps_the_invariants_of_the_jax_e2e_test(tmp_path):
 
 def test_the_sweep_spec_runs_mnist_trial_end_to_end_on_the_cpu(tmp_path):
     """The port's spec as shipped but for a smaller split: ``mnist_trial``
-    on SmallCNN through the synchronous loop, 16 trials at a time."""
+    on SmallCNN through the async engine, 16 trials at a time."""
     spec = _sweep_spec(parameters={"n_train": "128", "n_test": "64"})
     assert spec.train_fn is mnist_trial
     exp = Orchestrator(workdir=str(tmp_path), device="cpu").run(spec)
@@ -162,18 +163,76 @@ def test_the_sweep_spec_runs_mnist_trial_end_to_end_on_the_cpu(tmp_path):
     assert report.ok(), report.lines()
 
 
+def _engine_run(spec, workdir: str):
+    orch = Orchestrator(workdir=workdir, device="cpu")
+    exp = orch.run(spec)
+    stats = orch.async_stats
+    if stats is not None:
+        # a clean engine run: no loop restarted, no fallback to the sync loop
+        assert stats["fallback"] is None and not any(stats["loop_restarts"].values()), stats
+    return exp, stats
+
+
 @pytest.mark.parametrize("algorithm", ["hyperband", "asha", "tpe"])
-def test_the_async_default_raises_naming_the_async_loops(algorithm, tmp_path, monkeypatch):
+def test_the_async_default_ends_as_the_synchronous_loop(algorithm, tmp_path, monkeypatch):
+    """With ``asyncOrch`` unset, the async engine runs the adaptive
+    suggesters to the terminal condition and trial count that
+    ``KATIB_ASYNC_ORCH=0`` (the synchronous loop) gives; Hyperband's rung
+    table is the same too."""
+    runs = {}
+    for label, env in (("async", None), ("sync", "0")):
+        if env is None:
+            monkeypatch.delenv("KATIB_ASYNC_ORCH", raising=False)
+        else:
+            monkeypatch.setenv("KATIB_ASYNC_ORCH", env)
+        spec = _spec("torch", *SYNC_CASES[algorithm])
+        spec.async_orch = None
+        exp, stats = _engine_run(spec, str(tmp_path / label))
+        assert (stats is not None) == (label == "async")
+        assert all(t.condition.value == "Succeeded" for t in exp.trials.values())
+        rungs = None
+        if algorithm == "hyperband":
+            rungs = {}
+            for t in exp.trials.values():
+                key = (t.labels["hyperband-s"], t.labels["hyperband-i"])
+                rungs[key] = rungs.get(key, 0) + 1
+        runs[label] = (exp.condition.value, len(exp.trials), rungs)
+    assert runs["async"] == runs["sync"]
+    assert runs["async"][0] in ("Succeeded", "MaxTrialsReached")
+
+
+def test_asha_promotes_under_the_engine(tmp_path, monkeypatch):
+    """``tests/test_hyperband_e2e.py::test_asha_async_sweep_e2e`` on the
+    port: r_max 9, r_min 1, eta 3, lr in [0.01, 0.5], 24 trials 4 at a time
+    under the async default; promotions happen, each raises the resource
+    and keeps the lr."""
     monkeypatch.delenv("KATIB_ASYNC_ORCH", raising=False)
-    settings = {"hyperband": SYNC_CASES["hyperband"][1], "asha": SYNC_CASES["asha"][1],
-                "tpe": {}}[algorithm]
-    spec = _spec("torch", algorithm, settings, 4, 4)
-    spec.async_orch = None
-    with pytest.raises(NotImplementedError, match="async_loops.py"):
-        Orchestrator(workdir=str(tmp_path), device="cpu").run(spec)
-    monkeypatch.setenv("KATIB_ASYNC_ORCH", "0")
-    spec.max_trial_count = 2
-    assert Orchestrator(workdir=str(tmp_path / "sync"), device="cpu").run(spec).trials
+    t = PKGS["torch"].types
+    spec = t.ExperimentSpec(
+        name="asha-sweep",
+        objective=t.ObjectiveSpec(type=t.ObjectiveType.MAXIMIZE,
+                                  objective_metric_name="accuracy"),
+        algorithm=t.AlgorithmSpec(name="asha", settings={
+            "r_max": "9", "r_min": "1", "eta": "3", "resource_name": "epochs",
+            "random_state": "3"}),
+        parameters=[
+            t.ParameterSpec("lr", t.ParameterType.DOUBLE, t.FeasibleSpace(min=0.01, max=0.5)),
+            t.ParameterSpec("epochs", t.ParameterType.INT, t.FeasibleSpace(min=1, max=9)),
+        ],
+        max_trial_count=24,
+        parallel_trial_count=4,
+        train_fn=epochs_trainer,
+    )
+    exp, stats = _engine_run(spec, str(tmp_path))
+    assert stats is not None and stats["trials_settled"] == 24
+    assert exp.condition.value in ("Succeeded", "MaxTrialsReached"), exp.message
+    assert exp.optimal is not None and exp.succeeded_count == 24
+    promoted = [t for t in exp.trials.values() if t.labels.get("asha-parent")]
+    assert promoted, "no asynchronous promotions happened in 24 trials"
+    for t in promoted:
+        parent = exp.trials[t.labels["asha-parent"]]
+        assert int(t.params()["epochs"]) > int(parent.params()["epochs"])
+        assert t.params()["lr"] == parent.params()["lr"]
 
 
 @pytest.mark.parametrize("changes,match", [

@@ -57,9 +57,9 @@ def test_banned_check_compares_module_names_exactly():
 def test_port_imports_and_steps_with_jax_and_katib_tpu_blocked():
     """Every module imports, and one DARTS search step, a short transformer
     trial, the shipped DARTS spec through the port's loader and orchestrator
-    (one tiny epoch), one ``mnist_trial`` epoch and one round of the
-    Hyperband sweep's suggestions run, with JAX and the JAX package
-    unimportable."""
+    under the async engine (one tiny epoch), one ``mnist_trial`` epoch and
+    one round of the Hyperband sweep's suggestions run, with JAX and the JAX
+    package unimportable."""
     script = textwrap.dedent(f"""
         import sys
         for name in {BANNED!r}:
@@ -106,10 +106,15 @@ def test_port_imports_and_steps_with_jax_and_katib_tpu_blocked():
         ] + [{{"name": k, "value": v}} for k, v in tiny.items()]
         spec = experiment_spec_from_dict(doc)
         assert spec.train_fn.__module__ == "katib_tpu_torch.nas.darts.search", spec.train_fn
-        exp = Orchestrator(workdir=tempfile.mkdtemp(), device="cpu").run(spec)
+        orch = Orchestrator(workdir=tempfile.mkdtemp(), device="cpu")
+        exp = orch.run(spec)
         (trial,) = exp.trials.values()
         assert trial.condition is TrialCondition.SUCCEEDED, (trial.condition, trial.message)
         assert exp.optimal is not None and exp.optimal.trial_name == trial.name
+        # ... under the async engine, its supervisor, and the soak's modules
+        assert orch.async_stats is not None and orch.async_stats["fallback"] is None
+        for name in ("async_loops", "supervisor", "soak"):
+            assert "katib_tpu_torch.orchestrator." + name in sys.modules, name
         # one mnist_trial epoch, and one round of the Hyperband sweep's suggester
         from katib_tpu_torch.models.mnist import mnist_trial
         from katib_tpu_torch.sdk.yaml_spec import load_experiment_yaml

@@ -27,13 +27,10 @@ from katib_tpu_torch.core import types as ttypes
 from katib_tpu_torch.core.config import KatibConfig
 from katib_tpu_torch.orchestrator import journal as tjournal
 from katib_tpu_torch.orchestrator.fsck import fsck_experiment as t_fsck
-from katib_tpu_torch.orchestrator.orchestrator import (
-    COHORT_ATTR,
-    PREWARM_ATTR,
-    Orchestrator,
-)
+from katib_tpu_torch.orchestrator.orchestrator import PREWARM_ATTR, Orchestrator
 from katib_tpu_torch.orchestrator.resume import experiment_from_dict as t_from_dict
 from katib_tpu_torch.orchestrator.status import read_status as t_read_status
+from katib_tpu_torch.runner.cohort import COHORT_ATTR
 from katib_tpu_torch.runner.trial_runner import run_trial
 from katib_tpu_torch.store.base import MemoryObservationStore
 from katib_tpu_torch.utils import faults
@@ -304,8 +301,6 @@ REFUSALS = {
     "slice-allocator": dict(match="slice allocator", orch_kw={"slice_allocator": object()}),
     "profiler": dict(match="profile", orch_kw={
         "config": KatibConfig.from_dict({"init": {"enable_profiler": True}})}),
-    "async-spec": dict(match="async", algorithm="tpe", async_orch=True),
-    "async-default": dict(match="async", algorithm="tpe", async_orch=None),
     "unported-suggester": dict(match="cmaes.py", algorithm="cmaes", async_orch=False),
 }
 
@@ -323,12 +318,6 @@ def test_twins_absent_prewarm_and_cohort_width_run_as_in_the_jax_package(tmp_pat
     spec = grid_spec("torch", "plain", prewarm=True, cohort_width=2, max_trial_count=2)
     exp = Orchestrator(workdir=str(tmp_path), device="cpu").run(spec)
     assert exp.succeeded_count == 2
-
-
-def test_async_setting_leaves_the_synchronous_algorithms_alone(tmp_path, monkeypatch):
-    monkeypatch.setenv("KATIB_ASYNC_ORCH", "1")
-    spec = grid_spec("torch", "sync", async_orch=True, max_trial_count=2)
-    assert Orchestrator(workdir=str(tmp_path), device="cpu").run(spec).succeeded_count == 2
 
 
 def test_env_escape_hatch_selects_the_synchronous_loop(tmp_path, monkeypatch):

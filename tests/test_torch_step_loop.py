@@ -310,3 +310,47 @@ def test_replayed_graph_matches_eager_on_the_card(cuda_device, monkeypatch):
     torch.testing.assert_close(graph.metrics, eager.metrics, rtol=1e-4, atol=1e-6)
     for (key, a), (_, b) in zip(state_items(eager.state), state_items(graph.state)):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-6, msg=key)
+
+
+def test_each_thread_captures_on_a_stream_of_its_own(monkeypatch):
+    """Threads alive at once get distinct capture streams and share the
+    device's capture lock; a thread keeps its stream, which goes back to the
+    free list when the thread ends, so a later thread reuses it instead of
+    making another."""
+    import threading
+
+    from katib_tpu_torch.nas.darts import step_loop
+
+    made = []
+
+    class FakeStream:
+        def __init__(self, index):
+            made.append(self)
+
+    monkeypatch.setattr(torch.cuda, "Stream", FakeStream)
+    monkeypatch.setattr(step_loop, "_free_streams", {})
+    monkeypatch.setattr(step_loop, "_capture_locks", {})
+    monkeypatch.setattr(step_loop, "_thread_streams", threading.local())
+    device = torch.device("cuda", 0)
+    got = {}
+
+    def capture(name, together):
+        got[name] = (step_loop._capture_stream(device), step_loop._capture_stream(device))
+        together.wait()
+
+    together = threading.Barrier(3)
+    threads = [threading.Thread(target=capture, args=(i, together)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert all(first == again for first, again in got.values())
+    assert len(made) == 3 and {id(s) for (s, _), _ in got.values()} == set(map(id, made))
+    assert len({id(lock) for (_, lock), _ in got.values()}) == 1
+    assert sorted(map(id, step_loop._free_streams[0])) == sorted(map(id, made))
+
+    late = threading.Thread(target=capture, args=("late", threading.Barrier(1)))
+    late.start()
+    late.join()
+    assert len(made) == 3 and any(got["late"][0][0] is s for s in made)
+    assert len(step_loop._free_streams[0]) == 3
