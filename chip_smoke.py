@@ -49,8 +49,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    katib_tpu_torch/specs/hyperband-mnist.yaml`` in a fresh interpreter (a
    32-trial Hyperband sweep of ``mnist_trial``, 16 trials at a time) under
    the async engine and with ``KATIB_ASYNC_ORCH=0`` (the synchronous loop),
-   in turns (engine, sync, sync, engine), and check each run's experiment,
-   rungs, each trial's reported epochs and ``fsck``;
+   once each, and check each run's experiment, rungs, each trial's
+   reported epochs and ``fsck``;
 12. an ASHA sweep of ``mnist_trial`` (24 trials, 4 at a time) built from
    the Hyperband spec through the port's loader, on the async engine:
    every trial succeeds and promotions raise the epochs at the same lr;
@@ -59,7 +59,25 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    loop and with the async engine, in turns, 3 runs each: every outcome set
    is bit-equal to the first;
 14. ``python -m katib_tpu_torch chaos --soak 30 --seed 1 --trials 10``, the
-   seeded chaos soak of the async engine (on the CPU: its trainer sleeps).
+   seeded chaos soak of the async engine (on the CPU: its trainer sleeps);
+15. ``enas parity:`` the ENAS controller's trace on a fixed arc and one
+   REINFORCE step, and an 8-layer float32 child with every op and a skip
+   into every later layer (forward and gradient), on the card against the
+   CPU;
+16. ``enas width:`` ENAS through ``Orchestrator.run`` on ``cuda`` under the
+   async engine at the reference's widths (the controller at
+   ``ControllerConfig()``'s defaults with 50 REINFORCE steps a round;
+   children of 32 channels on 8,192 synthetic CIFAR-10 images, batch 128,
+   3 epochs; two rounds of 4 trials, 4 at a time): each child's capture,
+   epochs, images/s and accuracy, the controller's trainings, one REINFORCE
+   step and one arc's sampling timed and profiled, a child's captured epoch
+   profiled, peak memory;
+17. ``enas cli:`` ``python -m katib_tpu_torch run examples/nas/enas.yaml`` as
+   shipped: 12 trials ``Succeeded`` in rounds 0, 1 and 2 of 4, the
+   controller trained between rounds, ``fsck`` clean;
+18. ``enas sharing:`` two children of one arc with ``weight_sharing`` in one
+   experiment directory: the pool published, every parameter of the second
+   child overlaid from it.
 
 Every run of the async engine prints its ``async_stats`` (a CLI run prints
 them on its ``async engine:`` line) and fails the script if a loop
@@ -1162,23 +1180,15 @@ def hyperband_run(engine: bool) -> tuple[float, dict]:
 
 
 def phase_hyperband() -> None:
-    """The Hyperband sweep on the async engine and on the synchronous loop,
-    in turns (engine, sync, sync, engine) in one process tree on one card:
-    the walls side by side, and the same rung table from every run."""
-    walls: dict = {True: [], False: []}
-    tables = []
-    for engine in (True, False, False, True):
-        wall, table = hyperband_run(engine)
-        walls[engine].append(wall)
-        tables.append(table)
-    mean = {k: statistics.mean(v) for k, v in walls.items()}
-    print(f"hyperband: in turns (engine, sync, sync, engine): async engine "
-          f"{[round(w, 2) for w in walls[True]]}s, mean {mean[True]:.2f}s = "
-          f"{32 / mean[True] * 3600:.0f} trials/hour; synchronous loop "
-          f"{[round(w, 2) for w in walls[False]]}s, mean {mean[False]:.2f}s = "
-          f"{32 / mean[False] * 3600:.0f} trials/hour; engine/sync mean wall "
-          f"{mean[True] / mean[False]:.3f}", flush=True)
-    check(all(t == tables[0] for t in tables), f"rung tables differ: {tables}")
+    """The Hyperband sweep on the async engine and then on the synchronous
+    loop, in one process tree on one card: the walls side by side, and the
+    same rung table from both runs."""
+    wall_engine, table_engine = hyperband_run(True)
+    wall_sync, table_sync = hyperband_run(False)
+    print(f"hyperband: async engine {wall_engine:.2f}s = {32 / wall_engine * 3600:.0f} "
+          f"trials/hour; synchronous loop {wall_sync:.2f}s = {32 / wall_sync * 3600:.0f} "
+          f"trials/hour; engine/sync wall {wall_engine / wall_sync:.3f}", flush=True)
+    check(table_engine == table_sync, f"rung tables differ: {table_engine} {table_sync}")
 
 
 def phase_asha(torch) -> None:
@@ -1331,6 +1341,343 @@ def phase_chaos() -> None:
     check(rc == 0 and summary and summary[-1].startswith("SOAK PASS"), f"soak:\n{out[-3000:]}")
 
 
+# -- ENAS (the controller and its children on the card) ------------------------
+
+ENAS_YAML = os.path.join(HERE, "examples", "nas", "enas.yaml")
+# the children of the width phase: child_from_arc's default width on the
+# reference's synthetic CIFAR-10 split, batch 128, 3 epochs
+ENAS_CHILD = {"channels": "32", "n_train": "8192", "n_test": "2048", "batch_size": "128",
+              "num_epochs": "3"}
+# an 8-layer arc with every default op and a skip into every later layer
+ENAS_PARITY_ARC = [[0], [1, 1], [2, 0, 1], [3, 1, 0, 1], [4, 0, 1, 0, 1], [5, 1, 1, 0, 0, 1],
+                   [0, 0, 0, 1, 1, 0, 1], [2, 1, 0, 1, 0, 1, 0, 1]]
+
+
+def phase_enas_parity(torch) -> None:
+    """The controller's trace on a fixed arc and one REINFORCE step, and an
+    8-layer float32 child (every op, a skip into every later layer), forward
+    and gradient, on the card against the same weights on the CPU."""
+    from katib_tpu_torch.nas.enas.child import child_from_arc
+    from katib_tpu_torch.nas.enas.controller import (
+        ControllerConfig,
+        _trace,
+        arc_from_json,
+        make_reinforce,
+    )
+
+    cfg = ControllerConfig()
+    arc = arc_from_json(ENAS_PARITY_ARC, cfg.num_layers)
+    results = []
+    for dev in ("cpu", "cuda"):
+        init, train_step, _ = make_reinforce(cfg, dev)
+        state = init(torch.Generator().manual_seed(0))
+        dev_arc = type(arc)(*(t.to(dev) for t in arc))
+        _, stats = _trace(state.params, cfg, dev_arc)
+        new, metrics = train_step(state, dev_arc, 0.6)
+        results.append(({k: float(v) for k, v in stats.items()},
+                         {k: float(v) for k, v in metrics.items()},
+                         [p.cpu() for p in new.params]))
+    (s_cpu, m_cpu, p_cpu), (s_gpu, m_gpu, p_gpu) = results
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    stat_err = max(rel(s_gpu[k], s_cpu[k]) for k in s_cpu)
+    step_err = max(rel(m_gpu[k], m_cpu[k]) for k in m_cpu)
+    param_err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(p_gpu, p_cpu))
+    print(f"enas parity: controller (8 layers, 6 ops, hidden 64) trace on a fixed arc, card vs "
+          f"CPU: {s_gpu} vs {s_cpu}, max rel err {stat_err:.2e} (tolerance 1e-5); one REINFORCE "
+          f"step: loss and baseline max rel err {step_err:.2e} (1e-5), parameters max err "
+          f"{param_err:.2e} of each tensor's largest (1e-5)", flush=True)
+    check(stat_err <= 1e-5 and step_err <= 1e-5 and param_err <= 1e-5,
+          "the controller disagrees between card and CPU")
+
+    gen = torch.Generator().manual_seed(5)
+    net = child_from_arc(arc, channels=16, num_classes=10, dtype=torch.float32)
+    net.reset_parameters(gen)
+    x = torch.randn(8, 32, 32, 3, generator=gen)
+    cot = torch.randn(8, 10, generator=gen)
+    results = []
+    for dev in ("cpu", "cuda"):
+        w = {k: v.detach().to(dev).requires_grad_() for k, v in net.named_parameters()}
+        logits = torch.func.functional_call(net.to(dev), w, (x.to(dev),))
+        grads = torch.autograd.grad((logits * cot.to(dev)).sum(), list(w.values()))
+        results.append((logits.detach().cpu(), [g.cpu() for g in grads]))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = results
+    logit_err = float((l_gpu - l_cpu).abs().max() / l_cpu.abs().max())
+    grad_err = max(float((a - b).abs().max() / (b.abs().max() + 1e-12))
+                   for a, b in zip(g_gpu, g_cpu))
+    print(f"enas parity: 8-layer float32 child (16 channels, every op, a skip into every later "
+          f"layer, batch 8 of 32x32x3), card vs CPU: logits max err {logit_err:.2e} of the "
+          f"largest (tolerance 1e-4), gradients max err {grad_err:.2e} of each tensor's "
+          f"largest (1e-3)", flush=True)
+    check(logit_err <= 1e-4 and grad_err <= 1e-3, "the ENAS child disagrees between card and CPU")
+
+
+def enas_width_trial(ctx) -> None:
+    """``enas_trial`` at the width phase's child settings."""
+    from katib_tpu_torch.nas.enas.trial import enas_trial
+
+    for k, v in ENAS_CHILD.items():
+        ctx.params.setdefault(k, v)
+    enas_trial(ctx)
+
+
+def enas_spans(workdir: str, experiment: str) -> tuple[list, dict]:
+    """The run's ``enas.controller_train`` spans, and per trial its
+    ``enas.epoch`` spans and its graph capture seconds (the
+    ``classifier.epoch`` span on the trial's thread within its ``train_fn``
+    span)."""
+    with open(os.path.join(workdir, experiment, "trace.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    trains = [r for r in records if r["name"] == "enas.controller_train"]
+    fns = [r for r in records if r["name"] == "train_fn"]
+    children: dict = {r["args"]["trial"]: {"epochs": [], "capture_s": math.nan} for r in fns}
+    for r in records:
+        if r["name"] == "enas.epoch":
+            children[r["args"]["trial"]]["epochs"].append(r)
+        elif r["name"] == "classifier.epoch" and "graph_capture_s" in r["args"]:
+            (owner,) = [f["args"]["trial"] for f in fns if f["tid"] == r["tid"]
+                        and f["ts"] <= r["ts"] and r["ts"] + r["dur"] <= f["ts"] + f["dur"]]
+            children[owner]["capture_s"] = r["args"]["graph_capture_s"]
+    return trains, children
+
+
+def enas_rounds(what: str, exp_trials: dict, trains: list, rounds: int, per_round: int) -> None:
+    """Every trial succeeded, ``rounds`` rounds of ``per_round`` trials, and
+    one controller training between each round and the next: after the
+    round's last trial settled and before the next round's first started."""
+    by_round: dict = {}
+    for rec in exp_trials.values():
+        by_round.setdefault(rec["labels"].get("enas-round"), []).append(rec)
+    conditions = sorted({rec["condition"] for rec in exp_trials.values()})
+    table = {k: len(v) for k, v in sorted(by_round.items())}
+    print(f"{what}: {len(exp_trials)} trials {conditions}, per round {table}; controller "
+          f"trainings {[(r['args']['round'], round(r['dur'], 4)) for r in trains]} "
+          f"(round, seconds)", flush=True)
+    check(conditions == ["Succeeded"], f"{what}: trials ended {conditions}")
+    check(table == {str(r): per_round for r in range(rounds)}, f"{what}: rounds {table}")
+    check([r["args"]["round"] for r in trains] == list(range(rounds - 1)),
+          f"{what}: controller trainings {[r['args'] for r in trains]}")
+    for r in trains:
+        done = max(rec["completion_time"] for rec in by_round[str(r["args"]["round"])])
+        nxt = min(rec["start_time"] for rec in by_round[str(r["args"]["round"] + 1)])
+        check(done - 0.01 <= r["wall"] and r["wall"] + r["dur"] <= nxt + 0.01,
+              f"{what}: the controller trained outside its round's gap: {r}")
+
+
+def enas_child_loop(torch, rows: list, operations, channels: int, lr: float, batch: int):
+    """The width phase's child of ``rows`` in an :class:`EpochLoop` on the card,
+    as ``train_classifier`` builds it, its graph captured; returns the loop and
+    one epoch's permutation rows."""
+    import numpy as np
+
+    from katib_tpu_torch.models.data import load_cifar10
+    from katib_tpu_torch.models.mnist import EpochLoop, classifier_steps
+    from katib_tpu_torch.nas.enas.child import child_from_arc
+    from katib_tpu_torch.nas.enas.controller import arc_from_json
+
+    ds = load_cifar10(int(ENAS_CHILD["n_train"]), int(ENAS_CHILD["n_test"]))
+    model = child_from_arc(arc_from_json(rows, len(rows)), operations, channels=channels)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to("cuda")
+    step, _, state = classifier_steps(model, "momentum", lr, 0.9)
+    n = len(ds.x_train) // batch
+    loop = EpochLoop(step, state, torch.from_numpy(ds.x_train).cuda(),
+                     torch.from_numpy(ds.y_train).cuda(), n, batch)
+    idx = np.random.default_rng(0).permutation(len(ds.x_train))[: n * batch].reshape(n, batch)
+    loop.run_epoch(idx)
+    torch.cuda.synchronize()
+    return loop, idx
+
+
+def phase_enas_width(torch) -> None:
+    """ENAS through ``Orchestrator.run`` on ``cuda`` under the async engine
+    at the reference's widths: the controller at ``ControllerConfig()``'s
+    defaults (8 layers, the six default operations, hidden 64) with 50
+    REINFORCE steps a round, children of 32 channels on 8,192 synthetic
+    CIFAR-10 images (batch 128, 3 epochs), two rounds of 4 trials, 4 at a
+    time (``enas.yaml`` through the SDK entry with these settings); then a
+    REINFORCE step and one arc's sampling timed and profiled, and a child's
+    captured epoch profiled."""
+    import yaml
+
+    from katib_tpu_torch.nas.enas.child import DEFAULT_OPERATIONS
+    from katib_tpu_torch.nas.enas.controller import arc_to_json
+    from katib_tpu_torch.orchestrator import Orchestrator
+    from katib_tpu_torch.orchestrator import orchestrator as orch_mod
+    from katib_tpu_torch.orchestrator.fsck import fsck_experiment
+    from katib_tpu_torch.orchestrator.status import read_status
+    from katib_tpu_torch.profiling import profile_step
+    from katib_tpu_torch.sdk.yaml_spec import experiment_spec_from_dict
+    from katib_tpu_torch.store.base import MemoryObservationStore
+
+    sized = lambda name, sizes: {"operationType": name, "parameters": [{
+        "name": "filter_size", "parameterType": "categorical",
+        "feasibleSpace": {"list": sizes}}]}
+    operations = [sized("convolution", ["3", "5"]), sized("separable_convolution", ["3", "5"]),
+                  sized("avg_pooling", ["3"]), sized("max_pooling", ["3"])]
+    with open(ENAS_YAML) as f:
+        doc = yaml.safe_load(f)
+    doc["spec"]["algorithm"]["algorithmSettings"] = [
+        {"name": "controller_train_steps", "value": "50"}]
+    doc["spec"]["nasConfig"] = {"graphConfig": {"numLayers": 8}, "operations": operations}
+    doc["spec"]["maxTrialCount"] = 8
+    spec = experiment_spec_from_dict(doc)
+    spec.train_fn = enas_width_trial
+    made = []
+    make = orch_mod.make_suggester
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-enas-")
+    # the memory store: a child that diverges reports a NaN loss, which the
+    # sqlite store refuses (ROADMAP Queue 3, F3)
+    orch = Orchestrator(workdir=workdir, device="cuda", store=MemoryObservationStore())
+    torch.cuda.reset_peak_memory_stats()
+    orch_mod.make_suggester = lambda s, device=None: made.append(make(s, device=device)) or made[-1]
+    try:
+        t0 = time.perf_counter()
+        exp = orch.run(spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        orch_mod.make_suggester = make
+    peak = torch.cuda.max_memory_allocated()
+    (suggester,) = made
+    check(list(suggester.operations) == list(DEFAULT_OPERATIONS)
+          and suggester.cfg.hidden_size == 64 and suggester.train_steps == 50,
+          f"the width phase's controller {suggester.cfg}")
+    check(suggester.state.params.w_lstm.device.type == "cuda", "the controller ran on the card")
+    status = read_status(workdir, spec.name)
+    trains, children = enas_spans(workdir, spec.name)
+    print(f"enas width: 2 rounds of 4 children (8 layers, 6 ops, 32 channels, batch 128, "
+          f"8192 synthetic CIFAR-10 images, 3 epochs) under a controller of hidden 64 with 50 "
+          f"REINFORCE steps a round, through Orchestrator.run on cuda: experiment "
+          f"{exp.condition.value} in {wall:.3f}s; peak memory {peak / 2**30:.3f} GiB", flush=True)
+    print(f"enas width: spans {span_totals(workdir, spec.name)}", flush=True)
+    for name, rec in sorted(status["trials"].items(), key=lambda kv: kv[1]["start_time"]):
+        c = children[name]
+        eps = sorted(c["epochs"], key=lambda r: r["args"]["epoch"])
+        print(f"enas width: child {name} round {rec['labels']['enas-round']} "
+              f"{rec['assignments']['architecture']}: {rec['condition']}; capture "
+              f"{c['capture_s']:.3f}s; epoch seconds {[round(r['dur'], 4) for r in eps]} "
+              f"(the first includes the data's copy and the capture); images/s "
+              f"{[r['args']['images_per_s'] for r in eps]}; accuracy "
+              f"{[r['args']['accuracy'] for r in eps]}", flush=True)
+    failed = [n for n, rec in status["trials"].items() if rec["condition"] != "Succeeded"]
+    print(f"enas width: failed trials {[(n, status['trials'][n]['message']) for n in failed]}",
+          flush=True)
+    engine_stats("enas width", orch.async_stats)
+    enas_rounds("enas width", status["trials"], trains, 2, 4)
+    check(exp.condition.value in SUCCESS, f"experiment {exp.condition.value}: {exp.message}")
+    report = fsck_experiment(os.path.join(workdir, spec.name), repair=False)
+    check(report.ok(), f"fsck: {report.lines()}")
+
+    # the controller's round, piece by piece: one arc's sampling (with its
+    # transfer to the host) and one REINFORCE step (a fresh sample and a train step)
+    saved_state, saved_steps = suggester.state, suggester.train_steps
+    suggester.train_steps = 1
+
+    def sample_one():
+        arc, _ = suggester._sample(suggester.state.params, suggester._gen)
+        return arc_to_json(arc)
+
+    sample_one()
+    sample_s = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        sample_one()
+        sample_s.append(time.perf_counter() - t0)
+    print("enas width: profile of one REINFORCE step (a fresh sample and a train step):",
+          flush=True)
+    prof = profile_step(lambda: suggester.train_controller(0.5), steps=5, warmup=2, top=5,
+                        kernel_names=())
+    suggester.state, suggester.train_steps = saved_state, saved_steps
+    print(f"enas width: one arc sampled and sent to the host in {statistics.median(sample_s):.5f}s "
+          f"(median of 20); one REINFORCE step {prof.wall_s:.5f}s, {prof.host_ops:.0f} aten "
+          f"operator calls and {prof.kernels:.0f} kernels, device busy {prof.busy:.1%}; "
+          f"50 steps predicted {50 * prof.wall_s:.3f}s against the trainings' "
+          f"{[round(r['dur'], 4) for r in trains]}s", flush=True)
+
+    first, rec = min(status["trials"].items(), key=lambda kv: kv[1]["start_time"])
+    loop, idx = enas_child_loop(torch, json.loads(rec["assignments"]["architecture"]),
+                                DEFAULT_OPERATIONS, int(ENAS_CHILD["channels"]), 0.05,
+                                int(ENAS_CHILD["batch_size"]))
+    print(f"enas width: profile of child {first}'s captured epoch "
+          f"(capture {loop.capture_s:.3f}s):", flush=True)
+    prof = profile_step(lambda: loop.run_epoch(idx), steps=3, warmup=1, top=5, kernel_names=(),
+                        substeps=loop.steps)
+    print(f"enas width: captured child epoch {prof.wall_s:.4f}s = "
+          f"{loop.steps * int(ENAS_CHILD['batch_size']) / prof.wall_s:.0f} images/s, device "
+          f"busy {prof.busy:.1%}", flush=True)
+
+
+def phase_enas_cli() -> None:
+    """``python -m katib_tpu_torch run examples/nas/enas.yaml`` as shipped, in
+    a fresh interpreter on the async engine: exit 0, 12 trials ``Succeeded``
+    in rounds 0, 1 and 2 of 4, the controller trained between rounds, no
+    loop restart or fallback, ``fsck`` clean."""
+    from katib_tpu_torch.orchestrator.status import read_status
+
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-enas-cli-")
+    name, log = "enas-example", os.path.join(workdir, "run.log")
+    t0 = time.perf_counter()
+    rc, out = _wait(_cli("run", ENAS_YAML, "--workdir", workdir, log=log), log, 600)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"the ENAS run exited {rc}:\n{out[-3000:]}")
+    status = read_status(workdir, name)
+    trains, children = enas_spans(workdir, name)
+    optimal = status.get("optimal") or {}
+    captures = sorted(c["capture_s"] for c in children.values())
+    print(f"enas cli: run {os.path.relpath(ENAS_YAML, HERE)}: exit {rc} in {wall:.2f}s; "
+          f"experiment {status['condition']}; best accuracy (synthetic CIFAR-10) "
+          f"{optimal.get('objective_value')} by {optimal.get('trial_name')}", flush=True)
+    print(f"enas cli: spans {span_totals(workdir, name)}", flush=True)
+    print(f"enas cli: graph capture seconds per child min {captures[0]:.3f} median "
+          f"{statistics.median(captures):.3f} max {captures[-1]:.3f}", flush=True)
+    cli_engine("enas cli", out)
+    enas_rounds("enas cli", status["trials"], trains, 3, 4)
+    rc, out = _wait(_cli("fsck", os.path.join(workdir, name), log=log), log, 120)
+    print(f"enas cli: fsck exit {rc}: {out.strip().splitlines()[-1]}", flush=True)
+    check(rc == 0 and "result: consistent" in out, f"fsck:\n{out}")
+
+
+def phase_enas_sharing(torch) -> None:
+    """Two children of one arc with ``weight_sharing`` in one experiment
+    directory, on the card: the first publishes the pool, the second
+    overlays every one of its parameters from it."""
+    from katib_tpu_torch.nas.enas import shared
+    from katib_tpu_torch.nas.enas.trial import enas_trial
+    from katib_tpu_torch.runner.context import TrialContext
+    from katib_tpu_torch.utils.checkpoint import TrialCheckpointer
+
+    exp_dir = tempfile.mkdtemp(prefix="chip-smoke-enas-shared-")
+    overlays = []
+    overlay = shared.overlay_matching
+
+    def spy(params, pool):
+        merged, n = overlay(params, pool)
+        overlays.append((n, len(params)))
+        return merged, n
+
+    params = {"architecture": json.dumps(ENAS_PARITY_ARC[:4]),
+              "nn_config": json.dumps({"num_layers": 4}), **ENAS_CHILD, "num_epochs": "2",
+              "weight_sharing": "true"}
+    what = f"{params['channels']} channels, {params['num_epochs']} epochs"
+    runs = []
+    shared.overlay_matching = spy
+    try:
+        for trial in ("t1", "t2"):
+            ctx = TrialContext(params, checkpoint_dir=os.path.join(exp_dir, trial), device="cuda")
+            enas_trial(ctx)
+            runs.append([round(m["accuracy"], 4) for _, m in ctx.reports])
+    finally:
+        shared.overlay_matching = overlay
+    pool = TrialCheckpointer(os.path.join(exp_dir, "enas-shared")).all_steps()
+    print(f"enas sharing: two children of {params['architecture']} ({what}) "
+          f"with weight_sharing in one experiment dir: pool versions {pool}; the second "
+          f"overlaid {overlays} (inherited, of) parameters; accuracy per epoch {runs[0]} then "
+          f"{runs[1]} (epoch 0: {runs[0][0]} cold, {runs[1][0]} from the pool)", flush=True)
+    check(pool == [1, 2], f"pool versions {pool}, not [1, 2]")
+    check(len(overlays) == 1 and overlays[0][0] == overlays[0][1] > 0,
+          f"the second child inherited {overlays}, not every parameter")
+
+
 def main() -> int:
     import torch
 
@@ -1373,6 +1720,10 @@ def main() -> int:
     phase_asha(torch)
     phase_async(torch)
     phase_chaos()
+    phase_enas_parity(torch)
+    phase_enas_width(torch)
+    phase_enas_cli()
+    phase_enas_sharing(torch)
 
     kernels = [{
         "name": "mixed_op_sum",

@@ -26,6 +26,12 @@ layouts instead: a Dense kernel ``(in, out)`` becomes a Linear weight
 ``[out, in]`` and a Conv kernel ``HWIO`` an ``OIHW`` weight.  ``SmallCNN``
 flattens its last feature map in NHWC order, as flax does, so its first
 Dense needs no permutation of rows.
+
+The ENAS child (:func:`enas_state_dict_from_flax`) keeps PyTorch's layout
+for its ``nn.Conv`` and ``nn.Dense`` layers, as the HP-tuning models do, and
+the flax layout for ``DepthwiseConv``; its op modules carry flax's names
+(``op{i}_{name}``).  The ENAS controller's weights carry over as they are
+(:func:`enas_controller_from_jax`).
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ import torch
 from torch import nn
 
 from katib_tpu_torch.models.mnist import Conv3x3, Linear
+from katib_tpu_torch.nas.enas.child import ConvBias, EnasChild
+from katib_tpu_torch.nas.enas.controller import ControllerParams
 from katib_tpu_torch.nas.darts.model import Alphas, Cell
 from katib_tpu_torch.nas.darts.ops import EdgeGroup
 
@@ -172,6 +180,40 @@ def mnist_state_dict_from_flax(tree: Any, model: nn.Module) -> dict[str, torch.T
             # (in, out) -> [out, in]; HWIO -> OIHW
             layout[f"{name}.weight"] = (1, 0) if cls == "Dense" else (3, 2, 0, 1)
     return _from_flax(params, mapping, model, layout)
+
+
+def enas_state_dict_from_flax(tree: Any, model: EnasChild) -> dict[str, torch.Tensor]:
+    """The port's state dict for an :class:`EnasChild` from the flax tree of
+    the JAX ``EnasChild`` of the same arc: the stem ``Conv_0``, each
+    ``op{i}_{name}/{Conv_0,DepthwiseConv_0}`` and ``Dense_0``, conv kernels
+    ``HWIO`` to ``OIHW`` and the Dense kernel ``(in, out)`` to ``[out, in]``.
+
+    ``tree`` is the flax variables (``{"params": ...}``) or the params alone.
+    Raises if a parameter is missing, left over, or of another shape."""
+    params = tree["params"] if "params" in tree else tree
+    mapping, layout = {}, {}
+    for name, child in model.named_modules():
+        if isinstance(child, (ConvBias, Linear)):
+            parts = name.split(".")
+            if isinstance(child, Linear):
+                path, order = ("Dense_0",), (1, 0)
+            elif parts == ["stem"]:
+                path, order = ("Conv_0",), (3, 2, 0, 1)
+            else:
+                path, order = (parts[0], "Conv_0"), (3, 2, 0, 1)
+            mapping[f"{name}.weight"] = (path + ("kernel",), None)
+            mapping[f"{name}.bias"] = (path + ("bias",), None)
+            layout[f"{name}.weight"] = order
+        elif name.endswith(".depthwise"):
+            mapping[f"{name}.kernel"] = ((name.split(".")[0], "DepthwiseConv_0", "kernel"), None)
+    return _from_flax(params, mapping, model, layout)
+
+
+def enas_controller_from_jax(params: Any) -> ControllerParams:
+    """The port's :class:`ControllerParams` (CPU, float32) from the JAX
+    package's (numpy-convertible), field by field."""
+    return ControllerParams(*(torch.from_numpy(np.array(getattr(params, f), dtype=np.float32))
+                              for f in ControllerParams._fields))
 
 
 def _leaf_paths(tree: dict, path: tuple = ()) -> Iterator[tuple]:

@@ -402,12 +402,12 @@ class EpochLoop:
                 self._step(self.bufs)
 
 
-def classifier_steps(model: nn.Module, optimizer: str, lr: float,
-                     momentum: float) -> tuple[Callable, Callable, TrainState]:
+def classifier_steps(model: nn.Module, optimizer: str, lr: float, momentum: float,
+                     params: dict | None = None) -> tuple[Callable, Callable, TrainState]:
     """:func:`train_classifier`'s train step (softmax cross-entropy, the
     ``optimizer`` family), its evaluation (``{"accuracy"}``) and its initial
-    state: the model's parameters and the family's state with ``lr`` and
-    ``momentum`` written in."""
+    state: ``params`` (the model's own parameters by default) and the
+    family's state with ``lr`` and ``momentum`` written in."""
     tx = _family_optimizer(optimizer)
 
     def loss_fn(params, batch):
@@ -418,7 +418,7 @@ def classifier_steps(model: nn.Module, optimizer: str, lr: float,
         return {"accuracy": accuracy(torch.func.functional_call(model, params, (batch[0],)),
                                      batch[1])}
 
-    state = TrainState.create(dict(model.named_parameters()), tx)
+    state = TrainState.create(dict(model.named_parameters()) if params is None else params, tx)
     state = state._replace(opt_state=_set_hyperparams(state.opt_state, lr, momentum))
     return make_train_step(loss_fn, tx), make_eval_step(metric_fn), state
 
@@ -456,15 +456,23 @@ def train_classifier(
     host from the same permutation, copied over and stepped eagerly, so
     both give the same batches.  Each epoch records a ``classifier.epoch``
     span; the capturing epoch's carries ``graph_capture_s``.  ``device``:
-    ``cuda`` unless the caller names another.  ``mesh``, ``init_transform``
-    and ``on_finish`` raise ``NotImplementedError``."""
-    for name, value in (("mesh", mesh), ("init_transform", init_transform),
-                        ("on_finish", on_finish)):
-        if value is not None:
-            raise NotImplementedError(f"train_classifier's {name} is not ported yet")
+    ``cuda`` unless the caller names another.
+
+    ``init_transform(params) -> params`` maps the freshly initialised
+    ``{name: tensor}`` parameters before the optimizer state and the epoch
+    loop are built (ENAS weight sharing overlays its pool there; the result
+    is moved to the device); ``on_finish(params)`` receives the final
+    parameters as host copies after the last epoch, also when ``report``
+    stopped the run.  ``mesh`` raises ``NotImplementedError``."""
+    if mesh is not None:
+        raise NotImplementedError("train_classifier's mesh is not ported yet")
     dev = resolve_device(device)
     model.to(dev)
-    step, evaluate, state = classifier_steps(model, optimizer, lr, momentum)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    if init_transform is not None:
+        # warm starts (e.g. ENAS weight sharing overlays the shared pool)
+        params = {k: v.to(dev) for k, v in init_transform(params).items()}
+    step, evaluate, state = classifier_steps(model, optimizer, lr, momentum, params)
     if device_data is None:
         env = os.environ.get("KATIB_DEVICE_DATA")
         device_data = mesh is None if env is None else parse_bool(env)
@@ -508,6 +516,9 @@ def train_classifier(
         if report is not None and report(epoch=epoch, accuracy=test_acc,
                                          loss=train_loss / max(n, 1)) is False:
             break
+    if on_finish is not None:
+        # copies: on the card the state lives in the epoch loop's fixed tensors
+        on_finish({k: v.detach().to("cpu", copy=True) for k, v in state.params.items()})
     return test_acc
 
 

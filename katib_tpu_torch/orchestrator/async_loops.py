@@ -529,15 +529,17 @@ class AsyncLoops:
                 # (and beats) before the supervisor classifies the loop
                 # stalled — abandonment is the cheap recovery, a restart
                 # is the expensive one
-                proposals, outcome = call_suggester(
-                    self.suggester,
-                    exp,
-                    want,
-                    self.breaker,
-                    orch.fault_injector,
-                    deadline=0.5 * spec.loop_stall_deadline_seconds,
-                    events=(self._halt,),
-                )
+                # the experiment's tracer, for the spans the suggester records
+                with tracing.use_tracer(orch._tracer):
+                    proposals, outcome = call_suggester(
+                        self.suggester,
+                        exp,
+                        want,
+                        self.breaker,
+                        orch.fault_injector,
+                        deadline=0.5 * spec.loop_stall_deadline_seconds,
+                        events=(self._halt,),
+                    )
             finally:
                 self._suggest_inflight = False
             if not self._current("suggest", gen):

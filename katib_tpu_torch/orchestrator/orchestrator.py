@@ -238,7 +238,8 @@ class Orchestrator:
                 exp.condition = ExperimentCondition.RESTARTING
                 exp.completion_time = 0.0
 
-        suggester = (self._suggester_fn or make_suggester)(spec)
+        suggester = (self._suggester_fn(spec) if self._suggester_fn is not None
+                     else make_suggester(spec, device=self.device))
         # restore durable suggester state (ENAS controller pytree, PBT job
         # queue) — the FromVolume PVC analog, FENCED against the experiment
         # journal: a pickle written before settlements the journal proves

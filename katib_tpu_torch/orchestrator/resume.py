@@ -45,6 +45,32 @@ from katib_tpu_torch.core.types import (
 
 SUGGESTER_STATE_FILE = "suggester_state.pkl"
 
+# a pickle naming a class of these packages was written by the JAX package
+# (its ENAS controller state holds JAX and optax classes): unpickling it as
+# it is would import JAX into the port
+_FOREIGN_PACKAGES = ("jax", "jaxlib", "flax", "optax", "orbax", "katib_tpu")
+
+
+class _Foreign:
+    """What a JAX package's class unpickles to: it takes any arguments and
+    state and keeps none, so the rest of the pickle (the fence) still reads
+    and no suggester's ``load_state_dict`` accepts it."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        pass
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """``pickle.Unpickler`` that imports nothing of the JAX package."""
+
+    def find_class(self, module: str, name: str):
+        if module.split(".")[0] in _FOREIGN_PACKAGES:
+            return _Foreign
+        return super().find_class(module, name)
+
 
 def _coerce_assignments(spec: ExperimentSpec, raw: dict) -> list[ParameterAssignment]:
     """Journal values are JSON scalars; cast back through the parameter spec
@@ -247,7 +273,7 @@ def read_suggester_fence(workdir: str, experiment_name: str) -> int | None:
     path = suggester_state_path(workdir, experiment_name)
     try:
         with open(path, "rb") as f:
-            state = pickle.load(f)
+            state = _PortUnpickler(f).load()
     except Exception:
         return None
     if isinstance(state, dict) and state.get(_FENCE_MARKER):
@@ -275,7 +301,7 @@ def load_suggester_state(
     path = suggester_state_path(workdir, experiment_name)
     try:
         with open(path, "rb") as f:
-            state = pickle.load(f)
+            state = _PortUnpickler(f).load()
         fenced = isinstance(state, dict) and state.get(_FENCE_MARKER)
         fence = state.get("fence") if fenced else None
         # a journal that proves settlements fences out any pickle that

@@ -22,6 +22,8 @@ class StepProfile(NamedTuple):
 
     wall_s: float  # the median untraced call's wall seconds
     busy: float  # CUDA kernel time per call under the profiler / wall_s
+    kernels: float  # CUDA kernels per call
+    host_ops: float  # aten operator calls per call (nested calls included)
 
 
 def profile_step(
@@ -96,4 +98,4 @@ def profile_step(
     for e in sorted(host_ops, key=lambda e: -e.self_cpu_time_total)[:top]:
         print(f"  {e.self_cpu_time_total / steps / 1e3:9.3f} ms "
               f"{e.count / steps:7.0f}x  {e.key}")
-    return StepProfile(wall_s, device_us / 1e6 / wall_s)
+    return StepProfile(wall_s, device_us / 1e6 / wall_s, n_kernels, n_host_ops)

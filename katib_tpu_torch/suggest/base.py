@@ -140,9 +140,15 @@ def _call_suggester_deadline(
     breaker failure with a "deadline" diagnosis."""
     import traceback as _traceback
 
+    from katib_tpu_torch.utils import tracing
+
     box: dict = {}
+    # the caller's ambient tracer (thread-local) goes with the call, so the
+    # spans a suggester records (enas.controller_train) reach the journal
+    tracer = tracing.current_tracer()
 
     def _worker():
+        tracing.activate(tracer)
         try:
             if injector is not None:
                 injector.on_suggester_call(events=events)
@@ -198,6 +204,10 @@ class Suggester(abc.ABC):
     #: budget on uninformed proposals (e.g. rung-0 randoms that crowd out
     #: promotions).  Conservative default: adaptive.
     adaptive: bool = True
+
+    #: whether the suggester computes on a device: ``make_suggester`` then
+    #: hands it the orchestrator's (``__init__(spec, device=...)``)
+    takes_device: bool = False
 
     def __init__(self, spec: ExperimentSpec):
         self.spec = spec
@@ -347,11 +357,14 @@ def _resolve(name: str) -> Type[Suggester]:
     return _REGISTRY[name]
 
 
-def make_suggester(spec: ExperimentSpec) -> Suggester:
+def make_suggester(spec: ExperimentSpec, device=None) -> Suggester:
     """Instantiate the registered suggester for an experiment spec — the
     analog of the composer resolving the algorithm image from KatibConfig
-    (``composer.go:72``)."""
-    return _resolve(spec.algorithm.name)(spec)
+    (``composer.go:72``).  A suggester that computes on a device
+    (``takes_device``) runs on ``device``, which it resolves (``None`` =
+    ``cuda``); the others take none."""
+    cls = _resolve(spec.algorithm.name)
+    return cls(spec, device=device) if cls.takes_device else cls(spec)
 
 
 def validate_spec(spec: ExperimentSpec) -> None:

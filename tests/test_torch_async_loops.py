@@ -13,6 +13,7 @@ produce bit-identical (params, objective) multisets.  Cohort packing
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -441,6 +442,107 @@ def test_every_algorithm_runs_under_the_engine(algorithm, tmp_path):
     ), exp.message
     assert all(t.condition is TrialCondition.SUCCEEDED for t in exp.trials.values())
     assert orch.async_stats["trials_settled"] == len(exp.trials)
+
+
+def arc_trainer(ctx):
+    """A stub ENAS child: its accuracy is a fixed function of the arc (the
+    share of layers that chose op 1), the same in both packages."""
+    rows = json.loads(ctx.params["architecture"])
+    ctx.report(step=0, accuracy=sum(r[0] == 1 for r in rows) / len(rows))
+
+
+def enas_spec(types):
+    """A tiny ENAS experiment of either package: 3 layers, 3 ops, hidden 16,
+    3 REINFORCE steps a round, 12 trials 4 at a time."""
+    t = types
+    return t.ExperimentSpec(
+        name="enas-x",
+        objective=t.ObjectiveSpec(type=t.ObjectiveType.MAXIMIZE,
+                                  objective_metric_name="accuracy"),
+        algorithm=t.AlgorithmSpec(name="enas", settings={
+            "controller_hidden_size": "16", "controller_train_steps": "3"}),
+        nas_config=t.NasConfig(
+            graph_config=t.GraphConfig(num_layers=3),
+            operations=(
+                t.NasOperation("convolution", parameters=(t.ParameterSpec(
+                    "filter_size", t.ParameterType.CATEGORICAL,
+                    t.FeasibleSpace(list=("3", "5"))),)),
+                t.NasOperation("max_pooling"),
+            ),
+        ),
+        train_fn=arc_trainer,
+        parallel_trial_count=4,
+        max_trial_count=12,
+    )
+
+
+def test_enas_rounds_match_the_jax_engine(tmp_path, monkeypatch):
+    """The same tiny ENAS spec and stub child through both packages'
+    engines: 3 rounds of 4 trials with the same ``enas-round`` labels, and
+    one controller training (its REINFORCE steps) per round that a later
+    round followed; the port's span journal holds each training."""
+    from katib_tpu.core import types as jt
+    from katib_tpu.orchestrator.orchestrator import Orchestrator as JOrchestrator
+    from katib_tpu.suggest.base import make_suggester as j_make_suggester
+    from katib_tpu_torch.core import types as tt
+
+    monkeypatch.delenv("KATIB_ASYNC_ORCH", raising=False)
+    runs = {}
+    for label, types, make, make_suggester_fn in (
+        ("jax", jt, JOrchestrator, j_make_suggester),
+        ("torch", tt, Orchestrator, lambda spec: make_suggester(spec, device="cpu")),
+    ):
+        made, steps = [], []
+
+        def build(spec, make_suggester_fn=make_suggester_fn, made=made, steps=steps):
+            s = make_suggester_fn(spec)
+            inner = s._train_step
+            s._train_step = lambda *a: steps.append(s.round) or inner(*a)
+            made.append(s)
+            return s
+
+        workdir = str(tmp_path / label)
+        orch = make(workdir=workdir, suggester_fn=build)
+        exp = orch.run(enas_spec(types))
+        assert orch.async_stats is not None and orch.async_stats["fallback"] is None
+        assert exp.condition.value == "MaxTrialsReached", exp.message
+        assert all(t.condition.value == "Succeeded" for t in exp.trials.values())
+        (suggester,) = made
+        labels = sorted(t.labels["enas-round"] for t in exp.trials.values())
+        runs[label] = (labels, sorted(suggester._trained_rounds), steps)
+        if label == "torch":
+            with open(os.path.join(workdir, "enas-x", "trace.jsonl")) as f:
+                spans = [json.loads(line) for line in f]
+            trains = [r["args"]["round"] for r in spans if r["name"] == "enas.controller_train"]
+            assert trains == [0, 1]
+    assert runs["torch"] == runs["jax"]
+    # steps: the suggester's next round when each REINFORCE step ran, 3 a training
+    assert runs["torch"] == (["0"] * 4 + ["1"] * 4 + ["2"] * 4, [0, 1], [1] * 3 + [2] * 3)
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device; the test skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the controller runs on the orchestrator's device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_the_orchestrator_puts_the_enas_controller_on_the_card(cuda_device, tmp_path,
+                                                               monkeypatch):
+    from katib_tpu_torch.core import types as tt
+    from katib_tpu_torch.orchestrator import orchestrator as orch_mod
+
+    made = []
+    orig = orch_mod.make_suggester
+    monkeypatch.setattr(orch_mod, "make_suggester",
+                        lambda spec, device=None: made.append(orig(spec, device=device))
+                        or made[-1])
+    exp = _Orchestrator(workdir=str(tmp_path)).run(enas_spec(tt))
+    assert exp.condition.value == "MaxTrialsReached", exp.message
+    assert made[0].device.type == "cuda"
+    assert all(p.device.type == "cuda" for p in made[0].state.params)
 
 
 # ---------------------------------------------------------------------------

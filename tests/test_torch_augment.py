@@ -114,9 +114,33 @@ def test_momentum_optimizer_matches_optax():
     ({"on_finish": lambda p: None}, "on_finish"),
 ])
 def test_unported_trainer_options_raise(jax_net, kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        train_classifier(_port_net(jax_net[1]), _dataset(tdata), lr=0.1, epochs=1, batch_size=4,
-                         device="cpu", **kwargs)
+    """``mesh`` is not ported and raises.  ``init_transform`` and
+    ``on_finish`` raised until ENAS weight sharing needed them; their cases
+    now check them as the JAX trainer runs them: a transform that loads the
+    converted weights into a fresh network trains as the converted network
+    does, and ``on_finish`` gets host copies of the final parameters once,
+    also when ``report`` stops the run after epoch 0."""
+    run = lambda net, **kw: train_classifier(net, _dataset(tdata), lr=0.1, epochs=2,
+                                             batch_size=4, device="cpu", seed=3, **kw)
+    if match == "mesh":
+        with pytest.raises(NotImplementedError, match=match):
+            run(_port_net(jax_net[1]), **kwargs)
+        return
+    want = []
+    want_acc = run(_port_net(jax_net[1]), report=lambda **kw: want.append(kw) or True)
+    fresh = GenotypeNetwork(Genotype(NORMAL, REDUCE), **NET, dtype=torch.float32)
+    if match == "init_transform":
+        got = []
+        acc = run(fresh, report=lambda **kw: got.append(kw) or True,
+                  init_transform=lambda p: state_dict_from_flax(jax_net[1], fresh))
+        assert got == want and acc == want_acc
+        return
+    finished = []
+    acc = run(_port_net(jax_net[1]), report=lambda **kw: False, on_finish=finished.append)
+    assert acc == want[0]["accuracy"] and len(finished) == 1
+    (final,) = finished
+    assert set(final) == set(dict(fresh.named_parameters()))
+    assert all(t.device.type == "cpu" and t.dtype == torch.float32 for t in final.values())
 
 
 def test_train_genotype_trains_and_reports():

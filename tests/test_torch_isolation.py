@@ -57,9 +57,10 @@ def test_banned_check_compares_module_names_exactly():
 def test_port_imports_and_steps_with_jax_and_katib_tpu_blocked():
     """Every module imports, and one DARTS search step, a short transformer
     trial, the shipped DARTS spec through the port's loader and orchestrator
-    under the async engine (one tiny epoch), one ``mnist_trial`` epoch and
-    one round of the Hyperband sweep's suggestions run, with JAX and the JAX
-    package unimportable."""
+    under the async engine (one tiny epoch), one ``mnist_trial`` epoch, one
+    round of the Hyperband sweep's suggestions, and one round of the shipped
+    ENAS spec's suggestions with one tiny child epoch run, with JAX and the
+    JAX package unimportable."""
     script = textwrap.dedent(f"""
         import sys
         for name in {BANNED!r}:
@@ -128,6 +129,16 @@ def test_port_imports_and_steps_with_jax_and_katib_tpu_blocked():
         assert spec.train_fn is mnist_trial
         props = make_suggester(spec).get_suggestions(Experiment(spec=spec), 16)
         assert len(props) == 16 and {{p.labels["hyperband-s"] for p in props}} == {{"2"}}
+        # the shipped ENAS spec: one round of its suggester, one tiny child epoch
+        from katib_tpu_torch.nas.enas.trial import enas_trial
+        spec = load_experiment_yaml("examples/nas/enas.yaml")
+        assert spec.train_fn is enas_trial
+        props = make_suggester(spec, device="cpu").get_suggestions(Experiment(spec=spec), 4)
+        assert [p.labels["enas-round"] for p in props] == ["0"] * 4
+        ctx = TrialContext(dict(props[0].as_dict(), n_train="32", n_test="8", channels="2",
+                                num_epochs="1", batch_size="16"), device="cpu")
+        enas_trial(ctx)
+        assert [s for s, _ in ctx.reports] == [0], ctx.reports
         leaked = sorted(n for n in sys.modules if n.split(".")[0] in {BANNED!r} and sys.modules[n])
         assert not leaked, leaked
         print("ok")

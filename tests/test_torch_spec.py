@@ -50,7 +50,6 @@ EXAMPLES = sorted(
 UNPORTED_TRAIN_FNS = {
     "katib_tpu.models.pbt_digits.pbt_digits_trial",
     "katib_tpu.models.pbt_toy.pbt_toy_trial",
-    "katib_tpu.nas.enas.trial.enas_trial",
 }
 
 
@@ -92,6 +91,17 @@ def test_every_example_loads_as_in_the_jax_package(path):
     validate_experiment(got)
     if fn_path is not None:
         assert got.train_fn.__module__.startswith("katib_tpu_torch.")
+
+
+def test_enas_spec_resolves_to_the_ports_enas_trial():
+    from katib_tpu_torch.nas.enas.trial import enas_trial
+
+    spec = load_experiment_yaml(os.path.join(REPO, "examples", "nas", "enas.yaml"))
+    assert spec.train_fn is enas_trial
+    assert f"{enas_trial.__module__}.{enas_trial.__qualname__}" == (
+        "katib_tpu_torch.nas.enas.trial.enas_trial")
+    assert spec.algorithm.name == "enas" and spec.max_trial_count == 12
+    assert spec.parallel_trial_count == 4
 
 
 def test_train_fn_paths_map_into_the_port_and_leave_others_alone():
@@ -194,7 +204,7 @@ def test_config_refuses_mesh_axes():
 
 
 def test_registry_holds_the_ported_suggesters():
-    assert registered_algorithms() == ["asha", "darts", "grid", "hyperband",
+    assert registered_algorithms() == ["asha", "darts", "enas", "grid", "hyperband",
                                        "multivariate-tpe", "random", "tpe"]
 
 
