@@ -51,20 +51,30 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    the async engine and with ``KATIB_ASYNC_ORCH=0`` (the synchronous loop),
    once each, and check each run's experiment, rungs, each trial's
    reported epochs and ``fsck``;
-12. an ASHA sweep of ``mnist_trial`` (24 trials, 4 at a time) built from
+12. ``blackbox:`` ``python -m katib_tpu_torch run
+   examples/hp-tuning/hyperband.yaml`` as shipped, in a fresh interpreter,
+   on ``cuda`` with the preflight: 32 black-box ``python -c`` trials, 16 at
+   a time, under the async engine; the experiment, the rung table, one
+   ``subprocess`` span per trial and ``fsck``, beside the white-box sweep's
+   wall;
+13. ``pbt:`` ``examples/hp-tuning/simple-pbt.yaml`` as shipped (15 trials of
+   ``pbt_toy_trial``, population 5) through ``Orchestrator.run`` on
+   ``cuda``: every trial succeeds, the generations rise, and a trial
+   resumes its parent's checkpoint at the next step;
+14. an ASHA sweep of ``mnist_trial`` (24 trials, 4 at a time) built from
    the Hyperband spec through the port's loader, on the async engine:
    every trial succeeds and promotions raise the epochs at the same lr;
-13. an 8-point ``grid`` over ``mnist_trial`` (MLP, one epoch, sgd, 4 trials
+15. an 8-point ``grid`` over ``mnist_trial`` (MLP, one epoch, sgd, 4 trials
    at a time) through ``Orchestrator.run`` on ``cuda`` with the synchronous
    loop and with the async engine, in turns, 3 runs each: every outcome set
    is bit-equal to the first;
-14. ``python -m katib_tpu_torch chaos --soak 30 --seed 1 --trials 10``, the
+16. ``python -m katib_tpu_torch chaos --soak 30 --seed 1 --trials 10``, the
    seeded chaos soak of the async engine (on the CPU: its trainer sleeps);
-15. ``enas parity:`` the ENAS controller's trace on a fixed arc and one
+17. ``enas parity:`` the ENAS controller's trace on a fixed arc and one
    REINFORCE step, and an 8-layer float32 child with every op and a skip
    into every later layer (forward and gradient), on the card against the
    CPU;
-16. ``enas width:`` ENAS through ``Orchestrator.run`` on ``cuda`` under the
+18. ``enas width:`` ENAS through ``Orchestrator.run`` on ``cuda`` under the
    async engine at the reference's widths (the controller at
    ``ControllerConfig()``'s defaults with 50 REINFORCE steps a round;
    children of 32 channels on 8,192 synthetic CIFAR-10 images, batch 128,
@@ -72,10 +82,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    epochs, images/s and accuracy, the controller's trainings, one REINFORCE
    step and one arc's sampling timed and profiled, a child's captured epoch
    profiled, peak memory;
-17. ``enas cli:`` ``python -m katib_tpu_torch run examples/nas/enas.yaml`` as
+19. ``enas cli:`` ``python -m katib_tpu_torch run examples/nas/enas.yaml`` as
    shipped: 12 trials ``Succeeded`` in rounds 0, 1 and 2 of 4, the
    controller trained between rounds, ``fsck`` clean;
-18. ``enas sharing:`` two children of one arc with ``weight_sharing`` in one
+20. ``enas sharing:`` two children of one arc with ``weight_sharing`` in one
    experiment directory: the pool published, every parameter of the second
    child overlaid from it.
 
@@ -1179,16 +1189,144 @@ def hyperband_run(engine: bool) -> tuple[float, dict]:
     return wall, table
 
 
-def phase_hyperband() -> None:
+def phase_hyperband() -> float:
     """The Hyperband sweep on the async engine and then on the synchronous
     loop, in one process tree on one card: the walls side by side, and the
-    same rung table from both runs."""
+    same rung table from both runs.  Returns the engine run's wall."""
     wall_engine, table_engine = hyperband_run(True)
     wall_sync, table_sync = hyperband_run(False)
     print(f"hyperband: async engine {wall_engine:.2f}s = {32 / wall_engine * 3600:.0f} "
           f"trials/hour; synchronous loop {wall_sync:.2f}s = {32 / wall_sync * 3600:.0f} "
           f"trials/hour; engine/sync wall {wall_engine / wall_sync:.3f}", flush=True)
     check(table_engine == table_sync, f"rung tables differ: {table_engine} {table_sync}")
+    return wall_engine
+
+
+# -- black-box command: trials and the host PBT suggester ---------------------
+
+BLACKBOX_YAML = os.path.join(HERE, "examples", "hp-tuning", "hyperband.yaml")
+
+
+def spans_named(workdir: str, experiment: str, name: str) -> list[float]:
+    """The durations of an experiment's spans called ``name``."""
+    with open(os.path.join(workdir, experiment, "trace.jsonl")) as f:
+        return [rec["dur"] for rec in map(json.loads, f) if rec["name"] == name]
+
+
+def phase_blackbox(whitebox_wall: float) -> None:
+    """``python -m katib_tpu_torch run examples/hp-tuning/hyperband.yaml`` as
+    shipped, in a fresh interpreter, on ``cuda`` with the preflight: 32
+    ``python -c`` trials, 16 at a time, each a subprocess whose stdout the
+    runner scrapes; the command twin of the white-box ``hyperband:`` sweep.
+    The argv runs as the spec writes it: where no ``python`` is on the
+    PATH, the child's PATH gets a directory holding a ``python`` link to
+    this interpreter first."""
+    import shutil
+
+    from katib_tpu_torch.orchestrator.status import read_status
+
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-blackbox-")
+    env = {"KATIB_ASYNC_ORCH": "1"}
+    if shutil.which("python") is None:
+        bindir = os.path.join(workdir, "bin")
+        os.makedirs(bindir)
+        os.symlink(sys.executable, os.path.join(bindir, "python"))
+        env["PATH"] = bindir + os.pathsep + os.environ.get("PATH", "")
+        print(f"blackbox: no python on the PATH; the child's PATH starts with {bindir}, "
+              f"holding python -> {sys.executable}", flush=True)
+    name, log = "hyperband-example", os.path.join(workdir, "run.log")
+    t0 = time.perf_counter()
+    rc, out = _wait(_cli("run", BLACKBOX_YAML, "--workdir", workdir, log=log, env=env), log, 300)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"the black-box Hyperband run exited {rc}:\n{out[-3000:]}")
+    status = read_status(workdir, name)
+    trials = status["trials"]
+    rungs: dict = {}
+    for rec in trials.values():
+        key = (rec["labels"].get("hyperband-s"), rec["labels"].get("hyperband-i"))
+        rungs.setdefault(key, []).append(int(rec["assignments"]["epochs"]))
+    table = {k: (len(v), sorted(set(v))) for k, v in sorted(rungs.items(), reverse=True)}
+    conditions = sorted({rec["condition"] for rec in trials.values()})
+    sub = sorted(spans_named(workdir, name, "subprocess"))
+    preflight = spans_named(workdir, name, "preflight")
+    lines = [ln for ln in out.splitlines() if ln.startswith("async engine: ")]
+    occupancy = json.loads(lines[0][len("async engine: "):])["sustained_occupancy"] \
+        if len(lines) == 1 else math.nan
+    optimal = status.get("optimal") or {}
+    print(f"blackbox: run {os.path.relpath(BLACKBOX_YAML, HERE)} on cuda with the preflight: "
+          f"exit {rc} in {wall:.2f}s = {len(trials) / wall * 3600:.0f} trials/hour; experiment "
+          f"{status['condition']}; {len(trials)} trials {conditions}; white-box sweep on the "
+          f"engine in this run {whitebox_wall:.2f}s", flush=True)
+    print(f"blackbox: preflight {sum(preflight):.3f}s ({len(preflight)} span); subprocess spans "
+          f"{len(sub)}, sum {sum(sub):.3f}s, median {statistics.median(sub) if sub else math.nan:.4f}s, "
+          f"max {max(sub, default=math.nan):.4f}s; sustained occupancy {occupancy}", flush=True)
+    print(f"blackbox: rungs (s, i) -> (trials, epochs) {table}; best accuracy "
+          f"{optimal.get('objective_value')} by {optimal.get('assignments')}", flush=True)
+    print(f"blackbox: run spans {span_totals(workdir, name)}", flush=True)
+    cli_engine("blackbox", out)
+    check(status["condition"] == "MaxTrialsReached", f"experiment {status['condition']}")
+    check(len(trials) == 32 and conditions == ["Succeeded"], f"trials {conditions}")
+    check(len(sub) == 32, f"{len(sub)} subprocess spans, not 32")
+    check(len(preflight) == 1, f"{len(preflight)} preflight spans, not 1")
+    check(table == {k: (n, [r]) for k, (n, r) in HYPERBAND_RUNGS.items()},
+          f"rung table {table}")
+    check(0.0 <= float(optimal.get("objective_value", -1)) <= 1.0, f"optimal {optimal}")
+    rc, out = _wait(_cli("fsck", os.path.join(workdir, name), log=log), log, 120)
+    print(f"blackbox: fsck exit {rc}: {out.strip().splitlines()[-1]}", flush=True)
+    check(rc == 0 and "result: consistent" in out, f"fsck:\n{out}")
+
+
+PBT_YAML = os.path.join(HERE, "examples", "hp-tuning", "simple-pbt.yaml")
+
+
+def phase_pbt(torch) -> None:
+    """``examples/hp-tuning/simple-pbt.yaml`` as shipped (15 trials of
+    ``pbt_toy_trial``, population 5, 2 at a time) through ``Orchestrator.run``
+    on ``cuda``, in a temporary cwd (the suggester keeps its population's
+    checkpoints under ``katib_runs/<name>/pbt`` there): every trial
+    succeeds, the generation labels rise, and an exploiting trial resumes
+    its parent's checkpoint, its first step the one after the parent's
+    last."""
+    from katib_tpu_torch.orchestrator import Orchestrator
+    from katib_tpu_torch.sdk.yaml_spec import load_experiment_yaml
+    from katib_tpu_torch.suggest.pbt import GENERATION_LABEL, PARENT_LABEL
+
+    spec = load_experiment_yaml(PBT_YAML)
+    cwd = os.getcwd()
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-pbt-")
+    os.chdir(workdir)
+    try:
+        orch = Orchestrator(workdir=workdir, device="cuda")
+        t0 = time.perf_counter()
+        exp = orch.run(spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    trials = exp.trials
+    steps = {t: sorted(log.step for log in orch.store.get(t, "score")) for t in trials}
+    gens = sorted({int(t.spec.labels[GENERATION_LABEL]) for t in trials.values()})
+    resumed = [(t.name, t.spec.labels[PARENT_LABEL], steps[t.name][0],
+                steps[t.spec.labels[PARENT_LABEL]][-1])
+               for t in trials.values()
+               if t.spec.labels.get(PARENT_LABEL) in trials and steps[t.name]
+               and steps[t.spec.labels[PARENT_LABEL]]]
+    exploits = [r for r in resumed if r[2] == r[3] + 1]
+    conditions = sorted({t.condition.value for t in trials.values()})
+    best = exp.optimal.objective_value if exp.optimal is not None else math.nan
+    ckpt = os.path.join(workdir, "katib_runs", spec.name, "pbt")
+    print(f"pbt: simple-pbt.yaml through Orchestrator.run on cuda: {exp.condition.value} in "
+          f"{wall:.2f}s; {len(trials)} trials {conditions}; generations {gens}; best score "
+          f"{best}", flush=True)
+    print(f"pbt: trials resuming a parent's checkpoint (trial, parent, first step, parent's "
+          f"last step): {resumed}", flush=True)
+    engine_stats("pbt", orch.async_stats)
+    check(exp.condition.value == "MaxTrialsReached", f"experiment {exp.condition.value}")
+    check(len(trials) == 15 and conditions == ["Succeeded"], f"trials {conditions}")
+    check(len(gens) >= 2 and gens == list(range(len(gens))), f"generations {gens}")
+    check(bool(exploits), f"no trial continued its parent's checkpoint step: {resumed}")
+    check(all(os.path.isdir(os.path.join(ckpt, t)) for t in trials), f"checkpoint dirs in {ckpt}")
+    check(0.0 < best < 1.0, f"best score {best}")
 
 
 def phase_asha(torch) -> None:
@@ -1716,7 +1854,9 @@ def main() -> int:
     flash_launches = phase_transformer(
         torch, fa, sum(t["ms"] for t in flash_timing.values()))
     phase_classifier(torch)
-    phase_hyperband()
+    whitebox_wall = phase_hyperband()
+    phase_blackbox(whitebox_wall)
+    phase_pbt(torch)
     phase_asha(torch)
     phase_async(torch)
     phase_chaos()

@@ -27,8 +27,8 @@ loop, settlement, drain, retries, the journal and the cleanup.  Trials run
 on ``device`` (``cuda`` unless the caller names the CPU).  What the port
 does not have yet raises ``NotImplementedError`` when a run asks for it
 (:meth:`Orchestrator._refuse_unported`): a mesh, cohorts, a declared
-prewarm twin, the compile cache and artifact directory, ``command:``
-trials, a slice allocator and the profiler.
+prewarm twin, the compile cache and artifact directory, a slice allocator
+and the profiler.
 """
 
 from __future__ import annotations
@@ -773,11 +773,6 @@ class Orchestrator:
                 f"cohortWidth={spec.cohort_width} with a train_fn that declares "
                 "a cohort twin asks for vectorized cohorts "
                 "(katib_tpu/runner/cohort.py), not ported yet"
-            )
-        if spec.train_fn is None and spec.command:
-            raise NotImplementedError(
-                "black-box command: trials (katib_tpu/runner/trial_runner.py "
-                "_run_blackbox) are not ported yet; name a trainFn"
             )
         if self.slice_allocator is not None:
             raise NotImplementedError(

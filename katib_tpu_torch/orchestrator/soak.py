@@ -197,44 +197,38 @@ def _check_round(rnd, exp, orch, workdir, spec, injector):
     return failures
 
 
-def run_soak(
-    seconds: float,
-    seed: int = 0,
-    trials: int = 10,
-    parallel: int = 4,
-    verbose: bool = True,
-) -> int:
-    """Run the seeded soak for ~``seconds``; returns a process exit code
-    (0 = every round's invariants held)."""
-    import tempfile
+def _kill_iteration(loop: str, drawn: int) -> int:
+    """The iteration at which a kill of ``loop`` is armed, from the seeded
+    draw.  A kill must find its loop with work left: otherwise the round
+    can settle before the supervisor's restart is due, and the
+    kill-restart check fails on a sound engine.  The suggest loop's first
+    iteration proposes up to a whole lookahead, and the soak's random
+    suggester is not adaptive, so its lookahead (4x the parallel count)
+    covers a round's budget: only iteration 1 is sure to find proposals
+    left to make.  The schedule and harvest loops keep work until the last
+    trial is dispatched and settled, many iterations after the draw."""
+    return 1 if loop == "suggest" else drawn
 
-    from katib_tpu_torch.utils.faults import FaultInjector
 
-    # the shared determinism seam: fault schedule and durations flow
-    # through the ambient clock (real for a wall soak; a VirtualClock when
-    # driven from the simulator) and an explicit seeded rng — the same
-    # (clock, rng) injection the sim's ModeledExecutor uses
-    clock = get_clock()
-    rng = random.Random(seed)
-    start = clock.monotonic()
-    deadline = start + float(seconds)
-    failures: list[str] = []
-    occupancy: dict[str, float] = {}
+def _stall(inj) -> None:
+    # three times the round's stall deadline: the deadline-bounded
+    # suggester call must abandon the worker and trip the breaker
+    # instead of freezing the suggest loop.  Call 1 — the lookahead
+    # bank usually covers the whole budget in one or two calls
+    inj.stall_suggester(seconds=2.25, call=1)
+
+
+def _core_rounds(rng: random.Random) -> list[_Round]:
+    """The rounds every soak runs, in order; the last is the post-fault
+    baseline."""
 
     def kill(loop):
         # arm inside the first few iterations so work definitely remains
         # when the thread dies — recovery, not a lucky clean exit
-        it = rng.randint(1, 3)
+        it = _kill_iteration(loop, rng.randint(1, 3))
         return lambda inj: inj.kill_loop(loop, at_iteration=it)
 
-    def stall(inj):
-        # three times the round's stall deadline: the deadline-bounded
-        # suggester call must abandon the worker and trip the breaker
-        # instead of freezing the suggest loop.  Call 1 — the lookahead
-        # bank usually covers the whole budget in one or two calls
-        inj.stall_suggester(seconds=2.25, call=1)
-
-    core = [
+    return [
         _Round("baseline"),
         _Round(
             "kill-suggest", kill("suggest"),
@@ -249,78 +243,113 @@ def run_soak(
             expect_restart="harvest", expect_seam="kill-loop",
         ),
         _Round(
-            "stall-suggester", stall,
+            "stall-suggester", _stall,
             expect_seam="suggester-stall", stall_deadline=0.75,
         ),
         _Round("speculation", speculative=True),
         _Round("post-fault"),
     ]
 
-    def mixed_round(i):
-        actions = []
-        loops = ["suggest", "schedule", "harvest"]
-        picks = rng.sample(
-            ["kill", "fail", "flake", "stall"], k=rng.randint(1, 2)
-        )
-        loop = rng.choice(loops)
-        it = rng.randint(1, 4)
-        k, j = rng.randrange(trials), rng.randint(1, 2)
-        rate = round(rng.uniform(0.05, 0.2), 3)
 
-        def arm(inj):
-            for p in picks:
-                if p == "kill":
-                    inj.kill_loop(loop, at_iteration=it)
-                    actions.append(f"kill-{loop}@{it}")
-                elif p == "fail":
-                    inj.fail_trial(k, j)
-                    actions.append(f"fail-trial{k}:{j}")
-                elif p == "flake":
-                    inj.flake(rate)
-                    actions.append(f"flake{rate}")
-                elif p == "stall":
-                    inj.stall_suggester(seconds=2.25, call=1)
-                    actions.append("stall@1")
+def _mixed_round(i: int, rng: random.Random, trials: int) -> _Round:
+    """Seeded mixed round ``i``: one or two of a loop kill, a failing
+    trial, flaky trials and a suggester stall."""
+    actions = []
+    loops = ["suggest", "schedule", "harvest"]
+    picks = rng.sample(["kill", "fail", "flake", "stall"], k=rng.randint(1, 2))
+    loop = rng.choice(loops)
+    it = _kill_iteration(loop, rng.randint(1, 4))
+    k, j = rng.randrange(trials), rng.randint(1, 2)
+    rate = round(rng.uniform(0.05, 0.2), 3)
 
-        expect = loop if "kill" in picks else None
-        r = _Round(f"mixed-{i}", arm, expect_restart=expect)
-        if "kill" in picks:
-            r.expect_seam = "kill-loop"
-        if "stall" in picks:
-            r.spec_kw["stall_deadline"] = 0.75
-        return r
+    def arm(inj):
+        for p in picks:
+            if p == "kill":
+                inj.kill_loop(loop, at_iteration=it)
+                actions.append(f"kill-{loop}@{it}")
+            elif p == "fail":
+                inj.fail_trial(k, j)
+                actions.append(f"fail-trial{k}:{j}")
+            elif p == "flake":
+                inj.flake(rate)
+                actions.append(f"flake{rate}")
+            elif p == "stall":
+                inj.stall_suggester(seconds=2.25, call=1)
+                actions.append("stall@1")
+
+    expect = loop if "kill" in picks else None
+    r = _Round(f"mixed-{i}", arm, expect_restart=expect)
+    if "kill" in picks:
+        r.expect_seam = "kill-loop"
+    if "stall" in picks:
+        r.spec_kw["stall_deadline"] = 0.75
+    return r
+
+
+def _run_round(rnd: _Round, round_seed: int, trials: int, parallel: int, clock):
+    """Run one round under a fresh seeded injector; returns ``(exp, orch,
+    failures, faults fired)``."""
+    import tempfile
+
+    from katib_tpu_torch.orchestrator import Orchestrator
+    from katib_tpu_torch.utils.faults import FaultInjector
+
+    injector = FaultInjector(
+        seed=round_seed, rng=random.Random(round_seed), clock=clock
+    )
+    if rnd.arm is not None:
+        rnd.arm(injector)
+    spec = _make_spec(
+        name=f"soak-{rnd.name}",
+        seed=round_seed,
+        trials=trials,
+        parallel=parallel,
+        **rnd.spec_kw,
+    )
+    if spec.speculative_redispatch:
+        os.environ[_SLOW_ENV] = "1"
+    try:
+        with tempfile.TemporaryDirectory(prefix="katib-soak-") as workdir:
+            orch = Orchestrator(
+                workdir=workdir,
+                fault_injector=injector,
+                device="cpu",
+                preflight=False,
+            )
+            exp = orch.run(spec)
+            errs = _check_round(rnd, exp, orch, workdir, spec, injector)
+    finally:
+        os.environ.pop(_SLOW_ENV, None)
+    return exp, orch, errs, len(injector.log)
+
+
+def run_soak(
+    seconds: float,
+    seed: int = 0,
+    trials: int = 10,
+    parallel: int = 4,
+    verbose: bool = True,
+) -> int:
+    """Run the seeded soak for ~``seconds``; returns a process exit code
+    (0 = every round's invariants held)."""
+    # the shared determinism seam: fault schedule and durations flow
+    # through the ambient clock (real for a wall soak; a VirtualClock when
+    # driven from the simulator) and an explicit seeded rng — the same
+    # (clock, rng) injection the sim's ModeledExecutor uses
+    clock = get_clock()
+    rng = random.Random(seed)
+    start = clock.monotonic()
+    deadline = start + float(seconds)
+    failures: list[str] = []
+    occupancy: dict[str, float] = {}
+    core = _core_rounds(rng)
 
     def run_one(rnd, round_seed):
-        injector = FaultInjector(
-            seed=round_seed, rng=random.Random(round_seed), clock=clock
+        t0 = clock.monotonic()
+        exp, orch, errs, n_faults = _run_round(
+            rnd, round_seed, trials, parallel, clock
         )
-        if rnd.arm is not None:
-            rnd.arm(injector)
-        spec = _make_spec(
-            name=f"soak-{rnd.name}",
-            seed=round_seed,
-            trials=trials,
-            parallel=parallel,
-            **rnd.spec_kw,
-        )
-        from katib_tpu_torch.orchestrator import Orchestrator
-
-        if spec.speculative_redispatch:
-            os.environ[_SLOW_ENV] = "1"
-        try:
-            with tempfile.TemporaryDirectory(prefix="katib-soak-") as workdir:
-                orch = Orchestrator(
-                    workdir=workdir,
-                    fault_injector=injector,
-                    device="cpu",
-                    preflight=False,
-                )
-                t0 = clock.monotonic()
-                exp = orch.run(spec)
-                dt = clock.monotonic() - t0
-                errs = _check_round(rnd, exp, orch, workdir, spec, injector)
-        finally:
-            os.environ.pop(_SLOW_ENV, None)
+        dt = clock.monotonic() - t0
         st = orch.async_stats or {}
         occupancy[rnd.name] = float(st.get("sustained_occupancy") or 0.0)
         if verbose:
@@ -332,7 +361,7 @@ def run_soak(
                 f"occ={occupancy[rnd.name]:.2f}  restarts={restarts or '-'}  "
                 f"spec={st.get('speculative_dispatches', 0)}/"
                 f"{st.get('speculative_wins', 0)}  "
-                f"faults={len(injector.log)}"
+                f"faults={n_faults}"
                 + (f"  FAIL: {'; '.join(errs)}" if errs else "")
             )
         failures.extend(errs)
@@ -348,7 +377,7 @@ def run_soak(
         run_one(rnd, seed * 1000 + i)
     i = len(core)
     while clock.monotonic() < deadline - 10.0 and i < 50:
-        run_one(mixed_round(i), seed * 1000 + i)
+        run_one(_mixed_round(i, rng, trials), seed * 1000 + i)
         i += 1
     run_one(post, seed * 1000 + i)
 

@@ -59,13 +59,15 @@ def test_port_imports_and_steps_with_jax_and_katib_tpu_blocked():
     trial, the shipped DARTS spec through the port's loader and orchestrator
     under the async engine (one tiny epoch), one ``mnist_trial`` epoch, one
     round of the Hyperband sweep's suggestions, and one round of the shipped
-    ENAS spec's suggestions with one tiny child epoch run, with JAX and the
-    JAX package unimportable."""
+    ENAS spec's suggestions with one tiny child epoch run, a black-box
+    trial, a TFEvent file written and read, the Sobol, CMA-ES and random
+    suggesters of the shipped command specs, and one PBT toy trial of
+    ``simple-pbt.yaml``, with JAX and the JAX package unimportable."""
     script = textwrap.dedent(f"""
         import sys
         for name in {BANNED!r}:
             sys.modules[name] = None
-        import importlib, math, pkgutil
+        import importlib, math, os, pkgutil
         import katib_tpu_torch
         for mod in pkgutil.walk_packages(katib_tpu_torch.__path__, "katib_tpu_torch."):
             importlib.import_module(mod.name)
@@ -139,6 +141,34 @@ def test_port_imports_and_steps_with_jax_and_katib_tpu_blocked():
                                 num_epochs="1", batch_size="16"), device="cpu")
         enas_trial(ctx)
         assert [s for s, _ in ctx.reports] == [0], ctx.reports
+        # a black-box trial (stdout and TFEvent collectors), the host
+        # suggesters of the command specs, and the PBT toy trial
+        from katib_tpu_torch.core import types as T
+        from katib_tpu_torch.runner.tfevent import TFEventWriter, parse_tfevent_dir
+        from katib_tpu_torch.runner.trial_runner import run_trial
+        from katib_tpu_torch.store.base import MemoryObservationStore
+        obj = T.ObjectiveSpec(type=T.ObjectiveType.MINIMIZE, objective_metric_name="loss")
+        store = MemoryObservationStore()
+        trial = T.Trial(name="bb", spec=T.TrialSpec(
+            command=[sys.executable, "-c", "print('loss=0.5')"], assignments=[]))
+        assert run_trial(trial, store, obj).condition is T.TrialCondition.SUCCEEDED
+        assert [l.value for l in store.get("bb", "loss")] == [0.5]
+        logdir = tempfile.mkdtemp()
+        w = TFEventWriter(logdir)
+        w.add_scalar("loss", 0.25, step=1, wall_time=1.0)
+        w.close()
+        assert [l.value for l in parse_tfevent_dir(logdir)] == [0.25]
+        for name in ("sobol", "cmaes", "random"):
+            spec = load_experiment_yaml(f"examples/hp-tuning/{{name.replace('cmaes', 'cma-es')}}.yaml")
+            assert len(make_suggester(spec).get_suggestions(Experiment(spec=spec), 4)) == 4
+        from katib_tpu_torch.models.pbt_toy import pbt_toy_trial
+        spec = load_experiment_yaml("examples/hp-tuning/simple-pbt.yaml")
+        assert spec.train_fn is pbt_toy_trial
+        os.chdir(tempfile.mkdtemp())
+        props = make_suggester(spec).get_suggestions(Experiment(spec=spec), 2)
+        ctx = TrialContext(props[0].as_dict(), checkpoint_dir=tempfile.mkdtemp(), device="cpu")
+        pbt_toy_trial(ctx)
+        assert [s for s, _ in ctx.reports] == [0, 1, 2, 3], ctx.reports
         leaked = sorted(n for n in sys.modules if n.split(".")[0] in {BANNED!r} and sys.modules[n])
         assert not leaked, leaked
         print("ok")

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import os
 import random
+import sys
 import threading
 import time
 from types import SimpleNamespace
@@ -295,20 +296,30 @@ REFUSALS = {
     "compile-cache-env": dict(match="compile cache", env={"KATIB_COMPILE_CACHE": "/tmp/cc"}),
     "artifact-dir-spec": dict(match="artifact", artifact_dir="/tmp/katib-art"),
     "artifact-dir-env": dict(match="artifact", env={"KATIB_ARTIFACT_DIR": "/tmp/art"}),
-    "command-trials": dict(match="command", train_fn=None, command=["python", "train.py"],
+    # black-box command: trials are ported: the spec runs to its end
+    "command-trials": dict(match=None, train_fn=None,
+                           command=[sys.executable, "-c", "print('accuracy=0.5')"],
                            metrics_collector=ttypes.MetricsCollectorSpec(
                                kind=ttypes.MetricsCollectorKind.STDOUT)),
     "slice-allocator": dict(match="slice allocator", orch_kw={"slice_allocator": object()}),
     "profiler": dict(match="profile", orch_kw={
         "config": KatibConfig.from_dict({"init": {"enable_profiler": True}})}),
-    "unported-suggester": dict(match="cmaes.py", algorithm="cmaes", async_orch=False),
+    "unported-suggester": dict(match="parallel/pbt.py", algorithm="pbt-ondevice",
+                               async_orch=False),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_what_the_port_lacks_raises(case, tmp_path, monkeypatch):
     monkeypatch.delenv("KATIB_ASYNC_ORCH", raising=False)
-    _refused(tmp_path, monkeypatch=monkeypatch, **REFUSALS[case])
+    kw = dict(REFUSALS[case])
+    if kw["match"] is None:  # no longer lacking: it runs as in the JAX package
+        kw.pop("match")
+        spec = grid_spec("torch", "lifted", max_trial_count=2, **kw)
+        exp = Orchestrator(workdir=str(tmp_path), device="cpu").run(spec)
+        assert exp.succeeded_count == 2, exp.message
+        return
+    _refused(tmp_path, monkeypatch=monkeypatch, **kw)
 
 
 def test_twins_absent_prewarm_and_cohort_width_run_as_in_the_jax_package(tmp_path):
@@ -354,8 +365,11 @@ def _trial(**spec_kw):
 
 def test_run_trial_settles_command_trials_and_meshes_failed():
     obj = ttypes.ObjectiveSpec(type=ttypes.ObjectiveType.MAXIMIZE, objective_metric_name="a")
-    res = run_trial(_trial(command=["echo"]), MemoryObservationStore(), obj)
-    assert res.condition is ttypes.TrialCondition.FAILED and "NotImplementedError" in res.message
+    res = run_trial(_trial(command=[sys.executable, "-c", "raise SystemExit(2)"]),
+                    MemoryObservationStore(), obj)
+    assert res.condition is ttypes.TrialCondition.FAILED and "exit code 2" in res.message
+    res = run_trial(_trial(command=["echo"]), MemoryObservationStore(), obj, mesh=object())
+    assert res.condition is ttypes.TrialCondition.FAILED and "mesh" in res.message
     res = run_trial(_trial(train_fn=lambda ctx: None), MemoryObservationStore(), obj, mesh=object())
     assert res.condition is ttypes.TrialCondition.FAILED and "mesh" in res.message
 

@@ -49,7 +49,6 @@ EXAMPLES = sorted(
 # the JAX train functions the port does not have yet
 UNPORTED_TRAIN_FNS = {
     "katib_tpu.models.pbt_digits.pbt_digits_trial",
-    "katib_tpu.models.pbt_toy.pbt_toy_trial",
 }
 
 
@@ -204,8 +203,9 @@ def test_config_refuses_mesh_axes():
 
 
 def test_registry_holds_the_ported_suggesters():
-    assert registered_algorithms() == ["asha", "darts", "enas", "grid", "hyperband",
-                                       "multivariate-tpe", "random", "tpe"]
+    assert registered_algorithms() == ["asha", "bayesianoptimization", "cmaes", "darts",
+                                       "enas", "grid", "hyperband", "multivariate-tpe", "pbt",
+                                       "random", "sobol", "tpe"]
 
 
 @pytest.mark.parametrize("name", sorted(algorithms.UNPORTED_ALGORITHMS))

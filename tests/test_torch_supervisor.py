@@ -408,6 +408,78 @@ class TestSuggesterDeadline:
 
 
 # ---------------------------------------------------------------------------
+# the soak's arming rule: an armed loop kill always finds its loop with work
+# ---------------------------------------------------------------------------
+
+
+def _soak_rounds(seed: int, trials: int = 8):
+    """The rounds ``run_soak`` builds from ``seed``: the core rounds, then
+    the seeded mixed rounds in order."""
+    import random
+
+    from katib_tpu_torch.orchestrator import soak
+
+    rng = random.Random(seed)
+    core = soak._core_rounds(rng)
+    return core + [soak._mixed_round(i, rng, trials) for i in range(len(core) - 1, 50)]
+
+
+def test_soak_arms_suggest_kills_before_the_budget_is_proposed():
+    """The suggest loop proposes a whole lookahead (here the whole budget)
+    in its first iteration, so every soak schedule arms its kill there."""
+    armed = 0
+    for seed in range(200):
+        for rnd in _soak_rounds(seed):
+            inj = FaultInjector(seed=0)
+            if rnd.arm is not None:
+                rnd.arm(inj)
+            for it in inj._loop_kills.get("suggest", []):
+                assert it == 1, (seed, rnd.name, it)
+                armed += 1
+    assert armed > 200
+
+
+@pytest.mark.chaos
+def test_soak_kill_rounds_find_work_left_and_restart(monkeypatch):
+    """On the engine, each kill round of seeds 0 and 1 (the seed of the soak
+    smoke) kills its loop while that loop still has work: the suggest loop
+    with budget unproposed, the schedule loop with trials to dispatch, the
+    harvest loop with trials to settle; and the supervisor restarts it."""
+    import random
+
+    from katib_tpu_torch.orchestrator import async_loops, soak
+    from katib_tpu_torch.utils.clock import get_clock
+
+    at_kill = []
+    real_seam = async_loops.AsyncLoops._seam
+
+    def seam(self, name):
+        inj = self.orch.fault_injector
+        if inj._loop_iters.get(name, 0) + 1 in inj._loop_kills.get(name, ()):
+            budget = self.spec.max_trial_count - len(self.exp.trials)
+            unsettled = sum(not t.condition.is_terminal() for t in self.exp.trials.values())
+            at_kill.append((name, {
+                "suggest": budget > 0,
+                "schedule": budget > 0 or self._queued_count() > 0,
+                "harvest": budget > 0 or unsettled > 0,
+            }[name]))
+        return real_seam(self, name)
+
+    monkeypatch.setattr(async_loops.AsyncLoops, "_seam", seam)
+    killed = set()
+    for seed in (0, 1):
+        for i, rnd in enumerate(_soak_rounds(seed)[:14]):
+            if rnd.expect_restart is None:
+                continue
+            at_kill.clear()
+            exp, orch, errs, _ = soak._run_round(rnd, seed * 1000 + i, 8, 4, get_clock())
+            assert errs == [], errs
+            assert at_kill == [(rnd.expect_restart, True)], (seed, rnd.name, at_kill)
+            killed.add(rnd.expect_restart)
+    assert killed == {"suggest", "schedule", "harvest"}
+
+
+# ---------------------------------------------------------------------------
 # bounded soak smoke (excluded from tier-1: slow + soak markers)
 # ---------------------------------------------------------------------------
 
