@@ -13,7 +13,7 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 4. time each kernel, its plain version and the one PyTorch call that
    computes the same function, beside the least time the card could take;
 5. hold the DARTS step replayed from a CUDA graph against the same step
-   run eagerly on the card (search width, ``remat_policy="dots"``, 3 steps);
+   run eagerly on the card (search width, ``remat_policy="dots"``, 2 steps);
 6. drive the first main path: ``darts_trial`` through ``TrialContext`` at
    the DARTS search width (8 cells, 16 channels, 4 nodes, the 8 default
    primitives, batch 64, bf16, 2 epochs of 8 steps by CUDA-graph replay in
@@ -68,7 +68,7 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    at a time) through ``Orchestrator.run`` on ``cuda`` with the synchronous
    loop and with the async engine, in turns, 3 runs each: every outcome set
    is bit-equal to the first;
-16. ``python -m katib_tpu_torch chaos --soak 30 --seed 1 --trials 10``, the
+16. ``python -m katib_tpu_torch chaos --soak 20 --seed 1 --trials 10``, the
    seeded chaos soak of the async engine (on the CPU: its trainer sleeps);
 17. ``enas parity:`` the ENAS controller's trace on a fixed arc and one
    REINFORCE step, and an 8-layer float32 child with every op and a skip
@@ -87,7 +87,22 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    controller trained between rounds, ``fsck`` clean;
 20. ``enas sharing:`` two children of one arc with ``weight_sharing`` in one
    experiment directory: the pool published, every parameter of the second
-   child overlaid from it.
+   child overlaid from it;
+21. ``cohort:`` ``katib_tpu_torch/specs/cohort-mnist.yaml`` (12 random
+   ``mnist_trial`` trials, MLP 64 units, in cohorts of up to 4 that differ
+   in lr and momentum) through ``Orchestrator.run`` on ``cuda`` under the
+   async engine: 12 ``Succeeded``, one capture per ``cohort`` span, no
+   cohort fallback, ``fsck`` clean; then a direct K=4 cohort against its 4
+   members run serially (walls, each member's accuracy and loss within the
+   stated tolerance, one capture) and a ragged cohort of 3 padded to 4;
+22. ``pbt ondevice:`` ``examples/hp-tuning/pbt-ondevice.yaml``'s settings
+   (16 members, 10 generations of 300 steps, batch 64, truncation 0.25,
+   seed 7) through ``Orchestrator.run`` on ``cuda`` on synthetic digits (the
+   card's machine has no scikit-learn): 16 ``Succeeded`` at generation 10,
+   10 ``pbt-generation`` spans, one capture, no cohort fallback; a
+   same-seed rerun bit-equal in scores and lineage; a drain at the first
+   generation boundary and a resume that loses no member and replays the
+   same generations.
 
 Every run of the async engine prints its ``async_stats`` (a CLI run prints
 them on its ``async engine:`` line) and fails the script if a loop
@@ -506,7 +521,7 @@ def check_moves(got: dict, want: dict, start: dict, what: str,
 
 def phase_graph_vs_eager(torch) -> None:
     """One state at the search width with ``remat=true`` and
-    ``remat_policy="dots"``: a window of 3 steps run eagerly on the card and
+    ``remat_policy="dots"``: a window of 2 steps run eagerly on the card and
     by CUDA-graph replay of the same step function; losses, weights and
     alphas compared."""
     import numpy as np
@@ -522,7 +537,9 @@ def phase_graph_vs_eager(torch) -> None:
     from katib_tpu_torch.parallel.train import cross_entropy_loss
 
     s = DARTS_SETTINGS
-    steps, batch = 3, s["batch_size"]
+    # 2 steps: an eager step under remat takes about 12 s on the card; the
+    # second step reads what the first wrote, in the replay as eagerly
+    steps, batch = 2, s["batch_size"]
     net = DartsNetwork(DEFAULT_PRIMITIVES, init_channels=s["init_channels"], num_layers=DARTS_LAYERS,
                        n_nodes=DARTS_NODES, remat=True, remat_policy="dots")
     gen = torch.Generator().manual_seed(5)
@@ -561,7 +578,7 @@ def phase_graph_vs_eager(torch) -> None:
           f"{[round(float(v), 6) for v in eager_m[0]]} graph "
           f"{[round(float(v), 6) for v in graph_m[0]]}; step metrics max rel diff "
           f"{loss_rel:.2e}; steps {int(eager['step'])} and {int(graph['step'])}", flush=True)
-    check(int(eager["step"]) == int(graph["step"]) == steps, "both runs take 3 steps")
+    check(int(eager["step"]) == int(graph["step"]) == steps, f"both runs take {steps} steps")
     check(loss_rel <= LOSS_RTOL, f"replayed step metrics differ from eager by {loss_rel:.2e}")
     print(f"graph vs eager: {check_moves(graph, eager, init, 'graph vs eager')}", flush=True)
 
@@ -580,11 +597,12 @@ def phase_main_path(torch, mixed_op) -> tuple[int, str, list]:
     ctx = darts_context(out_dir)
     torch.cuda.reset_peak_memory_stats()
     mixed_op.launches = 0
-    with classifier_captures() as augment_captures:
+    with captured_loops() as augment_loops:
         t0 = time.perf_counter()
         darts_trial(ctx)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    augment_captures = [loop.capture_s for loop in augment_loops]
     launches = mixed_op.launches
     with open(os.path.join(out_dir, "genotype.json")) as f:
         genotype = json.load(f)
@@ -632,21 +650,21 @@ def phase_main_path(torch, mixed_op) -> tuple[int, str, list]:
 
 
 @contextlib.contextmanager
-def classifier_captures():
-    """Collect the seconds of every classifier-step capture (warm-up
-    included) that ``EpochLoop`` makes inside the block."""
+def captured_loops():
+    """Collect every ``EpochLoop`` that captures its step graph inside the
+    block (classifier epochs, cohorts, PBT generations)."""
     from katib_tpu_torch.models.mnist import EpochLoop
 
-    seconds: list[float] = []
+    loops: list = []
     build = EpochLoop._build_graph
 
     def recording(loop):
         build(loop)
-        seconds.append(loop.capture_s)
+        loops.append(loop)
 
     EpochLoop._build_graph = recording
     try:
-        yield seconds
+        yield loops
     finally:
         EpochLoop._build_graph = build
 
@@ -749,8 +767,8 @@ def engine_stats(what: str, stats: dict | None) -> None:
 def phase_orchestrator(torch, mixed_op) -> None:
     """The search-width spec through ``Orchestrator.run`` on ``cuda``,
     between runs of its trial's parameters through ``darts_trial`` directly:
-    one before (it pays what a network's first run in a process pays), one
-    on a pool thread as the orchestrator runs trials, one after."""
+    one before (it pays what a network's first run in a process pays) and
+    one after, on a pool thread as the orchestrator runs trials."""
     from katib_tpu_torch.core.types import Experiment
     from katib_tpu_torch.nas.darts.model import mixed_op_launches_per_forward
     from katib_tpu_torch.nas.darts.search import darts_trial
@@ -788,8 +806,7 @@ def phase_orchestrator(torch, mixed_op) -> None:
     # the orchestrator runs its trials on pool threads: the same, directly
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         pooled, pooled_wall = pool.submit(direct).result()
-    after, after_wall = direct()
-    direct_wall = min(before_wall, after_wall)
+    direct_wall = min(before_wall, pooled_wall)
 
     s = ORCH_SETTINGS
     epochs, steps = int(s["num_epochs"]), (int(s["n_train"]) // 2) // int(s["batch_size"])
@@ -804,10 +821,9 @@ def phase_orchestrator(torch, mixed_op) -> None:
           f"experiment {exp.condition.value} ({exp.message}); trial {trial.name} "
           f"{trial.condition.value}; optimal accuracy={accuracy}", flush=True)
     print(f"orchestrator: wall run={run_wall:.3f}s trial={trial_wall:.3f}s; direct darts_trial "
-          f"before={before_wall:.3f}s, on a pool thread={pooled_wall:.3f}s, after={after_wall:.3f}s "
-          f"(graph capture {ctx.timings.get('graph_capture_s', math.nan):.3f}s, "
-          f"{pooled.timings.get('graph_capture_s', math.nan):.3f}s and "
-          f"{after.timings.get('graph_capture_s', math.nan):.3f}s); "
+          f"before={before_wall:.3f}s, after on a pool thread={pooled_wall:.3f}s "
+          f"(graph capture {ctx.timings.get('graph_capture_s', math.nan):.3f}s and "
+          f"{pooled.timings.get('graph_capture_s', math.nan):.3f}s); "
           f"overhead per trial against the "
           f"faster direct run: run-direct={run_wall - direct_wall:.3f}s "
           f"trial-direct={trial_wall - direct_wall:.3f}s", flush=True)
@@ -1209,8 +1225,7 @@ BLACKBOX_YAML = os.path.join(HERE, "examples", "hp-tuning", "hyperband.yaml")
 
 def spans_named(workdir: str, experiment: str, name: str) -> list[float]:
     """The durations of an experiment's spans called ``name``."""
-    with open(os.path.join(workdir, experiment, "trace.jsonl")) as f:
-        return [rec["dur"] for rec in map(json.loads, f) if rec["name"] == name]
+    return [rec["dur"] for rec in spans_of(workdir, experiment, name)]
 
 
 def phase_blackbox(whitebox_wall: float) -> None:
@@ -1460,12 +1475,12 @@ def phase_async(torch) -> None:
 
 
 def phase_chaos() -> None:
-    """``python -m katib_tpu_torch chaos --soak 30 --seed 1 --trials 10``:
+    """``python -m katib_tpu_torch chaos --soak 20 --seed 1 --trials 10``:
     the seeded chaos soak of the async engine exits 0."""
     workdir = tempfile.mkdtemp(prefix="chip-smoke-chaos-")
     log = os.path.join(workdir, "soak.log")
     t0 = time.perf_counter()
-    rc, out = _wait(_cli("chaos", "--soak", "30", "--seed", "1", "--trials", "10", log=log),
+    rc, out = _wait(_cli("chaos", "--soak", "20", "--seed", "1", "--trials", "10", log=log),
                     log, 300)
     wall = time.perf_counter() - t0
     for line in out.strip().splitlines():
@@ -1816,6 +1831,303 @@ def phase_enas_sharing(torch) -> None:
           f"the second child inherited {overlays}, not every parameter")
 
 
+def spans_of(workdir: str, experiment: str, name: str) -> list[dict]:
+    """The ``name`` spans of an experiment's span journal, in order."""
+    with open(os.path.join(workdir, experiment, "trace.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["name"] == name]
+
+
+COHORT_YAML = os.path.join(HERE, "katib_tpu_torch", "specs", "cohort-mnist.yaml")
+# (lr, momentum) of the direct cohort: the spec's ranges' corners and middle
+COHORT_MEMBERS = [(0.01, 0.5), (0.04, 0.9), (0.07, 0.7), (0.1, 0.95)]
+# a member against its serial run: bf16 products batched over the members
+# and unbatched round apart (8 significant bits), over 48 momentum steps;
+# the absolute part covers a member trained to a loss near 0
+COHORT_LOSS_RTOL, COHORT_LOSS_ATOL = 5e-2, 1e-3
+COHORT_ACC_ATOL = 0.03  # of 1,024 test images
+
+
+def phase_cohort(torch) -> None:
+    """Vectorized cohorts of ``mnist_trial`` on the card: the cohort spec
+    through ``Orchestrator.run``, then a direct K=4 cohort against its
+    members run serially, and a ragged cohort of 3 padded to 4."""
+    from katib_tpu_torch.core import types as t
+    from katib_tpu_torch.models.mnist import mnist_trial
+    from katib_tpu_torch.orchestrator import Orchestrator
+    from katib_tpu_torch.orchestrator.fsck import fsck_experiment
+    from katib_tpu_torch.runner.cohort import run_cohort
+    from katib_tpu_torch.runner.trial_runner import run_trial
+    from katib_tpu_torch.sdk.yaml_spec import load_experiment_yaml
+    from katib_tpu_torch.store.base import MemoryObservationStore
+    from katib_tpu_torch.utils import observability as obs
+
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    fallbacks = obs.cohort_fallbacks.get()
+    spec = load_experiment_yaml(COHORT_YAML)
+    check(spec.async_orch is None and spec.cohort_width == 4, "the cohort spec's loop and width")
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-cohort-")
+    orch = Orchestrator(workdir=workdir, device="cuda")
+    with captured_loops() as loops:
+        t0 = time.perf_counter()
+        exp = orch.run(spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    conditions = sorted({tr.condition.value for tr in exp.trials.values()})
+    cohorts = spans_of(workdir, spec.name, "cohort")
+    sizes = [c["args"]["size"] for c in cohorts]
+    epochs = spans_of(workdir, spec.name, "cohort.epoch")
+    print(f"cohort: {os.path.relpath(COHORT_YAML, HERE)} through Orchestrator.run on cuda "
+          f"({smi}): experiment {exp.condition.value} in {wall:.2f}s = "
+          f"{len(exp.trials) / wall * 3600:.0f} trials/hour; {len(exp.trials)} trials "
+          f"{conditions}; cohort sizes {sizes} (spans {[round(c['dur'], 3) for c in cohorts]}s); "
+          f"captures {len(loops)} ({[round(lp.capture_s, 3) for lp in loops]}s); cohort "
+          f"epochs {[round(e['dur'], 4) for e in epochs]}s; best accuracy "
+          f"{exp.optimal.objective_value if exp.optimal else None}", flush=True)
+    engine_stats("cohort", orch.async_stats)
+    report = fsck_experiment(os.path.join(workdir, spec.name), repair=False)
+    check(exp.condition.value == "MaxTrialsReached", f"experiment {exp.condition.value}")
+    check(len(exp.trials) == 12 and conditions == ["Succeeded"], f"trials {conditions}")
+    check(sum(sizes) == 12 and max(sizes) <= 4, f"cohort sizes {sizes}")
+    check(len(loops) == len(cohorts), f"{len(loops)} captures for {len(cohorts)} cohorts")
+    check(report.ok(), f"fsck: {report.lines()}")
+
+    obj = spec.objective
+
+    def members(names):
+        return [t.Trial(name=n, spec=t.TrialSpec(train_fn=mnist_trial, assignments=[
+            t.ParameterAssignment("lr", lr), t.ParameterAssignment("momentum", m),
+            t.ParameterAssignment("units", 64)])) for n, (lr, m) in zip(names, COHORT_MEMBERS)]
+
+    def final(store, name):
+        return {m: store.get(name, m)[-1].value for m in ("accuracy", "loss")}
+
+    serial_store, serial_walls = MemoryObservationStore(), []
+    for tr in members([f"m{i}" for i in range(4)]):
+        t0 = time.perf_counter()
+        result = run_trial(tr, serial_store, obj, device="cuda")
+        torch.cuda.synchronize()
+        serial_walls.append(time.perf_counter() - t0)
+        check(result.condition.value == "Succeeded", f"serial {tr.name}: {result.message}")
+    serial = [final(serial_store, f"m{i}") for i in range(4)]
+    for k, what in ((4, "direct K=4"), (3, "ragged 3 padded to 4")):
+        store = MemoryObservationStore()
+        with captured_loops() as loops:
+            t0 = time.perf_counter()
+            results = run_cohort(members([f"m{i}" for i in range(k)]), store, obj,
+                                 buckets=True, device="cuda")
+            torch.cuda.synchronize()
+            cohort_wall = time.perf_counter() - t0
+        got = [final(store, f"m{i}") for i in range(k)]
+        loss_rel = max(abs(g["loss"] - w["loss"]) / (abs(w["loss"]) + COHORT_LOSS_ATOL / COHORT_LOSS_RTOL)
+                       for g, w in zip(got, serial))
+        acc_abs = max(abs(g["accuracy"] - w["accuracy"]) for g, w in zip(got, serial))
+        print(f"cohort: {what} cohort (MLP 64 units, 3 epochs of 16 steps, batch 256, bf16) "
+              f"{cohort_wall:.3f}s against the serial sum {sum(serial_walls[:k]):.3f}s "
+              f"({[round(w, 3) for w in serial_walls[:k]]}) = "
+              f"{sum(serial_walls[:k]) / cohort_wall:.2f}x; captures {len(loops)} of "
+              f"{[lp.loss_shape for lp in loops]} rows; final (accuracy, loss) cohort "
+              f"{[(round(g['accuracy'], 4), round(g['loss'], 5)) for g in got]} serial "
+              f"{[(round(w['accuracy'], 4), round(w['loss'], 5)) for w in serial[:k]]}: loss "
+              f"|d| / (|serial| + {COHORT_LOSS_ATOL / COHORT_LOSS_RTOL:g}) {loss_rel:.2e} "
+              f"(tolerance {COHORT_LOSS_RTOL} relative, {COHORT_LOSS_ATOL} absolute), accuracy abs "
+              f"{acc_abs:.4f} (tolerance {COHORT_ACC_ATOL}) ({smi})", flush=True)
+        check(all(r.condition.value == "Succeeded" for r in results.values()),
+              f"{what}: {[r.message for r in results.values()]}")
+        check(len(loops) == 1 and loops[0].loss_shape == (4,), f"{what}: captures {len(loops)}")
+        check(loss_rel <= COHORT_LOSS_RTOL and acc_abs <= COHORT_ACC_ATOL,
+              f"{what}: members differ from their serial runs")
+    check(obs.cohort_fallbacks.get() == fallbacks,
+          f"cohort fallbacks {fallbacks} -> {obs.cohort_fallbacks.get()}")
+    print(f"cohort: phase wall {time.perf_counter() - t_phase:.2f}s", flush=True)
+
+
+def pbt_generation_parts(torch, members: int, steps: int, batch: int) -> tuple[float, float]:
+    """Median seconds of a generation's train part (``steps`` replays) and
+    of a whole generation step (train, eval, selection, clone), on the
+    card, for the digits population at the spec's sizes."""
+    import numpy as np
+
+    from katib_tpu_torch.device import resolve_device
+    from katib_tpu_torch.models import pbt_digits
+    from katib_tpu_torch.parallel import pbt
+    from katib_tpu_torch.parallel.train import TrainState, stack_pytrees
+
+    ds = pbt_digits._DATASET_CACHE[(1400, 397)]
+    dev = resolve_device("cuda")
+    prm = pbt_digits._init_params(torch.Generator().manual_seed(0), 64, 10, dev)
+    state = stack_pytrees([TrainState(torch.zeros((), dtype=torch.int32, device=dev), prm,
+                                      {n: torch.zeros_like(v) for n, v in prm.items()})] * members)
+    specs = (pbt.HyperSpec("lr", "double", lo=0.005, hi=0.5),)
+    lrs = [{"lr": 0.005 + 0.03 * i} for i in range(members)]
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    gen = pbt.make_pbt_generation_step(
+        pbt_digits.member_loss, pbt_digits.member_update, pbt_digits.member_eval, states=state,
+        hypers=pbt.encode_hypers(specs, lrs, members, device=dev),
+        data=(to(ds.x_train.reshape(1400, -1)), to(ds.y_train)),
+        eval_batch=(to(ds.x_test.reshape(397, -1)), to(ds.y_test)),
+        steps=steps, batch_size=batch, specs=specs, k=members, truncation=0.25)
+    idx = np.random.default_rng(0).integers(0, 1400, size=(steps, batch))
+    parts = {"train": lambda: gen.loop.run_epoch(idx),
+             "generation": lambda: gen(idx, torch.Generator(device=dev).manual_seed(0))}
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[name] = statistics.median(times)
+    return out["train"], out["generation"]
+
+
+PBT_ONDEVICE_YAML = os.path.join(HERE, "examples", "hp-tuning", "pbt-ondevice.yaml")
+
+
+def pbt_ondevice_run(torch, spec) -> tuple:
+    """One run of the on-device PBT spec through ``Orchestrator.run`` on
+    ``cuda`` in a temporary cwd (the suggester keeps the population's
+    checkpoints under ``katib_runs/<name>/pbt`` there).  Returns the
+    experiment, the orchestrator, the workdir, the wall, the captures and
+    ``{slot: (accuracies, parents)}``."""
+    from katib_tpu_torch.orchestrator import Orchestrator
+
+    cwd = os.getcwd()
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-pbt-ondevice-")
+    os.chdir(workdir)
+    try:
+        orch = Orchestrator(workdir=workdir, device="cuda")
+        with captured_loops() as loops:
+            t0 = time.perf_counter()
+            exp = orch.run(spec)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    series = {int(tr.params()["pbt_slot"]): tuple(
+        tuple(log.value for log in orch.store.get(tr.name, m)) for m in ("accuracy", "pbt_parent"))
+        for tr in exp.trials.values()}
+    return exp, orch, workdir, wall, len(loops), series
+
+
+def phase_pbt_ondevice(torch) -> None:
+    """``pbt-ondevice.yaml`` as shipped through ``Orchestrator.run`` on
+    ``cuda``, twice, on synthetic digits; then its population drained at the
+    first generation boundary and resumed, through ``run_cohort``."""
+    import threading
+
+    from katib_tpu_torch.core import types as t
+    from katib_tpu_torch.models import pbt_digits
+    from katib_tpu_torch.models.data import synthetic_classification
+    from katib_tpu_torch.runner.cohort import run_cohort
+    from katib_tpu_torch.sdk.yaml_spec import load_experiment_yaml
+    from katib_tpu_torch.store.base import MemoryObservationStore
+    from katib_tpu_torch.suggest.base import make_suggester
+    from katib_tpu_torch.suggest.pbt import GENERATION_LABEL, PARENT_LABEL
+    from katib_tpu_torch.utils import observability as obs
+    from katib_tpu_torch.utils.checkpoint import TrialCheckpointer
+
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    # a fixture of this script: the trial's real digits come from
+    # scikit-learn, which the card's machine lacks; a synthetic set of the
+    # same shape (1,400 / 397 images of 8x8x1, 10 classes) stands in
+    pbt_digits._DATASET_CACHE[(1400, 397)] = synthetic_classification(1400, 397, (8, 8, 1), 10)
+    fallbacks = obs.cohort_fallbacks.get()
+    runs = []
+    for _ in range(2):
+        spec = load_experiment_yaml(PBT_ONDEVICE_YAML)
+        runs.append(pbt_ondevice_run(torch, spec))
+    exp, orch, workdir, wall, captures, series = runs[0]
+    s = spec.algorithm.settings
+    members, generations, steps = (int(s["n_population"]), int(s["generations"]),
+                                   int(s["steps_per_generation"]))
+    gens = spans_of(workdir, spec.name, "pbt-generation")
+    gen_s = sorted(g["dur"] for g in gens)
+    conditions = sorted({tr.condition.value for tr in exp.trials.values()})
+    labels = [tr.spec.labels for tr in exp.trials.values()]
+    print(f"pbt ondevice: {os.path.relpath(PBT_ONDEVICE_YAML, HERE)} ({members} members, "
+          f"{generations} generations of {steps} steps, batch 64, truncation "
+          f"{s['truncation_threshold']}, seed {s['random_state']}) through Orchestrator.run on "
+          f"cuda on SYNTHETIC digits (8x8x1, 1,400/397; no scikit-learn on this machine) "
+          f"({smi}): experiment {exp.condition.value} in {wall:.2f}s (rerun "
+          f"{runs[1][3]:.2f}s); {len(exp.trials)} trials {conditions}; captures {captures}",
+          flush=True)
+    print(f"pbt ondevice: seconds per generation min {gen_s[0]:.4f} median "
+          f"{statistics.median(gen_s):.4f} max {gen_s[-1]:.4f} (the first pays the capture); "
+          f"population {steps / statistics.median(gen_s):.0f} train steps/s = "
+          f"{members * steps / statistics.median(gen_s):.0f} member steps/s at the median; "
+          f"exploits per generation {[g['args']['exploits'] for g in gens]}; winners "
+          f"{[g['args']['winners'] for g in gens]}; best accuracy "
+          f"{exp.optimal.objective_value if exp.optimal else None} ({smi})", flush=True)
+    engine_stats("pbt ondevice", orch.async_stats)
+    check(exp.condition.value == "MaxTrialsReached", f"experiment {exp.condition.value}")
+    check(len(exp.trials) == members and conditions == ["Succeeded"], f"trials {conditions}")
+    check({lab[GENERATION_LABEL] for lab in labels} == {str(generations)},
+          f"generation labels {[lab[GENERATION_LABEL] for lab in labels]}")
+    check({lab[PARENT_LABEL] for lab in labels} <= set(exp.trials), "a parent is not a member")
+    check(len(gens) == generations, f"{len(gens)} pbt-generation spans")
+    check(captures == 1 and runs[1][4] == 1, f"captures {captures}, {runs[1][4]}")
+    check(runs[1][5] == series, "the same-seed rerun differs in scores or lineage")
+    print(f"pbt ondevice: same-seed rerun bit-equal in scores and lineage ({members} members x "
+          f"{generations} generations)", flush=True)
+    train_s, step_s = pbt_generation_parts(torch, members, steps, 64)
+    print(f"pbt ondevice: a generation's parts, median of 5 on the card: {steps} replayed train "
+          f"steps {train_s:.4f}s ({train_s / steps * 1e3:.4f} ms a step); eval, selection and "
+          f"clone {step_s - train_s:.4f}s; the rest of the median span (host transfers, report, "
+          f"{members} member checkpoints) {statistics.median(gen_s) - step_s:.4f}s", flush=True)
+
+    # drain at the first generation boundary, then resume on the same dirs
+    cwd = os.getcwd()
+    os.chdir(tempfile.mkdtemp(prefix="chip-smoke-pbt-drain-"))
+    try:
+        spec = load_experiment_yaml(PBT_ONDEVICE_YAML)
+        suggester = make_suggester(spec)
+        proposals = suggester.get_suggestions(t.Experiment(spec=spec), members)
+    finally:
+        os.chdir(cwd)
+
+    def population():
+        return [t.Trial(name=p.name, experiment_name=spec.name, spec=t.TrialSpec(
+            assignments=list(p.assignments), labels=dict(p.labels), train_fn=spec.train_fn),
+            checkpoint_dir=suggester.checkpoint_dir_for(p.name)) for p in proposals]
+
+    drain = threading.Event()
+    drain.set()
+    t0 = time.perf_counter()
+    drained = run_cohort(population(), MemoryObservationStore(), spec.objective,
+                         drain_event=drain, buckets=True, device="cuda")
+    drain_wall = time.perf_counter() - t0
+    kept = {p.name: TrialCheckpointer(suggester.checkpoint_dir_for(p.name)).all_steps()
+            for p in proposals}
+    store = MemoryObservationStore()
+    t0 = time.perf_counter()
+    resumed = run_cohort(population(), store, spec.objective, buckets=True, device="cuda")
+    torch.cuda.synchronize()
+    resume_wall = time.perf_counter() - t0
+    slot = {p.name: int(p.as_dict()["pbt_slot"]) for p in proposals}
+    steps_seen = {tuple(log.step for log in store.get(p.name, "accuracy")) for p in proposals}
+    replayed = all(tuple(log.value for log in store.get(p.name, "accuracy"))
+                   == series[slot[p.name]][0][1:] for p in proposals)
+    print(f"pbt ondevice: drained at the first boundary in {drain_wall:.2f}s: "
+          f"{sorted({r.condition.value for r in drained.values()})}, checkpoint generations "
+          f"{sorted({tuple(v) for v in kept.values()})}; resumed in {resume_wall:.2f}s: "
+          f"{sorted({r.condition.value for r in resumed.values()})}, generations reported "
+          f"{sorted(steps_seen)}; scores equal the uninterrupted run's: {replayed}", flush=True)
+    check(all(r.condition.value == "Drained" for r in drained.values()), "drain")
+    check(set(map(tuple, kept.values())) == {(0,)}, f"checkpoints after the drain {kept}")
+    check(len(resumed) == members and all(r.condition.value == "Succeeded"
+                                          for r in resumed.values()), "resume")
+    check(steps_seen == {tuple(range(1, generations))}, f"resumed generations {steps_seen}")
+    check(replayed, "the resumed generations differ from the uninterrupted run's")
+    check(obs.cohort_fallbacks.get() == fallbacks,
+          f"cohort fallbacks {fallbacks} -> {obs.cohort_fallbacks.get()}")
+    print(f"pbt ondevice: phase wall {time.perf_counter() - t_phase:.2f}s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1841,29 +2153,40 @@ def main() -> int:
             # the flash kernels keep their fragments and accumulators in registers
             check(name != "flash_attention" or spilled == 0, f"{kernel} spills {spilled} bytes")
 
-    max_err = phase_kernel_parity(torch, mixed_op)
-    flash_err = phase_flash_parity(torch, fa)
-    timing = phase_kernel_timing(torch, mixed_op)
-    flash_timing = phase_flash_timing(torch, fa)
-    phase_graph_vs_eager(torch)
-    launches, darts_dir, darts_reports = phase_main_path(torch, mixed_op)
-    phase_resume(darts_dir, darts_reports)
-    phase_small_reference(torch)
-    phase_orchestrator(torch, mixed_op)
-    phase_cli()
-    flash_launches = phase_transformer(
-        torch, fa, sum(t["ms"] for t in flash_timing.values()))
-    phase_classifier(torch)
-    whitebox_wall = phase_hyperband()
-    phase_blackbox(whitebox_wall)
-    phase_pbt(torch)
-    phase_asha(torch)
-    phase_async(torch)
-    phase_chaos()
-    phase_enas_parity(torch)
-    phase_enas_width(torch)
-    phase_enas_cli()
-    phase_enas_sharing(torch)
+    walls: dict[str, float] = {}
+
+    def timed(fn, *args):
+        """Run one phase and keep its wall for the ``phases:`` line."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[fn.__name__.removeprefix("phase_")] = round(time.perf_counter() - t0, 2)
+        return out
+
+    max_err = timed(phase_kernel_parity, torch, mixed_op)
+    flash_err = timed(phase_flash_parity, torch, fa)
+    timing = timed(phase_kernel_timing, torch, mixed_op)
+    flash_timing = timed(phase_flash_timing, torch, fa)
+    timed(phase_graph_vs_eager, torch)
+    launches, darts_dir, darts_reports = timed(phase_main_path, torch, mixed_op)
+    timed(phase_resume, darts_dir, darts_reports)
+    timed(phase_small_reference, torch)
+    timed(phase_orchestrator, torch, mixed_op)
+    timed(phase_cli)
+    flash_launches = timed(phase_transformer, torch, fa,
+                           sum(t["ms"] for t in flash_timing.values()))
+    timed(phase_classifier, torch)
+    whitebox_wall = timed(phase_hyperband)
+    timed(phase_blackbox, whitebox_wall)
+    timed(phase_pbt, torch)
+    timed(phase_asha, torch)
+    timed(phase_async, torch)
+    timed(phase_chaos)
+    timed(phase_enas_parity, torch)
+    timed(phase_enas_width, torch)
+    timed(phase_enas_cli)
+    timed(phase_enas_sharing, torch)
+    timed(phase_cohort, torch)
+    timed(phase_pbt_ondevice, torch)
 
     kernels = [{
         "name": "mixed_op_sum",
@@ -1884,6 +2207,7 @@ def main() -> int:
             "max_abs_err": flash_err[name],
             **flash_timing[name],
         })
+    print(f"phases: seconds each {walls}", flush=True)
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f}s (build included)",
           flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -27,6 +27,11 @@ layouts instead: a Dense kernel ``(in, out)`` becomes a Linear weight
 flattens its last feature map in NHWC order, as flax does, so its first
 Dense needs no permutation of rows.
 
+The on-device PBT digits model (:func:`pbt_digits_params_from_jax`) keeps
+the JAX layout (``w1`` ``(d_in, hidden)``, ``x @ w1``), so its parameters,
+and a stacked population of them (:func:`pbt_digits_state_from_jax`),
+carry over as they are.
+
 The ENAS child (:func:`enas_state_dict_from_flax`) keeps PyTorch's layout
 for its ``nn.Conv`` and ``nn.Dense`` layers, as the HP-tuning models do, and
 the flax layout for ``DepthwiseConv``; its op modules carry flax's names
@@ -48,6 +53,7 @@ from katib_tpu_torch.nas.enas.child import ConvBias, EnasChild
 from katib_tpu_torch.nas.enas.controller import ControllerParams
 from katib_tpu_torch.nas.darts.model import Alphas, Cell
 from katib_tpu_torch.nas.darts.ops import EdgeGroup
+from katib_tpu_torch.parallel.train import TrainState
 
 
 def _children(module: nn.Module, prefix: str) -> Iterator[tuple[str, nn.Module]]:
@@ -227,3 +233,23 @@ def _leaf_paths(tree: dict, path: tuple = ()) -> Iterator[tuple]:
 def alphas_from_jax(alphas: Any) -> Alphas:
     """The port's :class:`Alphas` from the JAX package's (numpy-convertible)."""
     return Alphas(*(torch.from_numpy(np.array(a, dtype=np.float32)) for a in alphas))
+
+
+def pbt_digits_params_from_jax(params: Any) -> dict[str, torch.Tensor]:
+    """The port's ``models/pbt_digits.py`` parameters (CPU, float32) from the
+    JAX package's ``{w1, b1, w2, b2}`` (numpy-convertible, with or without a
+    leading member axis).  Raises if a name is missing or left over."""
+    names = ("w1", "b1", "w2", "b2")
+    if sorted(params) != sorted(names):
+        raise ValueError(f"pbt_digits parameters are {names}, got {sorted(params)}")
+    return {k: torch.from_numpy(np.array(params[k], dtype=np.float32)) for k in names}
+
+
+def pbt_digits_state_from_jax(state: Any) -> TrainState:
+    """A stacked on-device PBT population of the JAX package
+    (``{"params", "velocity", "step"}``, each ``[K, ...]``) as the port's
+    stacked :class:`TrainState`: the step counter (int32), the parameters,
+    and the momentum trace as the optimizer state."""
+    return TrainState(torch.from_numpy(np.array(state["step"], dtype=np.int32)),
+                      pbt_digits_params_from_jax(state["params"]),
+                      pbt_digits_params_from_jax(state["velocity"]))

@@ -17,9 +17,11 @@ trial (port of ``katib_tpu/models/mnist.py``).
   runs in :class:`EpochLoop`: on a CUDA device each step is one replay of a
   captured CUDA graph (the counterpart of the JAX ``lax.scan`` epoch); with
   ``device_data`` off each batch is gathered on the host and stepped eagerly.
-- :func:`mnist_trial`, the white-box trial, and its prewarm and cohort twins,
-  which raise until ``compile/prewarm.py`` and ``runner/cohort.py`` are
-  ported (ROADMAP Queue 1 items 6 and 10).
+- :func:`mnist_trial`, the white-box trial, and its cohort twin
+  :func:`mnist_cohort_trial`, which trains K members differing in lr and
+  momentum as one vectorized program through the same :class:`EpochLoop`;
+  the prewarm twin raises until ``compile/prewarm.py`` is ported (ROADMAP
+  Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -44,9 +46,14 @@ from katib_tpu_torch.parallel.train import (
     TrainState,
     accuracy,
     cross_entropy_loss,
+    make_cohort_eval_step,
+    make_cohort_train_step,
     make_eval_step,
     make_train_step,
+    member_view,
+    stack_pytrees,
 )
+from katib_tpu_torch.runner.cohort import attach_cohort_fn
 from katib_tpu_torch.utils import tracing
 from katib_tpu_torch.utils.booleans import parse_bool
 
@@ -206,6 +213,21 @@ class Sgd:
             trace = dict(zip(keys, g))
         return _apply(params, keys, g, hp["learning_rate"]), SgdState(hp, trace)
 
+    def update_members(self, grads: dict, state: SgdState, params: dict) -> tuple[dict, SgdState]:
+        """:meth:`update` over a stacked ``[K, ...]`` cohort state whose
+        hyperparameters are ``[K]`` rows: the same operations, tensor by
+        tensor, each hyperparameter broadcast over its member's row (a
+        foreach op would broadcast a ``[K]`` value along the last axis)."""
+        hp = state.hyperparams
+        new, trace = {}, {}
+        for k, p in params.items():
+            g = grads[k]
+            if self.momentum:
+                g = g + state.trace[k] * member_view(hp["momentum"], g)
+                trace[k] = g
+            new[k] = p + g * -member_view(hp["learning_rate"], g)
+        return new, SgdState(hp, trace)
+
 
 class Adam:
     """``optax.inject_hyperparams(optax.adam)``: ``mu = (1 - b1) g + b1 mu``,
@@ -245,6 +267,25 @@ class Adam:
         den = [torch.sqrt(v + hp["eps_root"]) + hp["eps"] for v in nu_hat]
         new = _apply(params, keys, torch._foreach_div(mu_hat, den), hp["learning_rate"])
         return new, AdamState(state.hyperparams, count, dict(zip(keys, mu)), dict(zip(keys, nu)))
+
+    def update_members(self, grads: dict, state: AdamState, params: dict) -> tuple[dict, AdamState]:
+        """:meth:`update` over a stacked ``[K, ...]`` cohort state whose
+        hyperparameters and count are ``[K]`` rows, tensor by tensor (see
+        :meth:`Sgd.update_members`)."""
+        hp = {**self.DEFAULTS, **state.hyperparams}
+        count = state.count + 1
+        new, mu, nu = {}, {}, {}
+        for k, p in params.items():
+            g = grads[k]
+            v = lambda h: member_view(h, g) if torch.is_tensor(h) else h  # noqa: E731
+            b1, b2, c = v(hp["b1"]), v(hp["b2"]), v(count)
+            mu[k] = g * (1 - b1) + state.mu[k] * b1
+            nu[k] = g * g * (1 - b2) + state.nu[k] * b2
+            mu_hat = mu[k] / (1 - b1 ** c)
+            nu_hat = nu[k] / (1 - b2 ** c)
+            new[k] = p + mu_hat / (torch.sqrt(nu_hat + v(hp["eps_root"])) + v(hp["eps"])) * \
+                -v(hp["learning_rate"])
+        return new, AdamState(state.hyperparams, count, mu, nu)
 
 
 def _family_optimizer(name: str):
@@ -320,12 +361,15 @@ class EpochLoop:
     ``thread_local`` mode under the device's capture lock (as the DARTS step
     loop does, ``nas/darts/step_loop.py``) and replayed; a failed capture or
     replay raises.  On the CPU, or with ``capture=False``, the same step
-    function runs eagerly, one call per step, over the same buffers."""
+    function runs eagerly, one call per step, over the same buffers.
+
+    ``loss_shape`` is the shape of one step's loss: ``()`` for one trial,
+    ``(K,)`` for a cohort step over a stacked ``[K, ...]`` state."""
 
     def __init__(self, step: Callable, state: TrainState, x_train: torch.Tensor,
                  y_train: torch.Tensor, steps: int, batch_size: int,
                  augment_fn: Callable | None = None, aug_key: int = 0,
-                 capture: bool | None = None):
+                 capture: bool | None = None, loss_shape: tuple = ()):
         if steps < 1:
             raise ValueError(f"an epoch loop needs at least one step per epoch, got {steps}")
         device = state.step.device
@@ -334,11 +378,12 @@ class EpochLoop:
             raise ValueError(f"a CUDA graph needs a CUDA device, the state is on {device}")
         self.step_fn, self.x, self.y = step, x_train, y_train
         self.augment_fn, self.aug_key, self.steps = augment_fn, aug_key, steps
+        self.loss_shape = tuple(loss_shape)
         self.bufs = (
             _clone(state),
             torch.zeros(steps, batch_size, dtype=torch.int64, device=device),
             torch.zeros(1, dtype=torch.int64, device=device),
-            torch.zeros(steps, dtype=torch.float32, device=device),
+            torch.zeros(steps, *self.loss_shape, dtype=torch.float32, device=device),
         )
         self.graph: torch.cuda.CUDAGraph | None = None
         self.capture_s = 0.0
@@ -349,7 +394,8 @@ class EpochLoop:
 
     @property
     def losses(self) -> torch.Tensor:
-        """The last epoch's ``[steps]`` float32 losses, on the device."""
+        """The last epoch's ``[steps, *loss_shape]`` float32 losses, on the
+        device."""
         return self.bufs[3]
 
     def _step(self, bufs) -> None:
@@ -362,7 +408,7 @@ class EpochLoop:
             xb = self.augment_fn(self.aug_key, state.step, xb)
         new, metrics = self.step_fn(state, (xb, self.y.index_select(0, rows)))
         _copy_(state, new)
-        losses.index_copy_(0, pos, metrics["loss"].float().reshape(1))
+        losses.index_copy_(0, pos, metrics["loss"].float().reshape(1, *self.loss_shape))
         pos.add_(1)
 
     def _build_graph(self) -> None:
@@ -578,13 +624,97 @@ def mnist_trial(ctx) -> None:
     )
 
 
+def cohort_classifier_steps(model: nn.Module, optimizer: str, lrs: torch.Tensor,
+                            momenta: torch.Tensor, params: dict,
+                            members: int) -> tuple[Callable, Callable, TrainState]:
+    """:func:`classifier_steps` for a cohort (``_build_cohort_steps`` of the
+    JAX package): the cohort train step, the cohort evaluation
+    (``{"accuracy", "loss"}``, each ``[members]``) and the initial state,
+    ``params`` stacked ``members`` times with the ``[members]`` learning
+    rates and momenta written into the family's state.
+
+    The JAX package keeps built steps in an LRU (``_cohort_steps_for``) so a
+    later cohort of the same shapes reuses the compiled executable; a torch
+    step is a closure that costs nothing to build, and its CUDA graph
+    belongs to one cohort's :class:`EpochLoop` buffers, so nothing is kept."""
+    tx = _family_optimizer(optimizer)
+
+    def loss_fn(params, batch):
+        return cross_entropy_loss(torch.func.functional_call(model, params, (batch[0],)),
+                                  batch[1])
+
+    def metric_fn(params, batch):
+        logits = torch.func.functional_call(model, params, (batch[0],))
+        return {"accuracy": accuracy(logits, batch[1]),
+                "loss": cross_entropy_loss(logits, batch[1])}
+
+    state = stack_pytrees([TrainState.create(params, tx)] * members)
+    hp = dict(state.opt_state.hyperparams)
+    hp["learning_rate"] = lrs
+    if "momentum" in hp:
+        hp["momentum"] = momenta
+    state = state._replace(opt_state=state.opt_state._replace(hyperparams=hp))
+    return make_cohort_train_step(loss_fn, tx), make_cohort_eval_step(metric_fn), state
+
+
 def mnist_cohort_trial(cctx) -> None:
-    """Cohort twin of :func:`mnist_trial` (members differing only in lr and
-    momentum trained as one vectorized program); not ported yet."""
-    raise NotImplementedError(
-        "mnist_trial's cohort twin needs vectorized cohorts "
-        "(katib_tpu/runner/cohort.py), not ported yet"
-    )
+    """Cohort twin of :func:`mnist_trial`: K members differing only in lr and
+    momentum train as one vectorized program over stacked ``[K, ...]``
+    states.
+
+    Structural knobs (arch, units, batch size, ...) go through
+    ``cctx.shared``: members that disagree belong in different cohorts.
+    lr and momentum ride as ``[K]`` rows of the optimizer state.  The
+    weights are drawn as :func:`mnist_trial` draws them (one generator
+    seeded 0) and the batch schedule is ``train_classifier``'s with seed 0
+    (one ``default_rng(0)`` permutation per epoch, truncated to whole
+    batches), so each member follows its serial run.  The steps run in one
+    :class:`EpochLoop` over the stacked state: one captured step replayed
+    per batch on a CUDA device.  Rows past ``len(cctx)`` are ghost members
+    (``cctx.padded_size`` with shape buckets) that ``cctx.report`` drops.
+    Each epoch records a ``cohort.epoch`` span; the capturing epoch's
+    carries ``graph_capture_s``.
+
+    The JAX twin's compile-artifact dispatch and cost observation
+    (``compile_artifacts.resolve``, ``costmodel.observe_program``) wait for
+    the compile and cost layer (ROADMAP Queue 1 item 8)."""
+    arch = str(cctx.shared("arch", "mlp"))
+    if arch == "cnn":
+        model = SmallCNN(channels=int(cctx.shared("channels", 32)))
+    else:
+        model = MLP(units=int(cctx.shared("units", 64)),
+                    num_layers=int(cctx.shared("num_layers", 2)))
+    seed = 0  # train_classifier's default, as in mnist_trial: cohort == serial
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    dataset = _cached_mnist(int(cctx.shared("n_train", 4096)), int(cctx.shared("n_test", 1024)))
+    epochs = int(cctx.shared("epochs", 3))
+    batch_size = int(cctx.shared("batch_size", 256))
+    optimizer = str(cctx.shared("optimizer", "momentum"))
+    members = cctx.padded_size
+    model.to(resolve_device(cctx.device))
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    step, evaluate, state = cohort_classifier_steps(
+        model, optimizer, cctx.stacked("lr", 0.05, torch.float32),
+        cctx.stacked("momentum", 0.9, torch.float32), params, members)
+    state = cctx.place_members(state)
+    x_train, y_train = cctx.place_shared((dataset.x_train, dataset.y_train))
+    n = len(dataset.x_train) // batch_size
+    ne = min(1024, len(dataset.x_test))
+    ebatch = cctx.place_shared((dataset.x_test[:ne], dataset.y_test[:ne]))
+    loop = EpochLoop(step, state, x_train, y_train, n, batch_size, loss_shape=(members,))
+    rng = np.random.default_rng(seed)
+    for epoch in range(epochs):
+        t_epoch = time.perf_counter()
+        idx = rng.permutation(len(dataset.x_train))[: n * batch_size].reshape(n, batch_size)
+        capturing = loop.capture and loop.graph is None
+        loop.run_epoch(idx)
+        metrics = evaluate(loop.state.params, ebatch)
+        loss = loop.losses.sum(0) / n
+        span_attrs = {"graph_capture_s": round(loop.capture_s, 3)} if capturing else {}
+        tracing.record_span("cohort.epoch", time.perf_counter() - t_epoch, epoch=epoch,
+                            steps=n, members=members, **span_attrs)
+        if not cctx.report(step=epoch, accuracy=metrics["accuracy"], loss=loss):
+            break
 
 
 def mnist_prewarm(shared: dict, k: int, mesh=None) -> None:
@@ -595,8 +725,10 @@ def mnist_prewarm(shared: dict, k: int, mesh=None) -> None:
     )
 
 
-# the twins the JAX package attaches (``attach_cohort_fn``,
-# ``attach_prewarm_fn``): the orchestrator engages cohorts and prewarm only for
-# a train_fn that declares them, so the port refuses exactly where they would run
-mnist_trial.__cohort_fn__ = mnist_cohort_trial
+# opt-in: the orchestrator batches compatible mnist_trial proposals through
+# the vectorized twin when the experiment declares a cohort (runner/cohort.py).
+# The prewarm twin is declared as in the JAX package (``attach_prewarm_fn``):
+# the orchestrator engages prewarm only for a train_fn that declares it, so
+# the port refuses exactly where it would run
+attach_cohort_fn(mnist_trial, mnist_cohort_trial)
 mnist_trial.__prewarm_fn__ = mnist_prewarm

@@ -65,11 +65,9 @@ the mesh critical path is untouched.
 
 Port of ``katib_tpu/orchestrator/async_loops.py``.  The loops are host
 code: no loop thread touches the device, only the pool threads running
-trials do.  Two parts cannot engage yet and refuse where they would: a
-trial mesh (``parallel/mesh.py``) raises here, and cohort packing engages
-only for a train_fn with a cohort twin and a width above one, which
-``Orchestrator._refuse_unported`` refuses before the engine starts; with
-neither, every unit is a singleton.
+trials and cohorts (``runner/cohort.py``) do.  A trial mesh
+(``parallel/mesh.py``) raises here; cohort packing engages for a train_fn
+with a cohort twin and a width above one.
 """
 
 from __future__ import annotations

@@ -26,9 +26,10 @@ which runs every experiment unless ``asyncOrch: false`` or
 loop, settlement, drain, retries, the journal and the cleanup.  Trials run
 on ``device`` (``cuda`` unless the caller names the CPU).  What the port
 does not have yet raises ``NotImplementedError`` when a run asks for it
-(:meth:`Orchestrator._refuse_unported`): a mesh, cohorts, a declared
-prewarm twin, the compile cache and artifact directory, a slice allocator
-and the profiler.
+(:meth:`Orchestrator._refuse_unported`): a mesh, a declared prewarm twin,
+the compile cache and artifact directory, a slice allocator and the
+profiler.  Vectorized cohorts (``runner/cohort.py``) run on the trial
+device, grouped by both loops.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import threading
 import traceback
 
 from katib_tpu_torch.core.types import (
+    COHORT_KEY_LABEL,
     Experiment,
     ExperimentCondition,
     ExperimentSpec,
@@ -52,7 +54,7 @@ from katib_tpu_torch.core.types import (
 from katib_tpu_torch.core.validation import validate_experiment
 from katib_tpu_torch.device import resolve_device
 from katib_tpu_torch.earlystop.rules import make_early_stopper
-from katib_tpu_torch.runner.cohort import cohort_fn_of
+from katib_tpu_torch.runner.cohort import cohort_fn_of, run_cohort
 from katib_tpu_torch.runner.trial_runner import (
     TrialResult,
     init_compile_cache,
@@ -532,11 +534,21 @@ class Orchestrator:
                                 count=len(proposals),
                                 outcome=outcome,
                             )
-                        for p in proposals:
-                            trial = self._materialize(exp, p, early_stopper, suggester)
-                            futures[
-                                get_clock().submit(pool, self._execute, exp, trial, mesh)
-                            ] = trial
+                        for group in self._group_proposals(spec, proposals):
+                            trials = [
+                                self._materialize(exp, p, early_stopper, suggester)
+                                for p in group
+                            ]
+                            if len(trials) == 1:
+                                futures[
+                                    get_clock().submit(pool, self._execute, exp, trials[0], mesh)
+                                ] = trials[0]
+                            else:
+                                # one pool slot runs the whole cohort; the
+                                # member list keeps _shortfall's budget honest
+                                futures[
+                                    get_clock().submit(pool, self._execute_cohort, exp, trials, mesh)
+                                ] = trials
                         if proposals:
                             self._persist_suggester(exp, suggester)
                             # journal the newly in-flight trials so a crash here
@@ -759,20 +771,14 @@ class Orchestrator:
                 "KATIB_ARTIFACT_DIR): the port has no serialized-executable "
                 "tier yet (katib_tpu/compile/artifacts.py)"
             )
-        # the JAX orchestrator engages its prewarmer and its cohorts only for
-        # a train_fn that declares the twin (``compile/prewarm.py``,
-        # ``runner/cohort.py``); elsewhere both are no-ops, as here
+        # the JAX orchestrator engages its prewarmer only for a train_fn that
+        # declares the twin (``compile/prewarm.py``); elsewhere it is a
+        # no-op, as here
         if spec.prewarm and getattr(spec.train_fn, PREWARM_ATTR, None) is not None:
             raise NotImplementedError(
                 "spec prewarm with a train_fn that declares a prewarm twin asks "
                 "for the background compile prewarmer "
                 "(katib_tpu/compile/prewarm.py), not ported yet"
-            )
-        if spec.cohort_width > 1 and cohort_fn_of(spec.train_fn) is not None:
-            raise NotImplementedError(
-                f"cohortWidth={spec.cohort_width} with a train_fn that declares "
-                "a cohort twin asks for vectorized cohorts "
-                "(katib_tpu/runner/cohort.py), not ported yet"
             )
         if self.slice_allocator is not None:
             raise NotImplementedError(
@@ -802,6 +808,37 @@ class Orchestrator:
     #: engine's packing; the port has no trial-axis mesh yet)
     _TRIAL_MESH_KEY = "trial-mesh"
 
+    def _group_proposals(self, spec: ExperimentSpec, proposals: list) -> list[list]:
+        """Partition a batch of proposals into cohort groups (each submitted
+        as ONE vectorized program, ``runner/cohort.py``) for the synchronous
+        loop; the async engine packs its ready queue the same way.
+
+        Grouping needs a cohort width above one AND a train_fn with a
+        declared cohort twin.  Compatibility key: the per-proposal
+        ``katib-tpu/cohort-key`` label (suggesters stamp it when members
+        must share a program), falling back to the spec-wide
+        ``cohort_key``; keyless proposals stay singletons.  The key is
+        stamped back into the proposal labels so the journal and status
+        show which cohort a trial rode in.  The port has no trial-axis
+        mesh (:meth:`_resolve_mesh` raises for one), so the width is the
+        spec's."""
+        width = spec.cohort_width
+        if width <= 1 or cohort_fn_of(spec.train_fn) is None:
+            return [[p] for p in proposals]
+        groups: list[list] = []
+        buckets: dict[str, list] = {}
+        for p in proposals:
+            key = p.labels.get(COHORT_KEY_LABEL) or spec.cohort_key
+            if not key:
+                groups.append([p])
+                continue
+            p.labels.setdefault(COHORT_KEY_LABEL, key)
+            buckets.setdefault(key, []).append(p)
+        for bucket in buckets.values():
+            for i in range(0, len(bucket), width):
+                groups.append(bucket[i : i + width])
+        return groups
+
     def _submit_prewarm(self, spec: ExperimentSpec, trials: list[Trial], mesh) -> None:
         """Enqueue one group's compile signature on the prewarm worker.  The
         JAX worker compiles only for a train_fn that declares a prewarm
@@ -809,12 +846,69 @@ class Orchestrator:
         starts; for every other train_fn it does nothing, as here."""
 
     def _execute_cohort(self, exp: Experiment, trials: list[Trial], mesh):
-        """A cohort on one pool thread: engaged only for a train_fn with a
-        cohort twin and a width above one, a run that
-        :meth:`_refuse_unported` refuses before the engine starts."""
-        raise NotImplementedError(
-            "vectorized cohorts (katib_tpu/runner/cohort.py) are not ported yet"
-        )
+        """Run a cohort on one pool thread; returns ``{name: TrialResult}``.
+        Never raises (harvest calls ``f.result()`` bare).
+
+        Retry semantics for members mirror the serial ``_execute_with_retry``
+        families, but a retried member REJOINS AS A SINGLETON: its cohort
+        peers have already finished, so the re-run goes through the ordinary
+        serial path (same name + checkpoint dir, full remaining budget)."""
+        with tracing.use_tracer(self._tracer):
+            try:
+                results = run_cohort(
+                    trials,
+                    self.store,
+                    exp.spec.objective,
+                    mesh=mesh,
+                    stop_event=self._stop_event,
+                    injector=self.fault_injector,
+                    watchdog=self._watchdog,
+                    drain_event=self._drain_event,
+                    buckets=exp.spec.cohort_buckets,
+                    device=self.device,
+                )
+            except Exception as e:  # defense: run_cohort itself never raises
+                results = {
+                    t.name: TrialResult(
+                        TrialCondition.FAILED,
+                        traceback.format_exc(limit=20),
+                        failure_kind=faults.classify_exception(e),
+                    )
+                    for t in trials
+                }
+            for t in trials:
+                r = results.get(t.name)
+                if r is None:
+                    results[t.name] = TrialResult(
+                        TrialCondition.FAILED,
+                        "cohort returned no result for member",
+                        failure_kind=faults.FailureKind.PERMANENT,
+                    )
+                    continue
+                if (
+                    r.condition is TrialCondition.FAILED
+                    and r.failure_kind is not None
+                    and r.failure_kind.retryable
+                    and t.retry_count < t.spec.max_retries
+                    and not self._stop_event.is_set()
+                    and not self._drain_event.is_set()
+                ):
+                    t.retry_count += 1
+                    t.failure_kind = r.failure_kind.value
+                    obs.trials_retried.inc(kind=r.failure_kind.value)
+                    # kill window: budget spent in memory, not yet durable —
+                    # the journal record below is what makes it crash-proof
+                    faults.crash_point("retry.budget")
+                    self._jappend("retried", exp, trial=t)
+                    self._publish(exp)
+                    results[t.name] = self._execute(exp, t, mesh)
+                elif (
+                    r.condition is TrialCondition.METRICS_UNAVAILABLE
+                    and t.spec.metrics_retries > 0
+                    and not self._stop_event.is_set()
+                ):
+                    results[t.name] = self._execute(exp, t, mesh)
+            return results
 
     def _execute(self, exp: Experiment, trial: Trial, mesh):
         # invariant: never raises — _harvest calls f.result() bare.

@@ -6,9 +6,11 @@ trials use)."""
 from __future__ import annotations
 
 import math
+import threading
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.utils._pytree import tree_map
 
 
 class TrainState(NamedTuple):
@@ -50,6 +52,90 @@ def make_eval_step(metric_fn: Callable[[dict, Any], dict]) -> Callable:
     def evaluate(params: dict, batch) -> dict:
         with torch.no_grad():
             return metric_fn(params, batch)
+
+    return evaluate
+
+
+# -- vectorized trial cohorts -------------------------------------------------
+
+
+def stack_pytrees(trees):
+    """Stack K structurally identical pytrees into one ``[K, ...]`` pytree
+    (member k of the cohort lives at leading-axis row k)."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def unstack_pytree(tree, k: int):
+    """Inverse of :func:`stack_pytrees`: one ``[K, ...]`` pytree -> K pytrees."""
+    return [tree_map(lambda x: x[i], tree) for i in range(k)]
+
+
+def member_view(h: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A per-member ``[K]`` value (or a 0-d one) shaped to broadcast over
+    the member axis of a stacked ``[K, ...]`` tensor ``t``: ``[K, 1, ..., 1]``."""
+    return h.reshape(h.shape + (1,) * (t.ndim - h.ndim))
+
+
+class _BuildCounter:
+    """Counts builds of the cohort step (``katib_tpu``'s
+    ``cohort_trace_counter``, which counts jit traces): a K-member cohort
+    builds one step, not K, and on a CUDA device captures it once."""
+
+    def __init__(self) -> None:
+        self.count = 0
+        self._lock = threading.Lock()
+
+    def bump(self) -> None:
+        with self._lock:
+            self.count += 1
+
+
+cohort_build_counter = _BuildCounter()
+
+
+def make_cohort_train_step(loss_fn: Callable[[dict, Any], torch.Tensor], tx) -> Callable:
+    """``step(states, batch) -> (states, {"loss": [K]})`` over a whole cohort
+    (``katib_tpu/parallel/train.py:125``).
+
+    ``states`` is a stacked ``[K, ...]`` :class:`TrainState` (one member per
+    leading row, its hyperparameters ``[K]`` rows of the optimizer state);
+    the batch is shared.  The members' forward passes run as one batched
+    program (``torch.func.vmap`` of ``loss_fn`` over the parameters), and
+    one backward pass of the summed ``[K]`` losses gives each member its own
+    gradient, since no member's loss reads another's parameters.  ``tx``
+    updates the stacked state with ``update_members(grads, opt_state,
+    params)``.
+
+    Divergence is contained per member: a row whose loss is non-finite
+    keeps its previous state (``torch.where`` on the device, no host
+    read), so one blown-up member never poisons the rest."""
+    cohort_build_counter.bump()
+    losses_of = torch.func.vmap(loss_fn, in_dims=(0, None))
+
+    def step(states: TrainState, batch) -> tuple[TrainState, dict]:
+        params = {k: v.detach().requires_grad_() for k, v in states.params.items()}
+        loss = losses_of(params, batch)
+        grads = dict(zip(params, torch.autograd.grad(loss.sum(), list(params.values()),
+                                                     allow_unused=True,
+                                                     materialize_grads=True)))
+        new_params, opt_state = tx.update_members(grads, states.opt_state, states.params)
+        new = TrainState(states.step + 1, new_params, opt_state)
+        loss = loss.detach()
+        ok = torch.isfinite(loss)
+        kept = tree_map(lambda n, o: torch.where(member_view(ok, n), n, o), new, states)
+        return kept, {"loss": loss}
+
+    return step
+
+
+def make_cohort_eval_step(metric_fn: Callable[[dict, Any], dict]) -> Callable:
+    """``evaluate(params, batch) -> metrics`` over stacked ``[K, ...]``
+    parameters with a shared batch; each metric comes back ``[K]``."""
+    batched = torch.func.vmap(metric_fn, in_dims=(0, None))
+
+    def evaluate(params: dict, batch) -> dict:
+        with torch.no_grad():
+            return batched(params, batch)
 
     return evaluate
 

@@ -2,11 +2,11 @@
 
 Copy of ``katib_tpu/suggest/algorithms.py`` limited to the ported
 suggesters: ``asha``, ``bayesianoptimization``, ``cmaes``, ``grid``,
-``hyperband``, ``pbt``, ``random``, ``sobol``, ``tpe`` and
-``multivariate-tpe`` register here, ``darts`` and ``enas`` lazily from
+``hyperband``, ``pbt``, ``pbt-ondevice``, ``random``, ``sobol``, ``tpe``
+and ``multivariate-tpe`` register here, ``darts`` and ``enas`` lazily from
 ``nas/darts/service.py`` and ``nas/enas/service.py``.  The JAX registry's
-other two algorithms are listed in :data:`UNPORTED_ALGORITHMS` with the JAX
-module each would port, and ``base.make_suggester`` raises
+other algorithm, ``remote``, is listed in :data:`UNPORTED_ALGORITHMS` with
+the JAX module it would port, and ``base.make_suggester`` raises
 ``NotImplementedError`` naming that module.  scipy (``sobol``,
 ``bayesianoptimization``) and scikit-learn (``bayesianoptimization``) are
 imported at first use, so importing this module needs neither.
@@ -30,6 +30,5 @@ LAZY_ALGORITHMS = {
 
 #: the JAX registry's other algorithms -> the module each would port
 UNPORTED_ALGORITHMS = {
-    "pbt-ondevice": "katib_tpu/suggest/pbt.py, katib_tpu/parallel/pbt.py",
     "remote": "katib_tpu/suggest/service.py",
 }

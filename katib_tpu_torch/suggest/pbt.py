@@ -1,9 +1,9 @@
-"""Population-Based Training: the host ``pbt`` suggester.
+"""Population-Based Training: the host ``pbt`` suggester and
+``pbt-ondevice``, which evolves the population as one vectorized cohort
+(``parallel/pbt.py``).
 
-Copy of ``katib_tpu/suggest/pbt.py`` without ``pbt-ondevice``, which evolves
-a population as one vectorized cohort (``katib_tpu/parallel/pbt.py``) and
-waits for the port's cohorts.  The journaled ``state_dict`` is the JAX
-suggester's JSON, so either package resumes the other's run.
+Copy of ``katib_tpu/suggest/pbt.py``.  The journaled ``state_dict`` is the
+JAX suggester's JSON, so either package resumes the other's run.
 
 Capability parity with the reference's ``pbt`` service
 (``pkg/suggestion/v1beta1/pbt/service.py``): a job queue seeded from the
@@ -35,6 +35,7 @@ import uuid
 import numpy as np
 
 from katib_tpu_torch.core.types import (
+    COHORT_KEY_LABEL,
     Experiment,
     ExperimentSpec,
     ParameterAssignment,
@@ -46,6 +47,26 @@ from katib_tpu_torch.suggest.space import SpaceEncoder
 
 GENERATION_LABEL = "pbt-generation"
 PARENT_LABEL = "pbt-parent"
+
+#: cohort key stamped on every pbt-ondevice member so the orchestrator
+#: groups the whole population into ONE vectorized program
+ONDEVICE_COHORT_KEY = "pbt-ondevice"
+
+
+def resolve_pbt_ondevice(spec: ExperimentSpec) -> bool:
+    """Whether ``pbt-ondevice`` actually evolves on device.  Escape-hatch
+    precedence: ``KATIB_PBT_ONDEVICE`` env > ``spec.pbt_ondevice``
+    (``pbtOnDevice`` YAML knob) > the ``on_device`` algorithm setting >
+    default ON."""
+    env = os.environ.get("KATIB_PBT_ONDEVICE")
+    if env:
+        return env.strip().lower() not in ("0", "false", "no", "off")
+    if getattr(spec, "pbt_ondevice", None) is not None:
+        return bool(spec.pbt_ondevice)
+    raw = spec.algorithm.settings.get("on_device")
+    if raw is not None:
+        return str(raw).strip().lower() not in ("0", "false", "no", "off")
+    return True
 
 class _PbtJob:
     def __init__(self, uid: str, params: dict, generation: int, parent: str | None):
@@ -288,3 +309,115 @@ class PbtSuggester(Suggester):
         self.completed = completed
         self.pool_current = pool_current
         self.pool_previous = pool_previous
+
+
+@register("pbt-ondevice")
+class PbtOnDeviceSuggester(PbtSuggester):
+    """PBT whose generations run ON DEVICE: the whole population dispatches
+    once as a single cohort and evolves there (``parallel/pbt.py``) —
+    exploit is an ``index_select`` permutation over the stacked ``[K, ...]``
+    member axis, explore a perturbation drawn on the device, and the host
+    sees only generation-boundary summaries.
+
+    Additional settings over ``pbt``: ``generations`` (evolution rounds per
+    dispatch, default 8), ``steps_per_generation`` (train steps between
+    selections, default 60), ``on_device`` ("false" falls back to the exact
+    host ``PbtSuggester`` exchange — the escape hatch, also reachable via
+    ``spec.pbt_ondevice`` / ``KATIB_PBT_ONDEVICE``).
+
+    Requires a cohort-capable train_fn whose cohort twin understands the
+    ``pbt_*`` shared assignments (e.g.
+    ``katib_tpu_torch.models.pbt_digits.pbt_digits_trial``).  Lineage labels
+    (generation, parent) are settled onto the member trials by the cohort
+    fn at every generation boundary, and per-generation ``pbt_parent`` /
+    ``pbt_exploit`` metric rows land in the ObservationStore, so journal
+    and status see the same history the host exchange would produce.
+    """
+
+    @classmethod
+    def validate(cls, spec: ExperimentSpec) -> None:
+        super().validate(spec)
+        s = spec.algorithm.settings
+        for key in ("generations", "steps_per_generation"):
+            if key in s and int(s[key]) < 1:
+                raise SuggesterError(f"{key} must be >= 1")
+        if resolve_pbt_ondevice(spec):
+            pop = int(s["n_population"])
+            if spec.max_trial_count is not None and spec.max_trial_count < pop:
+                raise SuggesterError(
+                    "pbt-ondevice dispatches the whole population as one "
+                    f"cohort: max_trial_count ({spec.max_trial_count}) must "
+                    f"be >= n_population ({pop})"
+                )
+
+    def __init__(self, spec: ExperimentSpec):
+        super().__init__(spec)
+        s = spec.algorithm.settings
+        self.generations = int(s.get("generations", 8))
+        self.steps_per_generation = int(s.get("steps_per_generation", 60))
+        self.on_device = resolve_pbt_ondevice(spec)
+        self._dispatched = False
+        if self.on_device:
+            # the population is ONE cohort: widen the orchestrator's
+            # grouping window so it never splits the members
+            spec.cohort_width = max(spec.cohort_width, self.population)
+
+    def get_suggestions(
+        self, experiment: Experiment, count: int
+    ) -> list[TrialAssignmentSet]:
+        if not self.on_device:
+            # escape hatch: exact host checkpoint-exchange semantics
+            return super().get_suggestions(experiment, count)
+        self._sync(experiment)
+        if self._dispatched:
+            return []  # one dispatch per experiment -> exhausted
+        self._dispatched = True
+        from katib_tpu_torch.parallel.pbt import specs_from_parameters, specs_to_json
+
+        space_json = specs_to_json(specs_from_parameters(self.spec.parameters))
+        jobs = self.pending[: self.population]
+        self.pending = self.pending[self.population :]
+        out = []
+        for slot, job in enumerate(jobs):
+            self.running[job.uid] = job
+            assignments = [
+                ParameterAssignment(k, v) for k, v in job.params.items()
+            ]
+            # generation-step config rides as shared assignments: the
+            # cohort fn reads them via cctx.shared() so the whole
+            # population provably agrees on the program
+            assignments += [
+                ParameterAssignment("pbt_slot", slot),
+                ParameterAssignment("pbt_population", self.population),
+                ParameterAssignment("pbt_generations", self.generations),
+                ParameterAssignment(
+                    "pbt_steps_per_generation", self.steps_per_generation
+                ),
+                ParameterAssignment("pbt_truncation", self.truncation),
+                ParameterAssignment("pbt_seed", int(self.seed() % (2**31))),
+                ParameterAssignment("pbt_space", space_json),
+            ]
+            if self.resample_p is not None:
+                assignments.append(
+                    ParameterAssignment("pbt_resample_p", self.resample_p)
+                )
+            out.append(
+                TrialAssignmentSet(
+                    name=job.uid,
+                    assignments=assignments,
+                    labels={
+                        GENERATION_LABEL: "0",
+                        COHORT_KEY_LABEL: ONDEVICE_COHORT_KEY,
+                    },
+                )
+            )
+        return out
+
+    def state_dict(self) -> dict:
+        data = super().state_dict()
+        data["dispatched"] = self._dispatched
+        return data
+
+    def load_state_dict(self, data: dict) -> None:
+        super().load_state_dict(data)
+        self._dispatched = bool(data.get("dispatched", False))

@@ -8,7 +8,7 @@ without a suggester of its own (grid, random, DARTS) under the engine.
 The equivalence tests use the GRID suggester: its enumeration is
 independent of how proposals are batched, so sync and async runs must
 produce bit-identical (params, objective) multisets.  Cohort packing
-(``TestCohortPacking`` of the JAX tests) waits for the cohort runner.
+(``TestCohortPacking``) runs through the port's cohort runner.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from katib_tpu_torch.core.validation import ValidationError, validate_experiment
 from katib_tpu_torch.orchestrator import Orchestrator as _Orchestrator
 from katib_tpu_torch.orchestrator import journal as jr
 from katib_tpu_torch.orchestrator.async_loops import AsyncLoops, OccupancyMeter
+from katib_tpu_torch.runner.cohort import attach_cohort_fn
 from katib_tpu_torch.suggest.base import Suggester, make_suggester
 
 torch.set_num_threads(1)
@@ -223,6 +224,91 @@ class TestOccupancyMeter:
 # ---------------------------------------------------------------------------
 # lookahead + backpressure
 # ---------------------------------------------------------------------------
+
+
+def _cohort_pair(sizes, lock):
+    """train_fn/cohort twin that records dispatched cohort sizes."""
+
+    def train_fn(ctx):
+        with lock:
+            sizes.append(1)
+        ctx.report(step=1, accuracy=1.0)
+
+    def cohort_fn(cctx):
+        with lock:
+            sizes.append(len(cctx.members))
+        cctx.report(step=1, accuracy=[1.0] * len(cctx))
+
+    return attach_cohort_fn(train_fn, cohort_fn)
+
+
+class TestCohortPacking:
+    def test_ragged_remainder_flushes_instead_of_waiting(self, tmp_path):
+        """10 trials at width 4 -> 4+4+2: the final partial bucket flushes
+        on the budget-starvation/deadline path instead of stalling the
+        experiment forever (the bug cohortFillDeadlineSeconds fixes)."""
+        sizes, lock = [], threading.Lock()
+        spec = make_spec(
+            train_fn=_cohort_pair(sizes, lock),
+            cohort_width=4,
+            cohort_key="pack",
+            parallel_trial_count=4,
+            max_trial_count=10,
+            cohort_fill_deadline_seconds=0.2,
+        )
+        t0 = time.time()
+        exp = Orchestrator(workdir=str(tmp_path)).run(spec)
+        assert exp.condition is ExperimentCondition.MAX_TRIALS_REACHED
+        assert time.time() - t0 < 30, "partial bucket stalled the run"
+        assert len(exp.trials) == 10
+        assert all(t.condition is TrialCondition.SUCCEEDED for t in exp.trials.values())
+        assert sum(sizes) == 10
+        assert max(sizes) <= 4
+        assert any(s > 1 for s in sizes), f"no cohorts packed: {sizes}"
+
+    def test_fill_deadline_flushes_partial_bucket(self, tmp_path):
+        """A suggester that trickles one proposal per call still makes
+        progress: the deadline flushes undersized buckets."""
+        sizes, lock = [], threading.Lock()
+
+        class Trickle(Suggester):
+            name = "trickle"
+            adaptive = False
+
+            def get_suggestions(self, experiment, count):
+                from katib_tpu_torch.core.types import ParameterAssignment, TrialAssignmentSet
+
+                time.sleep(0.05)
+                return [TrialAssignmentSet(assignments=[
+                    ParameterAssignment("x", float(len(experiment.trials)))])]
+
+        spec = make_spec(
+            train_fn=_cohort_pair(sizes, lock),
+            cohort_width=4,
+            cohort_key="pack",
+            parallel_trial_count=4,
+            max_trial_count=4,
+            cohort_fill_deadline_seconds=0.05,
+            suggest_lookahead=1,
+        )
+        exp = Orchestrator(workdir=str(tmp_path), suggester_fn=Trickle).run(spec)
+        assert exp.condition is ExperimentCondition.MAX_TRIALS_REACHED
+        assert sum(sizes) == 4
+        # with one proposal per 50ms and a 50ms deadline, at least one
+        # bucket must have flushed below full width
+        assert min(sizes) < 4, f"deadline never flushed a partial bucket: {sizes}"
+
+    def test_keyless_trials_stay_singletons(self, tmp_path):
+        sizes, lock = [], threading.Lock()
+        spec = make_spec(
+            train_fn=_cohort_pair(sizes, lock),
+            cohort_width=4,  # width set but NO cohort_key and no labels
+            parallel_trial_count=4,
+            max_trial_count=6,
+        )
+        exp = Orchestrator(workdir=str(tmp_path)).run(spec)
+        assert exp.condition is ExperimentCondition.MAX_TRIALS_REACHED
+        assert sizes and max(sizes) == 1
 
 
 class TestLookaheadAndBackpressure:

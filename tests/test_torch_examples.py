@@ -1,5 +1,6 @@
-"""The shipped specs that the black-box runner and the host suggesters lift:
-the 14 ``command:`` specs and ``simple-pbt.yaml``, each run as shipped
+"""The shipped specs that the black-box runner, the host suggesters and
+on-device PBT lift: the 14 ``command:`` specs, ``simple-pbt.yaml`` and
+``pbt-ondevice.yaml``, each run as shipped
 through the port's loader and ``Orchestrator.run`` on the CPU, must end as
 the JAX orchestrator's run of it ends: the same experiment condition, the
 same trial count and trial conditions, no failed trial.  Where the outcome
@@ -34,7 +35,7 @@ COMMAND_SPECS = ["early-stopping/median-stop"] + [
         "asha", "bayesian-optimization", "cma-es", "file-metrics-collector", "grid",
         "hyperband", "metrics-strategy", "multivariate-tpe", "random", "resume-long-running",
         "sobol", "tpe", "trial-metadata")]
-SPECS = COMMAND_SPECS + ["hp-tuning/simple-pbt"]
+SPECS = COMMAND_SPECS + ["hp-tuning/simple-pbt", "hp-tuning/pbt-ondevice"]
 #: suggesters whose proposals cannot depend on when trials finish
 TIMING_FREE = {"hp-tuning/grid", "hp-tuning/sobol"}
 
@@ -125,6 +126,13 @@ def test_shipped_spec_ends_as_the_jax_run(name, tmp_path, monkeypatch):
         assert parents and parents <= set(exp.trials)
         pbt_root = tmp_path / "katib_runs" / spec.name / "pbt"
         assert all((pbt_root / t).is_dir() for t in exp.trials)
+    if name == "hp-tuning/pbt-ondevice":
+        # one cohort of 16 evolved 10 generations; lineage labels as the
+        # JAX run's, every parent a member
+        for e in runs.values():
+            labels = [t.spec.labels for t in e.trials.values()]
+            assert {lab["pbt-generation"] for lab in labels} == {"10"}
+            assert {lab["pbt-parent"] for lab in labels} <= set(e.trials)
 
 
 def test_random_spec_runs_through_the_cli_and_fscks_clean(tmp_path):

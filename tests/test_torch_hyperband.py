@@ -237,10 +237,16 @@ def test_asha_promotes_under_the_engine(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("changes,match", [
     ({"prewarm": True}, "compile/prewarm.py"),
-    ({"cohortWidth": 4}, "runner/cohort.py"),
+    # cohorts are ported: the spec passes the refusals (the sweep itself
+    # runs in tests/test_torch_cohort.py's cohort spec)
+    pytest.param({"cohortWidth": 4}, None, id="changes1-runner/cohort.py"),
 ])
 def test_mnist_trial_refuses_prewarm_and_cohorts(changes, match, tmp_path):
     spec = _sweep_spec(**changes)
+    orch = Orchestrator(workdir=str(tmp_path), device="cpu")
+    if match is None:
+        orch._refuse_unported(spec)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        Orchestrator(workdir=str(tmp_path), device="cpu").run(spec)
+        orch.run(spec)
     assert not os.path.exists(os.path.join(str(tmp_path), spec.name, "status.json"))

@@ -61,8 +61,11 @@ def test_port_imports_and_steps_with_jax_and_katib_tpu_blocked():
     round of the Hyperband sweep's suggestions, and one round of the shipped
     ENAS spec's suggestions with one tiny child epoch run, a black-box
     trial, a TFEvent file written and read, the Sobol, CMA-ES and random
-    suggesters of the shipped command specs, and one PBT toy trial of
-    ``simple-pbt.yaml``, with JAX and the JAX package unimportable."""
+    suggesters of the shipped command specs, one PBT toy trial of
+    ``simple-pbt.yaml``, a two-member ``mnist_trial`` cohort, and the
+    shipped ``pbt-ondevice.yaml``'s population evolved for two short
+    generations on synthetic digits, with JAX and the JAX package
+    unimportable."""
     script = textwrap.dedent(f"""
         import sys
         for name in {BANNED!r}:
@@ -169,6 +172,35 @@ def test_port_imports_and_steps_with_jax_and_katib_tpu_blocked():
         ctx = TrialContext(props[0].as_dict(), checkpoint_dir=tempfile.mkdtemp(), device="cpu")
         pbt_toy_trial(ctx)
         assert [s for s, _ in ctx.reports] == [0, 1, 2, 3], ctx.reports
+        # a vectorized cohort of two mnist_trial members, and on-device PBT
+        from katib_tpu_torch.runner.cohort import run_cohort
+        from katib_tpu_torch.utils import observability as obs
+        obj = T.ObjectiveSpec(type=T.ObjectiveType.MAXIMIZE, objective_metric_name="accuracy")
+        members = [T.Trial(name=f"c{{i}}", spec=T.TrialSpec(train_fn=mnist_trial, assignments=[
+            T.ParameterAssignment(k, v) for k, v in dict(units=4, num_layers=1, epochs=1,
+            batch_size=32, n_train=64, n_test=16, lr=0.1 * (i + 1)).items()]))
+            for i in range(2)]
+        results = run_cohort(members, store, obj, device="cpu")
+        assert all(r.condition is T.TrialCondition.SUCCEEDED for r in results.values())
+        assert obs.cohort_fallbacks.get() == 0 and obs.cohorts_executed.get() == 1
+        from katib_tpu_torch.models import pbt_digits
+        from katib_tpu_torch.models.data import synthetic_classification
+        pbt_digits._DATASET_CACHE[(1400, 397)] = synthetic_classification(
+            1400, 397, (8, 8, 1), 10)
+        spec = load_experiment_yaml(os.path.join({str(ROOT)!r}, "examples", "hp-tuning",
+                                                 "pbt-ondevice.yaml"))
+        assert spec.train_fn is pbt_digits.pbt_digits_trial
+        props = make_suggester(spec).get_suggestions(Experiment(spec=spec), 16)
+        assert len(props) == 16 and props[0].labels[T.COHORT_KEY_LABEL] == "pbt-ondevice"
+        members = [T.Trial(name=p.name, spec=T.TrialSpec(train_fn=spec.train_fn, assignments=[
+            a for a in p.assignments if a.name not in ("pbt_generations",
+            "pbt_steps_per_generation")] + [T.ParameterAssignment("pbt_generations", 2),
+            T.ParameterAssignment("pbt_steps_per_generation", 3)], labels=dict(p.labels)),
+            checkpoint_dir=tempfile.mkdtemp()) for p in props]
+        results = run_cohort(members, store, spec.objective, device="cpu")
+        assert all(r.condition is T.TrialCondition.SUCCEEDED for r in results.values())
+        assert {{t.spec.labels["pbt-generation"] for t in members}} == {{"2"}}
+        assert obs.cohort_fallbacks.get() == 0 and obs.pbt_generations.get() == 2
         leaked = sorted(n for n in sys.modules if n.split(".")[0] in {BANNED!r} and sys.modules[n])
         assert not leaked, leaked
         print("ok")

@@ -224,12 +224,14 @@ def test_mnist_trial_reports_each_epoch(params):
 
 
 def test_mnist_trial_declares_the_jax_twins_and_they_raise():
-    assert tmnist.mnist_trial.__cohort_fn__ is tmnist.mnist_cohort_trial
+    """Both twins are declared as in the JAX package; the cohort twin runs
+    (``tests/test_torch_cohort.py``), the prewarm twin still raises."""
+    from katib_tpu_torch.runner.cohort import cohort_fn_of
+
+    assert cohort_fn_of(tmnist.mnist_trial) is tmnist.mnist_cohort_trial
     assert tmnist.mnist_trial.__prewarm_fn__ is tmnist.mnist_prewarm
     assert hasattr(jmnist.mnist_trial, "__cohort_fn__")
     assert hasattr(jmnist.mnist_trial, "__prewarm_fn__")
-    with pytest.raises(NotImplementedError, match="runner/cohort.py"):
-        tmnist.mnist_cohort_trial(None)
     with pytest.raises(NotImplementedError, match="compile/prewarm.py"):
         tmnist.mnist_prewarm({}, 2)
 

@@ -290,7 +290,9 @@ REFUSALS = {
     "orchestrator-mesh": dict(match="mesh", orch_kw={"mesh": object()}),
     "config-mesh": dict(match="mesh", orch_kw={
         "config": KatibConfig.from_dict({"init": {"mesh_axes": {"data": 2}}})}),
-    "cohort": dict(match="cohort", cohort_width=2, train_fn=_with_attr(COHORT_ATTR)),
+    # vectorized cohorts are ported: a declared twin and a width run (the
+    # keyless proposals stay singletons, as in the JAX package)
+    "cohort": dict(match=None, cohort_width=2, train_fn=_with_attr(COHORT_ATTR)),
     "prewarm": dict(match="prewarm", train_fn=_with_attr(PREWARM_ATTR)),
     "compile-cache-spec": dict(match="compile cache", compile_cache="/tmp/katib-cc"),
     "compile-cache-env": dict(match="compile cache", env={"KATIB_COMPILE_CACHE": "/tmp/cc"}),
@@ -304,7 +306,7 @@ REFUSALS = {
     "slice-allocator": dict(match="slice allocator", orch_kw={"slice_allocator": object()}),
     "profiler": dict(match="profile", orch_kw={
         "config": KatibConfig.from_dict({"init": {"enable_profiler": True}})}),
-    "unported-suggester": dict(match="parallel/pbt.py", algorithm="pbt-ondevice",
+    "unported-suggester": dict(match="suggest/service.py", algorithm="remote",
                                async_orch=False),
 }
 

@@ -46,10 +46,9 @@ EXAMPLES = sorted(
     for p in glob.glob(os.path.join(REPO, "examples", "**", "*.yaml"), recursive=True)
     if os.path.basename(os.path.dirname(p)) != "sim"
 )
-# the JAX train functions the port does not have yet
-UNPORTED_TRAIN_FNS = {
-    "katib_tpu.models.pbt_digits.pbt_digits_trial",
-}
+# the JAX train functions the port does not have yet (none since
+# models/pbt_digits.py was ported)
+UNPORTED_TRAIN_FNS: set[str] = set()
 
 
 def _train_fn_path(raw: dict) -> str | None:
@@ -205,7 +204,7 @@ def test_config_refuses_mesh_axes():
 def test_registry_holds_the_ported_suggesters():
     assert registered_algorithms() == ["asha", "bayesianoptimization", "cmaes", "darts",
                                        "enas", "grid", "hyperband", "multivariate-tpe", "pbt",
-                                       "random", "sobol", "tpe"]
+                                       "pbt-ondevice", "random", "sobol", "tpe"]
 
 
 @pytest.mark.parametrize("name", sorted(algorithms.UNPORTED_ALGORITHMS))

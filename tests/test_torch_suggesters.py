@@ -391,10 +391,11 @@ def test_a_missing_optional_dependency_is_a_suggester_error(monkeypatch, missing
 def test_only_pbt_ondevice_and_remote_are_unported():
     from katib_tpu_torch.suggest import algorithms
 
-    assert set(algorithms.UNPORTED_ALGORITHMS) == {"pbt-ondevice", "remote"}
-    for name in ("sobol", "cmaes", "bayesianoptimization", "pbt"):
+    # pbt-ondevice is ported too (tests/test_torch_pbt_ondevice.py)
+    assert set(algorithms.UNPORTED_ALGORITHMS) == {"remote"}
+    for name in ("sobol", "cmaes", "bayesianoptimization", "pbt", "pbt-ondevice"):
         assert name in tbase.registered_algorithms()
-    for name in ("pbt-ondevice", "remote"):
+    for name in ("remote",):
         with pytest.raises(NotImplementedError, match=name):
             tbase.make_suggester(_spec("torch", name, {"n_population": "5",
                                                        "truncation_threshold": "0.2"}))
