@@ -102,7 +102,16 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    10 ``pbt-generation`` spans, one capture, no cohort fallback; a
    same-seed rerun bit-equal in scores and lineage; a drain at the first
    generation boundary and a resume that loses no member and replays the
-   same generations.
+   same generations;
+23. ``sdk:`` ``katib_tpu_torch.sdk.tune`` on ``cuda`` (random search over
+   ``lr``, 4 trials 2 at a time, an ``f(params, ctx)`` objective training
+   ``SmallCNN`` at the Hyperband sweep's cell for one epoch): every trial
+   ``Succeeded``, an optimum, each trial's epoch run as its captured step;
+   the same through ``KatibClient``; then, at once, ``list``, ``describe
+   --json``, ``export --format jsonl``, ``trace summary --json`` and
+   ``conformance`` in one fresh interpreter on the tune workdir, ``chaos``
+   in its default scenario and ``chaos --crash-at journal.append``, each
+   exit 0.
 
 Every run of the async engine prints its ``async_stats`` (a CLI run prints
 them on its ``async engine:`` line) and fails the script if a loop
@@ -2128,6 +2137,150 @@ def phase_pbt_ondevice(torch) -> None:
     print(f"pbt ondevice: phase wall {time.perf_counter() - t_phase:.2f}s", flush=True)
 
 
+# -- the user's surface: tune(), KatibClient, the reader verbs, chaos ----------
+
+# tune()'s trials: SmallCNN at the Hyperband sweep's cell (32 channels in
+# bf16, batch 64, momentum, synthetic MNIST 8,192/2,048), one epoch each
+SDK_CELL = {"channels": 32, "batch_size": 64, "n_train": 8192, "n_test": 2048,
+            "optimizer": "momentum", "epochs": 1}
+SDK_TRIALS, SDK_PARALLEL = 4, 2
+
+# one interpreter runs the reader verbs in turn: {"argv": [rc, stdout]}
+READERS_CHILD = """
+import contextlib, io, json, sys
+from katib_tpu_torch.cli import main
+out = {}
+for argv in json.loads(sys.argv[1]):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out[" ".join(argv)] = [rc, buf.getvalue()]
+print(json.dumps(out))
+"""
+
+
+def sdk_objective(params, ctx):
+    """``tune()``'s objective, of the ``f(params, ctx)`` shape: SmallCNN
+    trained by ``train_classifier`` on the trial's device, the test
+    accuracy reported each epoch through ``ctx``."""
+    import torch
+
+    from katib_tpu_torch.models.mnist import SmallCNN, _cached_mnist, train_classifier
+
+    c = SDK_CELL
+    model = SmallCNN(channels=c["channels"])
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    train_classifier(model, _cached_mnist(c["n_train"], c["n_test"]), lr=float(params["lr"]),
+                     epochs=c["epochs"], batch_size=c["batch_size"], optimizer=c["optimizer"],
+                     report=lambda epoch, accuracy, loss: ctx.report(step=epoch,
+                                                                     accuracy=accuracy),
+                     device=ctx.device)
+
+
+def sdk_gate(what: str, exp, workdir: str, wall: float) -> None:
+    """Every trial ``Succeeded``, an optimum, and each trial's epoch run as
+    the captured classifier step (its ``classifier.epoch`` span carries the
+    capture); prints the wall and trials per hour."""
+    trials = exp.trials
+    epochs_run, captures = trial_spans(workdir, exp.spec.name)
+    conditions = sorted({t.condition.value for t in trials.values()})
+    best = exp.optimal
+    print(f"sdk: {what}: {exp.condition.value} ({exp.message}) in {wall:.2f}s = "
+          f"{len(trials) / wall * 3600:.0f} trials/hour; {len(trials)} trials {conditions}; "
+          f"optimal {best.trial_name if best else None} accuracy "
+          f"{best.objective_value if best else None} at "
+          f"{ {a.name: a.value for a in best.assignments} if best else None}; graph capture "
+          f"seconds {sorted(captures.values())}", flush=True)
+    check(exp.condition.value in SUCCESS, f"{what}: experiment {exp.condition.value}: "
+          f"{exp.message}")
+    check(len(trials) == SDK_TRIALS and conditions == ["Succeeded"],
+          f"{what}: trials {[(t.name, t.condition.value, t.message) for t in trials.values()]}")
+    check(best is not None and 0.0 <= best.objective_value <= 1.0, f"{what}: optimal {best}")
+    check(set(epochs_run) == set(trials) and all(e == [0] for e in epochs_run.values()),
+          f"{what}: epochs per trial {epochs_run}")
+    check(set(captures) == set(trials),
+          f"{what}: trials whose epoch ran as the captured step: {sorted(captures)}")
+
+
+def phase_sdk(torch) -> None:
+    """``katib_tpu_torch.sdk.tune`` and ``KatibClient`` on ``cuda`` (random
+    search over ``lr``, 4 trials 2 at a time, SmallCNN at the sweep's cell);
+    then, at once, the reader verbs and ``conformance`` in one fresh
+    interpreter on the tune workdir, ``chaos`` in its default scenario and
+    ``chaos --crash-at journal.append``, each exit 0."""
+    from katib_tpu_torch.sdk import KatibClient, make_experiment_spec, search, tune
+
+    space = {"lr": search.loguniform(0.001, 0.5)}
+    kwargs = dict(algorithm="random", max_trial_count=SDK_TRIALS,
+                  parallel_trial_count=SDK_PARALLEL, objective_metric_name="accuracy")
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-sdk-")
+    t0 = time.perf_counter()
+    exp = tune(sdk_objective, space, name="sdk-tune", workdir=workdir, device="cuda", **kwargs)
+    torch.cuda.synchronize()
+    sdk_gate("tune()", exp, workdir, time.perf_counter() - t0)
+
+    client_dir = tempfile.mkdtemp(prefix="chip-smoke-sdk-client-")
+    client = KatibClient(workdir=client_dir, device="cuda")
+    t0 = time.perf_counter()
+    live = client.create_experiment(make_experiment_spec("sdk-client", space,
+                                                         objective=sdk_objective, **kwargs))
+    done = client.wait_for_experiment_condition("sdk-client", timeout=300)
+    torch.cuda.synchronize()
+    sdk_gate("KatibClient", done, client_dir, time.perf_counter() - t0)
+    best = client.get_optimal_hyperparameters("sdk-client")
+    print(f"sdk: KatibClient: get_optimal_hyperparameters {best}", flush=True)
+    check(live is done and client.is_experiment_succeeded("sdk-client"),
+          f"KatibClient: condition {done.condition.value}")
+    check(set(best) == {"lr"} and 0.001 <= best["lr"] <= 0.5, f"KatibClient: optimal {best}")
+
+    verbs = [["list", "--workdir", workdir],
+             ["describe", "sdk-tune", "--json", "--workdir", workdir],
+             ["export", "sdk-tune", "--format", "jsonl", "--workdir", workdir],
+             ["trace", "summary", "sdk-tune", "--json", "--workdir", workdir],
+             ["conformance", "--device", "cuda"]]
+    logs = {k: os.path.join(workdir, f"{k}.log") for k in ("readers", "chaos", "crash")}
+    started = time.perf_counter()
+    with open(logs["readers"], "w") as f:
+        readers = subprocess.Popen([sys.executable, "-c", READERS_CHILD, json.dumps(verbs)],
+                                   cwd=HERE, env={**os.environ, "PYTHONPATH": HERE},
+                                   stdout=f, stderr=subprocess.STDOUT, text=True)
+    procs = {"readers": readers,
+             "chaos": _cli("chaos", log=logs["chaos"]),
+             "crash": _cli("chaos", "--crash-at", "journal.append", log=logs["crash"])}
+    results = {}
+    for key, proc in procs.items():
+        rc, out = _wait(proc, logs[key], 300)
+        results[key] = (rc, out, time.perf_counter() - started)
+    for key in ("chaos", "crash"):
+        rc, out, wall = results[key]
+        print(f"sdk: chaos{' --crash-at journal.append' if key == 'crash' else ''}: exit {rc} "
+              f"in {wall:.2f}s: {' | '.join(out.strip().splitlines()[-2:])}", flush=True)
+        check(rc == 0 and "CHAOS PASS" in out, f"chaos ({key}):\n{out[-3000:]}")
+    rc, out, wall = results["readers"]
+    check(rc == 0, f"reader verbs exited {rc}:\n{out[-3000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    rcs = {argv: r for argv, (r, _) in got.items()}
+    text = {argv.split()[0] + ("-" + argv.split()[1] if argv.startswith("trace") else ""): o
+            for argv, (_, o) in got.items()}
+    listed = [ln.split()[0] for ln in text["list"].splitlines()[1:]]
+    described = json.loads(text["describe"])
+    exported = [json.loads(ln) for ln in text["export"].splitlines()]
+    spans = {s["name"]: s["count"] for s in json.loads(text["trace-summary"])}
+    print(f"sdk: readers (one interpreter, {wall:.2f}s): exits {sorted(set(rcs.values()))}; "
+          f"list {listed}; describe {len(described['trials'])} trials "
+          f"{described['condition']}; export {len(exported)} rows; trace summary "
+          f"classifier.epoch x{spans.get('classifier.epoch')} train_fn x{spans.get('train_fn')}; "
+          f"{text['conformance'].strip()}", flush=True)
+    check(set(rcs.values()) == {0}, f"reader verbs' exits {rcs}")
+    check(listed == ["sdk-tune"], f"list rows {listed}")
+    check(len(described["trials"]) == len(exported) == SDK_TRIALS and
+          {r["trial"] for r in exported} == set(exp.trials), "describe/export rows")
+    check(spans.get("classifier.epoch") == spans.get("train_fn") == SDK_TRIALS,
+          f"trace summary {spans}")
+    check(text["conformance"].startswith("CONFORMANCE PASS"), text["conformance"])
+    print(f"sdk: {smi_line()}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2187,6 +2340,7 @@ def main() -> int:
     timed(phase_enas_sharing, torch)
     timed(phase_cohort, torch)
     timed(phase_pbt_ondevice, torch)
+    timed(phase_sdk, torch)
 
     kernels = [{
         "name": "mixed_op_sum",

@@ -1,23 +1,36 @@
 """``katib-tpu-torch`` command-line interface (``python -m katib_tpu_torch``).
 
-Port of ``katib_tpu/cli.py``'s ``run``, ``fsck``, ``doctor`` and
-``chaos --soak`` verbs:
+Port of ``katib_tpu/cli.py``.  The verbs the port has:
 
 - ``run <experiment.yaml>``   create + run an experiment to completion (--resume);
                               ``--device`` names where trials run (``cuda``
                               unless it says ``cpu``); a run on the async
                               engine ends with an ``async engine: {...}``
                               line on stderr (``Orchestrator.async_stats``)
+- ``list``                    experiments in the workdir with live counts
+- ``describe <experiment>``   trials, assignments, observations, optimal, curve
+- ``metrics <trial>``         raw metric log for one trial (the config's store)
+- ``logs <trial>``            captured black-box stdout
+- ``export <experiment>``     trials as CSV/JSONL for analysis
+- ``trace export|summary``    an experiment's span journal as Chrome-trace
+                              JSON, or its per-span latency distribution
+- ``conformance``             packaged e2e invariants check (conformance/run.sh parity)
+- ``chaos``                   deterministic fault-injection run (fault-tolerance
+                              invariants); ``--crash-at``/``--kill-at`` hard-kill
+                              a child at a registered persistence site and
+                              assert crash recovery; ``--soak SECONDS`` is the
+                              seeded chaos soak of the async engine
+                              (``orchestrator/soak.py``).  ``--wedge-device``
+                              and ``--soak`` with a single-run flag raise
+                              ``NotImplementedError``
 - ``fsck <workdir>/<exp>``    validate + repair an experiment dir (torn journal tail,
                               snapshot checksums, suggester fence)
 - ``doctor``                  bounded device preflight + environment report
-- ``chaos --soak SECONDS``    seeded chaos soak of the async engine
-                              (``orchestrator/soak.py``); ``chaos``'s other
-                              modes raise ``NotImplementedError``
 
-The JAX CLI's other verbs are listed in :data:`UNPORTED_VERBS`; each raises
+``conformance`` and ``chaos`` take ``--device`` as ``run`` does.  The JAX
+CLI's other verbs are listed in :data:`UNPORTED_VERBS`; each raises
 ``NotImplementedError`` naming it.  This module imports no JAX, and no verb
-does.
+does: the crash scenario's child interpreter blocks the JAX modules.
 """
 
 from __future__ import annotations
@@ -26,15 +39,36 @@ import argparse
 import json
 import os
 import sys
+import time
 
 from katib_tpu_torch.core.config import KatibConfig
 
 #: the JAX CLI's verbs the port does not have yet
 UNPORTED_VERBS = (
-    "list", "describe", "metrics", "export", "logs", "trace",
     "cost", "profile", "prewarm", "cache", "ui", "sim", "lint",
-    "suggest-server", "db-manager", "conformance",
+    "suggest-server", "db-manager",
 )
+
+
+def _fmt_age(start: float, end: float) -> str:
+    if not start:
+        return "-"
+    secs = int((end or time.time()) - start)
+    if secs < 60:
+        return f"{secs}s"
+    if secs < 3600:
+        return f"{secs // 60}m{secs % 60:02d}s"
+    return f"{secs // 3600}h{(secs % 3600) // 60:02d}m"
+
+
+def _table(rows: list[list[str]], header: list[str]) -> str:
+    widths = [
+        max(len(str(r[i])) for r in [header] + rows) for i in range(len(header))
+    ]
+    lines = ["  ".join(str(h).ljust(w) for h, w in zip(header, widths))]
+    for r in rows:
+        lines.append("  ".join(str(c).ljust(w) for c, w in zip(r, widths)))
+    return "\n".join(lines)
 
 
 def _install_drain_handlers(orch) -> None:
@@ -143,6 +177,346 @@ def cmd_run(args: argparse.Namespace) -> int:
     return 0 if exp.condition.value != "Failed" else 1
 
 
+def cmd_list(args: argparse.Namespace) -> int:
+    from katib_tpu_torch.orchestrator.status import list_statuses
+
+    statuses = list_statuses(args.workdir)
+    if not statuses:
+        print(f"no experiments under {args.workdir}")
+        return 0
+    rows = []
+    for s in statuses:
+        counts = s.get("counts", {})
+        optimal = s.get("optimal") or {}
+        rows.append(
+            [
+                s.get("name", "?"),
+                s.get("condition", "?"),
+                s.get("algorithm", "?"),
+                f"{counts.get('succeeded', 0)}/{counts.get('trials', 0)}",
+                counts.get("failed", 0),
+                optimal.get("objective_value", "-"),
+                _fmt_age(s.get("start_time") or 0, s.get("completion_time") or 0),
+            ]
+        )
+    print(_table(rows, ["NAME", "STATUS", "ALGORITHM", "SUCCEEDED", "FAILED", "BEST", "AGE"]))
+    return 0
+
+
+def cmd_describe(args: argparse.Namespace) -> int:
+    from katib_tpu_torch.orchestrator.status import read_status
+
+    s = read_status(args.workdir, args.experiment)
+    if s is None:
+        print(f"experiment {args.experiment!r} not found under {args.workdir}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(s, indent=2))
+        return 0
+    print(f"Name:       {s['name']}")
+    print(f"Status:     {s['condition']}  {s.get('message', '')}".rstrip())
+    print(f"Algorithm:  {s['algorithm']}")
+    goal = f" (goal {s['goal']})" if s.get("goal") is not None else ""
+    print(f"Objective:  {s['objective_type']} {s['objective_metric']}{goal}")
+    optimal = s.get("optimal")
+    if optimal:
+        print(
+            f"Optimal:    {optimal['trial_name']} -> {optimal['objective_value']}  "
+            + " ".join(f"{k}={v}" for k, v in sorted(optimal["assignments"].items()))
+        )
+    curve = s.get("optimal_history") or []
+    if curve:
+        # best-objective@wallclock, most recent improvements last
+        shown = curve[-5:]
+        prefix = "…, " if len(curve) > 5 else ""
+        print(
+            "Converge:   "
+            + prefix
+            + ", ".join(
+                f"{r['objective_value']:.5g}@{r['elapsed_s']:.0f}s" for r in shown
+            )
+        )
+    rows = []
+    for t in s.get("trials", {}).values():
+        obs = t.get("observation") or []
+        objective = next(
+            (m["value"] for m in obs if m["name"] == s["objective_metric"]), "-"
+        )
+        rows.append(
+            [
+                t["name"],
+                t["condition"],
+                objective,
+                " ".join(f"{k}={v}" for k, v in sorted(t["assignments"].items())),
+            ]
+        )
+    if rows:
+        print()
+        print(_table(rows, ["TRIAL", "STATUS", "OBJECTIVE", "ASSIGNMENTS"]))
+    return 0
+
+
+def cmd_metrics(args: argparse.Namespace) -> int:
+    """A trial's raw metric log from the config's store (``--config``:
+    sqlite, mysql or postgres; the default memory store holds nothing
+    across processes)."""
+    cfg = KatibConfig.load(args.config)
+    store = cfg.store.make_store()
+    logs = store.get(args.trial)
+    if not logs:
+        print(
+            f"no metrics for trial {args.trial!r} in store backend "
+            f"{cfg.store.backend!r} (persisted stores only: sqlite/remote)",
+            file=sys.stderr,
+        )
+        return 1
+    for l in logs:
+        print(f"{l.timestamp:.3f}\t{l.step}\t{l.metric_name}\t{l.value}")
+    return 0
+
+
+def cmd_export(args: argparse.Namespace) -> int:
+    """Dump an experiment's trials as CSV or JSONL for analysis — flat
+    columns: trial, condition, one column per assignment, one per observed
+    metric (the strategy-reduced value the journal records)."""
+    from katib_tpu_torch.orchestrator.status import read_status
+
+    s = read_status(args.workdir, args.experiment)
+    if s is None:
+        print(f"experiment {args.experiment!r} not found", file=sys.stderr)
+        return 1
+    trials = list((s.get("trials") or {}).values())
+    # pass 1: the full parameter-column set, so metric renaming can't depend
+    # on trial order (a metric sharing a name with a parameter that only a
+    # LATER trial introduces must still land in the metric: namespace)
+    param_cols: list[str] = []
+    for t in trials:
+        for k in t.get("assignments") or {}:
+            col = f"param:{k}" if k in ("trial", "condition") else k
+            if col not in param_cols:
+                param_cols.append(col)
+    rows = []
+    metric_cols: list[str] = []
+    for t in trials:
+        row: dict = {"trial": t["name"], "condition": t["condition"]}
+        for k, v in (t.get("assignments") or {}).items():
+            row[f"param:{k}" if k in ("trial", "condition") else k] = v
+        for m in t.get("observation") or ():
+            # metrics get their own namespace when they'd shadow a reserved
+            # or parameter column (a metric literally named like a parameter
+            # would otherwise silently overwrite the assignment)
+            col = m["name"]
+            if col in ("trial", "condition") or col in param_cols:
+                col = f"metric:{col}"
+            row[col] = m["value"]
+            if col not in metric_cols:
+                metric_cols.append(col)
+        rows.append(row)
+    if args.format == "jsonl":
+        for row in rows:
+            print(json.dumps(row))
+        return 0
+    import csv
+
+    writer = csv.DictWriter(
+        sys.stdout,
+        fieldnames=["trial", "condition", *param_cols, *metric_cols],
+        extrasaction="ignore",
+    )
+    writer.writeheader()
+    writer.writerows(rows)
+    return 0
+
+
+def cmd_logs(args: argparse.Namespace) -> int:
+    """Print a black-box trial's captured stdout (reference: UI pod-log
+    fetch, ``backend.go:463``); lookup in ``status.read_trial_log``."""
+    from katib_tpu_torch.orchestrator.status import read_trial_log
+
+    log = read_trial_log(args.workdir, args.trial)
+    if log is None:
+        print(
+            f"no captured log for trial {args.trial!r} under {args.workdir} "
+            "(white-box trials have no stdout log)",
+            file=sys.stderr,
+        )
+        return 1
+    sys.stdout.write(log)
+    return 0
+
+
+def cmd_trace_export(args: argparse.Namespace) -> int:
+    from katib_tpu_torch.utils import tracing
+
+    journal = tracing.trace_path(args.workdir, args.experiment)
+    if not os.path.exists(journal):
+        print(f"no trace journal at {journal}", file=sys.stderr)
+        return 1
+    if args.out == "-":
+        records = tracing.read_journal(journal)
+        if not records:
+            print(f"trace journal {journal} holds no valid spans", file=sys.stderr)
+            return 1
+        json.dump(tracing.to_chrome_trace(records), sys.stdout)
+        print()
+        return 0
+    out = args.out or os.path.join(args.workdir, args.experiment, "trace.json")
+    n = tracing.export_chrome_trace(journal, out)
+    if n == 0:
+        print(f"trace journal {journal} holds no valid spans", file=sys.stderr)
+        return 1
+    print(f"wrote {n} spans to {out} (open in Perfetto / chrome://tracing)")
+    return 0
+
+
+def cmd_trace_summary(args: argparse.Namespace) -> int:
+    from katib_tpu_torch.utils import tracing
+
+    journal = tracing.trace_path(args.workdir, args.experiment)
+    records = tracing.read_journal(journal)
+    if not records:
+        print(f"no spans found at {journal}", file=sys.stderr)
+        return 1
+    summary = tracing.summarize(records)
+    slowest = _slowest_spans(records, args.top) if args.top else []
+    if args.json:
+        doc = {"summary": summary, "slowest": slowest} if args.top else summary
+        json.dump(doc, sys.stdout, indent=2)
+        print()
+        return 0
+    rows = [
+        [
+            s["name"],
+            s["count"],
+            f"{s['total_s']:.3f}",
+            f"{s['mean_s']:.4f}",
+            f"{s['p50_s']:.4f}",
+            f"{s['p95_s']:.4f}",
+            f"{s['max_s']:.4f}",
+        ]
+        for s in summary
+    ]
+    print(_table(rows, ["SPAN", "COUNT", "TOTAL_S", "MEAN_S", "P50_S", "P95_S", "MAX_S"]))
+    if slowest:
+        rows = [
+            [
+                s["name"],
+                f"{s['dur_s']:.3f}",
+                s["who"],
+                s["mfu"],
+                s["roofline"],
+                s["headroom"],
+            ]
+            for s in slowest
+        ]
+        print(f"\nslowest {len(rows)} spans (roofline attrs where costed):")
+        print(_table(rows, ["SPAN", "DUR_S", "WHO", "MFU", "ROOFLINE", "HEADROOM"]))
+    return 0
+
+
+def _slowest_spans(records: list[dict], top: int) -> list[dict]:
+    """The ``--top N`` view: individual spans by duration, with the
+    roofline attrs (``mfu``, ``roofline``, ``roofline_headroom``) where a
+    span carries them.  The port has no cost model yet, so its own spans
+    carry none and those columns read ``-``."""
+
+    def _dur(rec: dict) -> float:
+        try:
+            return float(rec.get("dur", 0.0))
+        except (TypeError, ValueError):
+            return 0.0
+
+    out = []
+    for rec in sorted(records, key=_dur, reverse=True)[: max(0, top)]:
+        args = rec.get("args", {}) or {}
+        mfu = args.get("mfu")
+        who = args.get("trial") or args.get("cohort") or args.get("epoch")
+        out.append(
+            {
+                "name": str(rec.get("name", "?")),
+                "dur_s": round(_dur(rec), 6),
+                "who": str(who) if who is not None else "-",
+                "mfu": f"{mfu:.4f}" if isinstance(mfu, (int, float)) else "-",
+                "roofline": str(args.get("roofline", "-")),
+                "headroom": str(args.get("roofline_headroom", "-")),
+            }
+        )
+    return out
+
+
+def cmd_conformance(args: argparse.Namespace) -> int:
+    """Packaged conformance run (parity with the reference's
+    ``conformance/run.sh``: deploy, run random-search e2e, assert the
+    invariants from ``run-e2e-experiment.py:52-60``) on ``--device``."""
+    import tempfile
+
+    from katib_tpu_torch.core.types import (
+        AlgorithmSpec,
+        ExperimentCondition,
+        ExperimentSpec,
+        FeasibleSpace,
+        ObjectiveSpec,
+        ObjectiveType,
+        ParameterSpec,
+        ParameterType,
+    )
+    from katib_tpu_torch.orchestrator import Orchestrator
+
+    def trainer(ctx):
+        x = float(ctx.params["lr"])
+        n = int(ctx.params["num_layers"])
+        acc = 1.0 - 0.2 * (x - 0.05) ** 2 - 0.01 * abs(n - 3)
+        for step in range(3):
+            if not ctx.report(step=step, accuracy=acc * (step + 1) / 3):
+                return
+
+    spec = ExperimentSpec(
+        name="conformance-random",
+        algorithm=AlgorithmSpec(name="random"),
+        objective=ObjectiveSpec(
+            type=ObjectiveType.MAXIMIZE, objective_metric_name="accuracy"
+        ),
+        parameters=[
+            ParameterSpec(
+                "lr", ParameterType.DOUBLE, FeasibleSpace(min=0.01, max=0.2)
+            ),
+            ParameterSpec(
+                "num_layers", ParameterType.INT, FeasibleSpace(min=1, max=5)
+            ),
+        ],
+        max_trial_count=args.max_trials,
+        parallel_trial_count=2,
+        train_fn=trainer,
+    )
+    with tempfile.TemporaryDirectory(prefix="katib-conformance-") as workdir:
+        exp = Orchestrator(workdir=workdir, device=args.device).run(spec)
+
+    failures = []
+    if exp.optimal is None:
+        failures.append("best objective missing")
+    if (
+        exp.condition is ExperimentCondition.MAX_TRIALS_REACHED
+        and exp.completed_count != spec.max_trial_count
+    ):
+        failures.append(
+            f"MaxTrialsReached but completed {exp.completed_count} != {spec.max_trial_count}"
+        )
+    if exp.condition not in (
+        ExperimentCondition.MAX_TRIALS_REACHED,
+        ExperimentCondition.GOAL_REACHED,
+        ExperimentCondition.SUCCEEDED,
+    ):
+        failures.append(f"experiment ended {exp.condition.value}: {exp.message}")
+    if failures:
+        print("CONFORMANCE FAIL: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    print(
+        f"CONFORMANCE PASS: {exp.condition.value}, "
+        f"{exp.completed_count} trials, best={exp.optimal.objective_value:.4f}"
+    )
+    return 0
+
+
 #: artifact envelope suffixes (``katib_tpu/compile/artifacts.py``)
 _ARTIFACT_SUFFIX = ".katibx"
 _QUARANTINE_SUFFIX = ".quarantined"
@@ -214,56 +588,634 @@ def cmd_doctor(args: argparse.Namespace) -> int:
     return 0 if report.ok() else 1
 
 
-#: the flags of the JAX ``chaos`` verb's single fault-injection run
-#: (``katib_tpu/cli.py::cmd_chaos``), which the port has not ported
-SINGLE_RUN_FLAGS = (
-    "--max-retries", "--suggester-max-errors", "--fail-trial", "--fail-suggester",
-    "--flake-rate", "--hang-trial", "--preempt-at", "--compile-hang",
-    "--progress-deadline", "--compile-deadline", "--drain-grace", "--kill-loop",
-    "--stall-suggester", "--loop-stall-deadline",
-)
+#: the flags of the ``chaos`` verb's single fault-injection run, with how
+#: ``katib_tpu/cli.py`` parses each and its default there.  The parser
+#: leaves them ``None`` so that ``--soak`` can tell a flag that was given
+#: (the JAX soak ignores it; the port refuses it) from a default.
+_SINGLE_RUN_ARGS = {
+    "--max-retries": (dict(type=int, help="maxRetries of the chaos experiment (default 3)"), 3),
+    "--suggester-max-errors": (
+        dict(type=int, help="suggesterMaxErrors of the chaos experiment (default 3)"), 3),
+    "--fail-trial": (dict(
+        action="append", metavar="K:J[:kind]",
+        help="fail trial K's attempt J (0-based trial index, 1-based attempt; kind "
+        "transient|permanent, default transient); repeatable"), None),
+    "--fail-suggester": (dict(
+        action="append", metavar="N",
+        help="raise inside the N-th (1-based) get_suggestions call; repeatable"), None),
+    "--flake-rate": (dict(
+        type=float, help="seeded random per-attempt transient failure probability"), 0.0),
+    "--hang-trial": (dict(
+        action="append", metavar="K[:J]",
+        help="wedge trial K's attempt J (default 1) until the hang watchdog interrupts "
+        "it; repeatable"), None),
+    "--preempt-at": (dict(
+        type=int, metavar="N",
+        help="deliver a real SIGTERM to this process when trial N starts (drain -> "
+        "journal -> in-process resume, asserting zero lost trials)"), None),
+    "--compile-hang": (dict(
+        action="append", metavar="K[:J]",
+        help="wedge trial K's attempt J (default 1) before its first report, inside the "
+        "compile budget, until the compile watchdog interrupts it; repeatable"), None),
+    "--progress-deadline": (dict(
+        type=float, help="progressDeadlineSeconds used when --hang-trial is given "
+        "(default 0.75)"), 0.75),
+    "--compile-deadline": (dict(
+        type=float, help="compileDeadlineSeconds used when --compile-hang is given "
+        "(default 0.5)"), 0.5),
+    "--drain-grace": (dict(
+        type=float, help="drainGraceSeconds for the chaos experiment (default 5)"), 5.0),
+    "--kill-loop": (dict(
+        action="append", metavar="LOOP[:N]",
+        help="kill the named async engine loop (suggest|schedule|harvest) at its N-th "
+        "(default 1st) iteration; the supervisor must restart it; repeatable"), None),
+    "--stall-suggester": (dict(
+        action="append", metavar="SECONDS[:CALL]",
+        help="wedge the CALL-th (default 1st) get_suggestions call for SECONDS; past "
+        "--loop-stall-deadline the call is abandoned; repeatable"), None),
+    "--loop-stall-deadline": (dict(
+        type=float, metavar="SECONDS",
+        help="loopStallDeadlineSeconds used when --kill-loop or --stall-suggester is "
+        "given (default 1)"), 1.0),
+}
+SINGLE_RUN_FLAGS = tuple(_SINGLE_RUN_ARGS)
+
+
+def _dest(flag: str) -> str:
+    return flag[2:].replace("-", "_")
+
+
+def _crash_trainer(ctx):
+    """The crash scenario's resumable toy trainer, run by the child and by
+    the parent's in-process resume: every step checkpoints a 0-d tensor on
+    the trial's device through ``TrialCheckpointer`` (the
+    ``checkpoint.manifest`` site) and reports (``store.report``)."""
+    import torch
+
+    from katib_tpu_torch.utils.checkpoint import TrialCheckpointer
+
+    os.makedirs(ctx.checkpoint_dir, exist_ok=True)
+    ck = TrialCheckpointer(ctx.checkpoint_dir, max_to_keep=1)
+    start = (ck.latest_step() or -1) + 1
+    x = float(ctx.params["lr"])
+    for step in range(start, 3):
+        ck.save({"step": torch.tensor(step, device=ctx.device)}, step)
+        if not ctx.report(step=step, accuracy=(1.0 - (x - 0.05) ** 2) * (step + 1) / 3):
+            return
+
+
+#: the child script for the crashpoint scenarios: a tiny resumable sweep
+#: whose trainer exercises every registered persistence site (journal,
+#: status, suggester pickle, checkpoint manifest, store report, retry
+#: budget via one injected transient failure).  Run in a SUBPROCESS so the
+#: armed crash point can genuinely kill it; the parent resumes and asserts.
+#: The JAX modules are blocked there: the port's path must not need them.
+_CRASH_CHILD_SCRIPT = """
+import os, sys
+for _name in ("jax", "jaxlib", "flax", "optax", "orbax", "katib_tpu"):
+    sys.modules[_name] = None
+sys.path[:0] = {syspath!r}
+from katib_tpu_torch.orchestrator import Orchestrator
+from katib_tpu_torch.utils.faults import FaultInjector
+from katib_tpu_torch.cli import _crash_spec, _crash_trainer
+injector = FaultInjector(seed=0)
+injector.fail_trial(0, 1)  # guarantees the retry.budget site is reached
+orch = Orchestrator(workdir={workdir!r}, fault_injector=injector, device={device!r})
+exp = orch.run(_crash_spec({trials}, _crash_trainer), resume=True)
+print("child finished:", exp.condition.value)
+"""
+
+
+def _crash_spec(trials: int, trainer):
+    """The crash scenario's experiment: ``chaos-random`` (random search
+    with the resume hooks, so the suggester pickle is written), one trial
+    at a time, two retries, a resumable policy (the durable sqlite store)."""
+    from katib_tpu_torch.core.types import (
+        AlgorithmSpec,
+        ExperimentSpec,
+        FeasibleSpace,
+        ObjectiveSpec,
+        ObjectiveType,
+        ParameterSpec,
+        ParameterType,
+        ResumePolicy,
+    )
+    from katib_tpu_torch.suggest.base import register
+    from katib_tpu_torch.suggest.random_search import RandomSuggester
+
+    # random search carries no state; this wrapper adds the resume hooks so
+    # the suggester.pickle persistence site is actually exercised
+    @register("chaos-random")
+    class ChaosRandom(RandomSuggester):
+        def state_dict(self):
+            return {"chaos": 1}
+
+        def load_state_dict(self, data):
+            pass
+
+    return ExperimentSpec(
+        name="chaos-crash",
+        algorithm=AlgorithmSpec(name="chaos-random", settings={"seed": "0"}),
+        objective=ObjectiveSpec(
+            type=ObjectiveType.MAXIMIZE, objective_metric_name="accuracy"
+        ),
+        parameters=[
+            ParameterSpec("lr", ParameterType.DOUBLE, FeasibleSpace(min=0.01, max=0.2))
+        ],
+        max_trial_count=trials,
+        parallel_trial_count=1,
+        max_retries=2,
+        retry_backoff_seconds=0.01,
+        resume_policy=ResumePolicy.LONG_RUNNING,
+        train_fn=trainer,
+    )
+
+
+def _chaos_crash(args: argparse.Namespace) -> int:
+    """The ``--crash-at`` / ``--kill-at`` scenario: arm one registered
+    CrashPoint in a child process (via ``KATIB_CRASH_AT``), let it die
+    mid-persistence, then resume IN-PROCESS from the journal and assert the
+    crash-consistency invariants — no settled trial lost, no duplicate
+    observation, retry budget monotone, optimal consistent.  Both run their
+    trials on ``args.device``."""
+    import sqlite3
+    import subprocess
+    import tempfile
+
+    from katib_tpu_torch.core.types import TrialCondition
+    from katib_tpu_torch.orchestrator import Orchestrator, journal as jr
+    from katib_tpu_torch.utils import faults
+
+    site_spec = args.crash_at or args.kill_at
+    site = site_spec.split(":", 1)[0]
+    if site not in faults.registered_crash_points():
+        print(
+            f"unknown crash point {site!r}; registered: "
+            f"{', '.join(faults.registered_crash_points())}",
+            file=sys.stderr,
+        )
+        return 2
+    device = args.device
+    mode = "kill" if args.kill_at else "exit"
+    failures: list[str] = []
+    with tempfile.TemporaryDirectory(prefix="katib-chaos-crash-") as workdir:
+        env = dict(os.environ)
+        env[faults.CRASH_AT_ENV] = site_spec
+        env[faults.CRASH_MODE_ENV] = mode
+        script = _CRASH_CHILD_SCRIPT.format(
+            syspath=[p for p in sys.path if p],
+            workdir=workdir,
+            trials=args.trials,
+            device=device,
+        )
+        proc = subprocess.run(
+            [sys.executable, "-c", script],
+            env=env,
+            capture_output=True,
+            text=True,
+            timeout=300,
+        )
+        died = proc.returncode not in (0,)
+        print(
+            f"chaos crash-at={site_spec} mode={mode}: child exited "
+            f"{proc.returncode}"
+        )
+        if not died:
+            failures.append(
+                f"crash point {site_spec!r} was never reached (child ran to "
+                "completion); scenario proves nothing"
+            )
+        elif proc.returncode not in (137, -9):
+            # a crash point exits 137 or dies by SIGKILL; anything else is
+            # the child failing on its own, which proves nothing either
+            failures.append(
+                f"child failed before the crash point (exit {proc.returncode}): "
+                f"{proc.stderr.strip()[-2000:]}"
+            )
+        else:
+            # what the journal PROVES happened before the kill
+            pre_state, pre_stats = jr.replay_journal(workdir, "chaos-crash")
+            pre_trials = (pre_state or {}).get("trials") or {}
+            settled_before = {
+                n: t
+                for n, t in pre_trials.items()
+                if TrialCondition(t.get("condition", "Created")).is_terminal()
+            }
+            # resume in this process — everything it knows comes from disk
+            orch = Orchestrator(workdir=workdir, device=device)
+            exp = orch.run(_crash_spec(args.trials, _crash_trainer), resume=True)
+            print(
+                f"resumed: {exp.condition.value}, {len(exp.trials)} trial(s), "
+                f"{pre_stats.applied} journal record(s) replayed"
+            )
+            if not exp.condition.is_terminal():
+                failures.append(f"resumed experiment not terminal: {exp.condition.value}")
+            # invariant 1: no settled trial lost or demoted
+            for name, tdata in settled_before.items():
+                t = exp.trials.get(name)
+                if t is None:
+                    failures.append(f"settled trial lost across the crash: {name}")
+                elif t.condition.value != tdata["condition"]:
+                    failures.append(
+                        f"settled trial {name} changed condition across the "
+                        f"crash: {tdata['condition']} -> {t.condition.value}"
+                    )
+            # invariant 2: no duplicate observations in the durable store
+            db = os.path.join(workdir, "observations.sqlite")
+            if os.path.exists(db):
+                conn = sqlite3.connect(db)
+                dups = conn.execute(
+                    "SELECT trial_name, metric_name, step, COUNT(*) c FROM"
+                    " observation_logs WHERE step >= 0 GROUP BY trial_name,"
+                    " metric_name, step HAVING c > 1"
+                ).fetchall()
+                conn.close()
+                if dups:
+                    failures.append(f"duplicate observations in store: {dups[:5]}")
+            # invariant 3: retry budget monotone across the crash
+            for name, tdata in pre_trials.items():
+                t = exp.trials.get(name)
+                if t is not None and t.retry_count < int(tdata.get("retry_count") or 0):
+                    failures.append(
+                        f"retry budget reset across the crash for {name}: "
+                        f"{tdata.get('retry_count')} -> {t.retry_count}"
+                    )
+            # invariant 4: the optimal trial is consistent with its own record
+            if exp.optimal is not None:
+                best = exp.trials.get(exp.optimal.trial_name)
+                if best is None:
+                    failures.append(
+                        f"optimal trial {exp.optimal.trial_name} not in history"
+                    )
+                elif best.observation is None:
+                    failures.append(
+                        f"optimal trial {exp.optimal.trial_name} has no observation"
+                    )
+    if failures:
+        print("CHAOS FAIL: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    print(f"CHAOS PASS: hard kill at {site_spec} recovered with invariants intact")
+    return 0
+
+
+def _chaos_trainer(ctx):
+    """The single run's trainer.  Checkpoint-aware: progress survives
+    transient retries because the re-run reuses the same checkpoint dir."""
+    os.makedirs(ctx.checkpoint_dir, exist_ok=True)
+    marker = os.path.join(ctx.checkpoint_dir, "progress.txt")
+    start = 0
+    if os.path.exists(marker):
+        with open(marker) as f:
+            start = int(f.read().strip() or 0)
+    x = float(ctx.params["lr"])
+    for step in range(start, 3):
+        with open(marker, "w") as f:
+            f.write(str(step + 1))
+        if not ctx.report(step=step, accuracy=(1.0 - 0.2 * (x - 0.05) ** 2) * (step + 1) / 3):
+            return
 
 
 def cmd_chaos(args: argparse.Namespace) -> int:
-    """``chaos --soak SECONDS --seed N [--trials N]``: the seeded chaos soak
-    of the async engine (``orchestrator/soak.py``); exit 0 when every
-    round's invariants held.  The JAX verb's other modes raise, each naming
-    itself."""
+    """Deterministic fault-injection run: a seeded ``FaultInjector`` plants
+    transient trial failures and suggester exceptions in a small white-box
+    experiment on ``--device``, then the exit status asserts the
+    fault-tolerance invariants (transient retries recover with checkpoint
+    resume, permanent failures don't retry, the suggester circuit breaker
+    absorbs sub-threshold errors).  The chaos analog of ``conformance``:
+    same experiment, hostile weather.  ``--crash-at``/``--kill-at`` run the
+    crash-consistency scenario, ``--soak`` the seeded soak of the async
+    engine.  Exit 0 when the invariants held, 1 when one failed, 2 for a
+    malformed flag."""
     if args.crash_at or args.kill_at:
-        raise NotImplementedError(
-            "chaos --crash-at/--kill-at, the crash-consistency scenario of "
-            "katib_tpu/cli.py (_chaos_crash), is not ported yet"
-        )
+        if args.crash_at and args.kill_at:
+            print("--crash-at and --kill-at are mutually exclusive", file=sys.stderr)
+            return 2
+        return _chaos_crash(args)
     if args.wedge_device:
         raise NotImplementedError(
-            "chaos --wedge-device, the wedged-device scenario of "
-            "katib_tpu/cli.py (cmd_chaos), is not ported yet"
+            "chaos --wedge-device needs a trial-axis mesh over two or more "
+            "devices (katib_tpu/parallel/mesh.py) and sharded cohorts; the "
+            "port runs each trial on one GPU, and multi-GPU meshes are not "
+            "ported yet"
         )
-    given = [f for f in SINGLE_RUN_FLAGS if getattr(args, f[2:].replace("-", "_")) is not None]
-    if args.soak is None:
-        raise NotImplementedError(
-            "chaos without --soak, the single fault-injection run of "
-            f"katib_tpu/cli.py (cmd_chaos{'; ' + ' '.join(given) if given else ''}), "
-            "is not ported yet; the port has chaos --soak SECONDS --seed N "
-            "[--trials N]"
-        )
-    if given:
-        raise NotImplementedError(
-            "chaos --soak: the single fault-injection run's flags "
-            f"({' '.join(given)}) are not ported yet (katib_tpu/cli.py "
-            "cmd_chaos); the soak takes --seed and --trials"
-        )
-    from katib_tpu_torch.orchestrator.soak import run_soak
+    given = [f for f in SINGLE_RUN_FLAGS if getattr(args, _dest(f)) is not None]
+    if args.soak is not None:
+        if given:
+            raise NotImplementedError(
+                f"chaos --soak ignores the single fault-injection run's flags "
+                f"({' '.join(given)}) in katib_tpu/cli.py; the port refuses a "
+                "setting it would ignore: the soak takes --seed and --trials"
+            )
+        from katib_tpu_torch.orchestrator.soak import run_soak
 
-    # soak rounds want enough trials per round for occupancy and mid-run
-    # kills to mean something; --trials can only raise it
-    return run_soak(seconds=args.soak, seed=args.seed, trials=max(args.trials, 10))
+        # soak rounds want enough trials per round for occupancy and
+        # mid-run kills to mean something; --trials can only raise it
+        return run_soak(seconds=args.soak, seed=args.seed, trials=max(args.trials, 10))
+    for flag, (_, default) in _SINGLE_RUN_ARGS.items():
+        if getattr(args, _dest(flag)) is None:
+            setattr(args, _dest(flag), default)
+    return _chaos_single_run(args)
+
+
+def _chaos_single_run(args: argparse.Namespace) -> int:
+    import tempfile
+
+    from katib_tpu_torch.core.types import (
+        AlgorithmSpec,
+        ExperimentCondition,
+        ExperimentSpec,
+        FeasibleSpace,
+        ObjectiveSpec,
+        ObjectiveType,
+        ParameterSpec,
+        ParameterType,
+        ResumePolicy,
+        TrialCondition,
+    )
+    from katib_tpu_torch.orchestrator import Orchestrator
+    from katib_tpu_torch.utils import observability as obs
+    from katib_tpu_torch.utils.faults import FailureKind, FaultInjector
+
+    injector = FaultInjector(seed=args.seed)
+    for spec_str in args.fail_trial or []:
+        parts = spec_str.split(":")
+        if len(parts) not in (2, 3):
+            print(f"bad --fail-trial {spec_str!r} (want K:J[:kind])", file=sys.stderr)
+            return 2
+        kind = FailureKind(parts[2].capitalize()) if len(parts) == 3 else FailureKind.TRANSIENT
+        injector.fail_trial(int(parts[0]), int(parts[1]), kind)
+    for call in args.fail_suggester or []:
+        injector.fail_suggester(int(call))
+    for spec_str in args.hang_trial or []:
+        parts = spec_str.split(":")
+        if len(parts) not in (1, 2):
+            print(f"bad --hang-trial {spec_str!r} (want K[:J])", file=sys.stderr)
+            return 2
+        injector.hang_trial(int(parts[0]), int(parts[1]) if len(parts) == 2 else 1)
+    if args.preempt_at is not None:
+        injector.preempt_at(args.preempt_at)
+    if args.flake_rate:
+        injector.flake(args.flake_rate)
+    for spec_str in args.compile_hang or []:
+        parts = spec_str.split(":")
+        if len(parts) not in (1, 2):
+            print(f"bad --compile-hang {spec_str!r} (want K[:J])", file=sys.stderr)
+            return 2
+        injector.compile_hang(int(parts[0]), int(parts[1]) if len(parts) == 2 else 1)
+    killed_loops = []
+    for spec_str in args.kill_loop or []:
+        parts = spec_str.split(":")
+        if parts[0] not in ("suggest", "schedule", "harvest") or len(parts) > 2:
+            print(f"bad --kill-loop {spec_str!r} (want LOOP[:N])", file=sys.stderr)
+            return 2
+        injector.kill_loop(parts[0], int(parts[1]) if len(parts) == 2 else 1)
+        killed_loops.append(parts[0])
+    stall_calls = []
+    for spec_str in args.stall_suggester or []:
+        parts = spec_str.split(":")
+        if len(parts) not in (1, 2):
+            print(
+                f"bad --stall-suggester {spec_str!r} (want SECONDS[:CALL])",
+                file=sys.stderr,
+            )
+            return 2
+        injector.stall_suggester(
+            float(parts[0]), int(parts[1]) if len(parts) == 2 else 1
+        )
+        stall_calls.append(float(parts[0]))
+    injected_any = (
+        args.fail_trial
+        or args.fail_suggester
+        or args.flake_rate
+        or args.hang_trial
+        or args.compile_hang
+        or killed_loops
+        or stall_calls
+        or args.preempt_at is not None
+    )
+    if not injector.log and not injected_any:
+        # default scenario: first trial is preempted twice, one suggester
+        # call blows up — the experiment must shrug all of it off
+        injector.fail_trial(0, 1).fail_trial(0, 2).fail_suggester(2)
+
+    spec = ExperimentSpec(
+        name="chaos-random",
+        algorithm=AlgorithmSpec(name="random", settings={"seed": str(args.seed)}),
+        objective=ObjectiveSpec(
+            type=ObjectiveType.MAXIMIZE, objective_metric_name="accuracy"
+        ),
+        parameters=[
+            ParameterSpec("lr", ParameterType.DOUBLE, FeasibleSpace(min=0.01, max=0.2)),
+        ],
+        max_trial_count=args.trials,
+        # one trial at a time keeps the injector's trial indices deterministic
+        parallel_trial_count=1,
+        max_retries=args.max_retries,
+        retry_backoff_seconds=0.05,
+        suggester_max_errors=args.suggester_max_errors,
+        # hang watchdog only arms when a deadline is set; keep it off unless
+        # the scenario injects hangs so the happy path stays unchanged
+        progress_deadline_seconds=(
+            args.progress_deadline if args.hang_trial else None
+        ),
+        # compile watchdog only arms for the --compile-hang scenario
+        compile_deadline_seconds=(
+            args.compile_deadline if args.compile_hang else None
+        ),
+        drain_grace_seconds=args.drain_grace,
+        # loop-kill / suggester-stall scenarios exercise the async engine's
+        # supervisor: force the async path on (env opt-out would silently
+        # skip the seams) and tighten the stall deadline so a stalled
+        # suggester call is abandoned within the run, not after 60s
+        async_orch=(True if (killed_loops or stall_calls) else None),
+        loop_stall_deadline_seconds=(
+            args.loop_stall_deadline if (killed_loops or stall_calls) else 60.0
+        ),
+        # the preempt scenario spans two orchestrator lifetimes; a resumable
+        # policy upgrades the store to the durable sqlite backend so metrics
+        # reported before the SIGTERM survive into the resumed process
+        resume_policy=(
+            ResumePolicy.LONG_RUNNING
+            if args.preempt_at is not None
+            else ResumePolicy.NEVER
+        ),
+        train_fn=_chaos_trainer,
+    )
+    errors_before = obs.suggester_errors.get(algorithm="random")
+    retried_before = obs.trials_retried.get(kind=FailureKind.TRANSIENT.value)
+    hangs_before = obs.trial_hangs.get()
+    compile_hangs_before = obs.compile_hangs.get()
+    degraded_before = obs.mesh_degraded.get()
+    preempted = False
+    completed_at_drain: set[str] = set()
+    with tempfile.TemporaryDirectory(prefix="katib-chaos-") as workdir:
+        orch = Orchestrator(workdir=workdir, fault_injector=injector, device=args.device)
+        if args.preempt_at is not None:
+            # the injected preempt delivers a real SIGTERM to this process:
+            # install the same drain handlers `run` uses so the orchestrator
+            # checkpoints, journals, and returns resumable state
+            _install_drain_handlers(orch)
+        exp = orch.run(spec)
+        if orch.drained:
+            preempted = True
+            completed_at_drain = {
+                t.name
+                for t in exp.trials.values()
+                if t.condition is TrialCondition.SUCCEEDED
+            }
+            drained_names = [
+                t.name
+                for t in exp.trials.values()
+                if t.condition is TrialCondition.DRAINED
+            ]
+            print(
+                f"preempted mid-experiment: {len(completed_at_drain)} trial(s) "
+                f"completed, {len(drained_names)} drained "
+                f"({', '.join(drained_names) or 'none'}); resuming from journal"
+            )
+            # fresh orchestrator = new process semantics: everything it knows
+            # must come from the journal + suggester pickle, not live memory
+            orch = Orchestrator(workdir=workdir, fault_injector=injector, device=args.device)
+            _install_drain_handlers(orch)
+            exp = orch.run(spec, experiment=orch.load_experiment(spec))
+
+    print(f"chaos seed={args.seed}  experiment={exp.condition.value}")
+    for t in sorted(exp.trials.values(), key=lambda t: t.start_time):
+        print(
+            f"  {t.name}: {t.condition.value:<20} attempts={t.retry_count + 1} "
+            f"kind={t.failure_kind or '-'}"
+        )
+    print(
+        f"injected: {len(injector.log)} faults; "
+        f"retries={obs.trials_retried.get(kind=FailureKind.TRANSIENT.value) - retried_before:g}; "
+        f"suggester errors absorbed={obs.suggester_errors.get(algorithm='random') - errors_before:g}; "
+        f"hangs caught={obs.trial_hangs.get() - hangs_before:g}; "
+        f"compile hangs caught={obs.compile_hangs.get() - compile_hangs_before:g}; "
+        f"mesh degradations={obs.mesh_degraded.get() - degraded_before:g}"
+    )
+
+    failures = []
+    if args.hang_trial:
+        hung = [
+            t
+            for t in exp.trials.values()
+            if t.failure_kind == FailureKind.HANG.value and t.retry_count > 0
+        ]
+        if obs.trial_hangs.get() - hangs_before <= 0:
+            failures.append("injected hang was never caught by the watchdog")
+        elif not hung:
+            failures.append(
+                "no trial journaled failure_kind=Hang with a retry "
+                "(watchdog fired but retry machinery did not reclassify)"
+            )
+        elif not all(t.condition is TrialCondition.SUCCEEDED for t in hung):
+            failures.append(
+                "hung trial did not recover on retry: "
+                f"{[(t.name, t.condition.value) for t in hung]}"
+            )
+    if args.compile_hang:
+        if obs.compile_hangs.get() - compile_hangs_before <= 0:
+            failures.append(
+                "injected compile hang was never caught by the compile watchdog"
+            )
+        else:
+            compile_hung = [
+                t
+                for t in exp.trials.values()
+                if t.failure_kind == FailureKind.COMPILE_HANG.value
+                and t.retry_count > 0
+            ]
+            if not compile_hung:
+                failures.append(
+                    "no trial journaled failure_kind=CompileHang with a retry"
+                )
+            elif not all(
+                t.condition is TrialCondition.SUCCEEDED for t in compile_hung
+            ):
+                failures.append(
+                    "compile-hung trial did not recover on retry: "
+                    f"{[(t.name, t.condition.value) for t in compile_hung]}"
+                )
+    if args.preempt_at is not None:
+        if not preempted:
+            failures.append(
+                "injected preemption did not drain the orchestrator "
+                "(SIGTERM handler or drain path broken)"
+            )
+        else:
+            still_completed = {
+                t.name
+                for t in exp.trials.values()
+                if t.condition is TrialCondition.SUCCEEDED
+            }
+            lost = completed_at_drain - still_completed
+            if lost:
+                failures.append(
+                    f"completed trials lost across the drain/resume cycle: {sorted(lost)}"
+                )
+            leftover = [
+                t.name
+                for t in exp.trials.values()
+                if t.condition is TrialCondition.DRAINED
+            ]
+            if leftover:
+                failures.append(f"drained trials never resubmitted: {leftover}")
+    if killed_loops:
+        st = orch.async_stats or {}
+        fired = {e.get("loop") for e in injector.log if e.get("seam") == "kill-loop"}
+        for loop in killed_loops:
+            if loop not in fired:
+                failures.append(f"injected kill for the {loop!r} loop never fired")
+            elif (st.get("loop_restarts") or {}).get(loop, 0) < 1:
+                failures.append(
+                    f"killed {loop!r} loop was never restarted by the supervisor"
+                )
+        if st.get("fallback"):
+            failures.append(f"async engine fell back to sync: {st['fallback']}")
+    if stall_calls:
+        if not any(e.get("seam") == "suggester-stall" for e in injector.log):
+            failures.append("injected suggester stall never fired")
+        elif any(s > args.loop_stall_deadline for s in stall_calls) and (
+            obs.suggester_errors.get(algorithm="random") - errors_before <= 0
+        ):
+            failures.append(
+                "over-deadline suggester stall was not abandoned "
+                "(deadline-bounded call should have tripped the breaker)"
+            )
+    if not exp.condition.is_terminal():
+        failures.append(f"experiment not terminal: {exp.condition.value}")
+    if exp.condition is ExperimentCondition.FAILED:
+        failures.append(f"experiment failed: {exp.message.splitlines()[0] if exp.message else ''}")
+    recovered = [
+        t for t in exp.trials.values()
+        if t.retry_count > 0 and t.condition is TrialCondition.SUCCEEDED
+    ]
+    injected_transient = [
+        e
+        for e in injector.log
+        if e.get("seam") == "trial" and e.get("kind") == FailureKind.TRANSIENT.value
+    ]
+    if injected_transient and args.max_retries > 0 and not recovered:
+        failures.append("no trial recovered from an injected transient fault")
+    never_retried = [
+        t.name
+        for t in exp.trials.values()
+        if t.failure_kind == FailureKind.PERMANENT.value and t.retry_count > 0
+    ]
+    if never_retried:
+        failures.append(f"permanent failures were retried: {never_retried}")
+    if failures:
+        print("CHAOS FAIL: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    print("CHAOS PASS: every injected fault was absorbed")
+    return 0
 
 
 def _cmd_unported(args: argparse.Namespace) -> int:
     raise NotImplementedError(
         f"verb {args.cmd!r} of katib_tpu/cli.py is not ported yet; the port "
-        "has run, fsck, doctor and chaos --soak"
+        "has run, list, describe, metrics, export, logs, trace, conformance, "
+        "chaos, fsck and doctor"
     )
 
 
@@ -351,12 +1303,108 @@ def main(argv: list[str] | None = None) -> int:
     )
     p.set_defaults(fn=cmd_doctor)
 
+    p = sub.add_parser("list", help="list experiments")
+    p.add_argument("--workdir", default="katib_runs")
+    p.set_defaults(fn=cmd_list)
+
+    p = sub.add_parser("describe", help="describe one experiment")
+    p.add_argument("experiment")
+    p.add_argument("--workdir", default="katib_runs")
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=cmd_describe)
+
+    p = sub.add_parser("metrics", help="dump a trial's metric log")
+    p.add_argument("trial")
+    p.set_defaults(fn=cmd_metrics)
+
+    p = sub.add_parser("export", help="dump trials as CSV/JSONL for analysis")
+    p.add_argument("experiment")
+    p.add_argument("--format", choices=("csv", "jsonl"), default="csv")
+    p.add_argument("--workdir", default="katib_runs")
+    p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("logs", help="print a black-box trial's captured stdout")
+    p.add_argument("trial")
+    p.add_argument("--workdir", default="katib_runs")
+    p.set_defaults(fn=cmd_logs)
+
+    p = sub.add_parser("trace", help="export/summarize an experiment's span journal")
+    trace_sub = p.add_subparsers(dest="trace_cmd", required=True)
+    tp = trace_sub.add_parser(
+        "export", help="trace journal -> Chrome-trace JSON (Perfetto-loadable)"
+    )
+    tp.add_argument("experiment")
+    tp.add_argument("--workdir", default="katib_runs")
+    tp.add_argument(
+        "--out",
+        default=None,
+        help="output path (default <workdir>/<experiment>/trace.json; '-' for stdout)",
+    )
+    tp.set_defaults(fn=cmd_trace_export)
+    tp = trace_sub.add_parser(
+        "summary", help="per-span latency distribution (count/total/p50/p95)"
+    )
+    tp.add_argument("experiment")
+    tp.add_argument("--workdir", default="katib_runs")
+    tp.add_argument("--json", action="store_true")
+    tp.add_argument(
+        "--top",
+        type=int,
+        default=0,
+        metavar="N",
+        help="also list the N slowest individual spans with their roofline "
+        "attrs (mfu / bound / headroom) where a span carries them",
+    )
+    tp.set_defaults(fn=cmd_trace_summary)
+
+    p = sub.add_parser("conformance", help="packaged e2e invariants check")
+    p.add_argument("--max-trials", type=int, default=8)
+    p.add_argument(
+        "--device",
+        default="cuda",
+        help="where trials run: cuda (default; raises without a GPU) or cpu",
+    )
+    p.set_defaults(fn=cmd_conformance)
+
     p = sub.add_parser(
-        "chaos",
-        help="seeded chaos soak of the async engine (only --soak is ported)",
+        "chaos", help="deterministic fault-injection run (fault-tolerance invariants)"
     )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trials", type=int, default=4)
+    p.add_argument(
+        "--device",
+        default="cuda",
+        help="where trials run, the crash scenario's child's included: cuda "
+        "(default; raises without a GPU) or cpu",
+    )
+    for flag, (kwargs, _) in _SINGLE_RUN_ARGS.items():
+        p.add_argument(flag, default=None, **kwargs)
+    p.add_argument(
+        "--crash-at",
+        metavar="SITE[:N]",
+        default=None,
+        help="hard-crash (os._exit, no drain, no cleanup) a child sweep at "
+        "the N-th (default 1st) hit of a registered persistence crash "
+        "point, then resume in-process and assert no settled trial is "
+        "lost, no observation duplicated, and the retry budget is "
+        "monotone; sites: journal.append, journal.snapshot, "
+        "suggester.pickle, status.write, checkpoint.manifest, "
+        "retry.budget, store.report",
+    )
+    p.add_argument(
+        "--kill-at",
+        metavar="SITE[:N]",
+        default=None,
+        help="like --crash-at but the child dies by SIGKILL "
+        "(indistinguishable from the OOM killer)",
+    )
+    p.add_argument(
+        "--wedge-device",
+        action="append",
+        type=int,
+        metavar="N",
+        help="needs a multi-GPU trial-axis mesh; not ported yet (raises)",
+    )
     p.add_argument(
         "--soak",
         type=float,
@@ -368,13 +1416,6 @@ def main(argv: list[str] | None = None) -> int:
         "respected, and post-fault occupancy recovery; deterministic "
         "per --seed",
     )
-    p.add_argument("--crash-at", metavar="SITE[:N]", default=None, help="not ported yet")
-    p.add_argument("--kill-at", metavar="SITE[:N]", default=None, help="not ported yet")
-    p.add_argument("--wedge-device", action="append", type=int, metavar="N",
-                   help="not ported yet")
-    for flag in SINGLE_RUN_FLAGS:
-        p.add_argument(flag, default=None,
-                       help="the single fault-injection run's; not ported yet")
     p.set_defaults(fn=cmd_chaos)
 
     for verb in UNPORTED_VERBS:

@@ -1,7 +1,7 @@
 """Typed framework configuration — the KatibConfig equivalent (port of
-``katib_tpu/core/config.py``: the memory and sqlite stores are built; the
-``native``, remote and SQL-server backends and any mesh axes raise
-``NotImplementedError`` until the port has them).
+``katib_tpu/core/config.py``: the memory, sqlite and DB-API (``mysql``,
+``postgres``) stores are built; the ``native`` and remote backends and any
+mesh axes raise ``NotImplementedError`` until the port has them).
 
 The reference loads a single ``KatibConfig`` object (apiVersion
 ``config.kubeflow.org/v1beta1``) with an ``init`` section of controller flags
@@ -166,16 +166,72 @@ class StoreConfig:
             from katib_tpu_torch.store.sqlite import SqliteObservationStore
 
             return SqliteObservationStore(self.path)
+        if self.backend in ("mysql", "postgres"):
+            return self._make_dbapi_store()
         missing = {
             "native": "the native observation store (katib_tpu/native/store.py)",
             "remote": "the remote db-manager store (katib_tpu/native/dbmanager.py)",
-            "mysql": "the DB-API store (katib_tpu/store/dbapi.py)",
-            "postgres": "the DB-API store (katib_tpu/store/dbapi.py)",
         }[self.backend]
         raise NotImplementedError(
             f"store.backend {self.backend!r} needs {missing}, which the port "
-            "does not have yet; use 'memory' or 'sqlite'"
+            "does not have yet; use 'memory', 'sqlite', 'mysql' or 'postgres'"
         )
+
+    def _make_dbapi_store(self):
+        """External-SQL store over the reference's observation_logs schema
+        (``store/dbapi.py``).  Drivers are imported lazily — whichever of
+        the usual DB-API modules is installed is used."""
+        from katib_tpu_torch.store.dbapi import DbapiObservationStore
+
+        user, password, host, port, dbname = _parse_dsn(
+            self.dsn, default_port=3306 if self.backend == "mysql" else 5432
+        )
+        candidates = (
+            ("pymysql", "MySQLdb")
+            if self.backend == "mysql"
+            else ("psycopg2", "pg8000")
+        )
+        # database=, not dbname=: every candidate accepts database= (psycopg2
+        # takes both spellings; pg8000's connect() only knows database=)
+        kwargs = dict(
+            user=user, password=password, host=host, port=port, database=dbname
+        )
+        import importlib
+
+        last_err: Exception | None = None
+        for mod_name in candidates:
+            try:
+                mod = importlib.import_module(mod_name)
+            except ImportError as e:
+                last_err = e
+                continue
+            return DbapiObservationStore(
+                lambda: mod.connect(**kwargs), dialect=self.backend
+            )
+        raise ConfigError(
+            f"store.backend {self.backend!r} needs one of {candidates} "
+            f"installed (none importable: {last_err})"
+        )
+
+
+def _parse_dsn(
+    dsn: str, default_port: int
+) -> tuple[str, str, str, int, str]:
+    """``user[:password]@host[:port]/dbname`` -> components (the shape of
+    the reference's env-assembled MySQL DSN, ``mysql/mysql.go:40-55``)."""
+    cred, _, rest = dsn.rpartition("@")
+    user, _, password = cred.partition(":")
+    hostport, _, dbname = rest.partition("/")
+    host, _, port_s = hostport.partition(":")
+    try:
+        port = int(port_s) if port_s else default_port
+    except ValueError:
+        raise ConfigError(f"store.dsn has non-numeric port: {dsn!r}") from None
+    if not host or not dbname:
+        raise ConfigError(
+            f"store.dsn must look like user:password@host:port/dbname, got {dsn!r}"
+        )
+    return user, password, host, port, dbname
 
 
 # env-var overrides, the analog of ``consts/const.go:156-166`` /

@@ -180,7 +180,7 @@ class TrialCheckpointer:
         doc = {"format": FORMAT, "step": step, "tree_digest": tree_digest(cpu),
                "files": _walk_sizes(path)}
         atomic_replace(_manifest_path(self.directory, step), json.dumps(doc).encode(),
-                       prefix=".manifest-")
+                       prefix=".manifest-", crash_site="checkpoint.manifest")
         if self.max_to_keep is not None and self.max_to_keep > 0:
             for old in self.all_steps()[: -self.max_to_keep]:
                 shutil.rmtree(_step_path(self.directory, old), ignore_errors=True)

@@ -584,6 +584,14 @@ def test_enas_rounds_match_the_jax_engine(tmp_path, monkeypatch):
             s = make_suggester_fn(spec)
             inner = s._train_step
             s._train_step = lambda *a: steps.append(s.round) or inner(*a)
+            # each get_suggestions call is one ENAS round, and the engines'
+            # anticipatory refill asks for the lookahead (4 here) plus the
+            # trials dispatched during the previous call: a round's last
+            # trial can settle before a call reads 0 dispatched, and then a
+            # round of 5 follows (a thread race).  Capping the count at the
+            # parallel width makes both engines' rounds 4 wide every time.
+            ask = s.get_suggestions
+            s.get_suggestions = lambda exp, count: ask(exp, min(count, spec.parallel_trial_count))
             made.append(s)
             return s
 

@@ -169,7 +169,7 @@ def test_config_builds_the_memory_and_sqlite_stores(tmp_path):
     assert isinstance(cfg.store.make_store(), SqliteObservationStore)
 
 
-@pytest.mark.parametrize("backend", ["native", "remote", "mysql", "postgres"])
+@pytest.mark.parametrize("backend", ["native", "remote"])
 def test_config_refuses_the_stores_the_port_lacks(backend):
     cfg = KatibConfig.from_dict({"store": {"backend": backend}})
     with pytest.raises(NotImplementedError, match=backend):

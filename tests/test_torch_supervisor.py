@@ -10,7 +10,9 @@ The unit tests drive :class:`LoopSupervisor` with a fake clock and bare
 threads; the engine tests kill real loop threads mid-run through the
 ``FaultInjector`` seams and assert recovery with zero lost or duplicated
 settlements (journal replay is the referee).  Then the ``chaos`` verb:
-``--soak`` drives ``orchestrator/soak.py``, its other modes raise.
+``--soak`` drives ``orchestrator/soak.py``, the single run and the crash
+scenario run (``tests/test_torch_chaos.py`` holds them against the JAX
+CLI), and ``--wedge-device`` and ``--soak`` with a single-run flag raise.
 """
 
 import os
@@ -493,7 +495,8 @@ def test_soak_smoke():
 
 
 # ---------------------------------------------------------------------------
-# the chaos verb: --soak is ported, its other modes raise naming themselves
+# the chaos verb: --soak, the single run and the crash scenario are ported;
+# --wedge-device and --soak with a single-run flag raise naming themselves
 # ---------------------------------------------------------------------------
 
 
@@ -512,14 +515,10 @@ def test_chaos_soak_drives_run_soak(monkeypatch):
 @pytest.mark.parametrize(
     "args,match",
     [
-        ([], "single fault-injection run"),
-        (["--seed", "3", "--fail-trial", "0:1"], "single fault-injection run.*--fail-trial"),
         (["--soak", "5", "--kill-loop", "suggest"], "single fault-injection run.*--kill-loop"),
-        (["--crash-at", "journal.append:8"], "--crash-at"),
-        (["--kill-at", "journal.append"], "--kill-at"),
         (["--wedge-device", "0"], "--wedge-device"),
     ],
-    ids=["no-mode", "fail-trial", "soak-with-fault-flag", "crash-at", "kill-at", "wedge-device"],
+    ids=["soak-with-fault-flag", "wedge-device"],
 )
 def test_chaos_modes_other_than_soak_raise_naming_themselves(args, match):
     from katib_tpu_torch import cli
@@ -528,15 +527,35 @@ def test_chaos_modes_other_than_soak_raise_naming_themselves(args, match):
         cli.main(["chaos", *args])
 
 
+@pytest.mark.parametrize(
+    "args,printed",
+    [
+        ([], "CHAOS PASS: every injected fault was absorbed"),
+        (["--seed", "3", "--fail-trial", "0:1"], "CHAOS PASS: every injected fault was absorbed"),
+        (["--crash-at", "journal.append:8"], "CHAOS PASS: hard kill at journal.append:8"),
+        (["--kill-at", "journal.append"], "CHAOS PASS: hard kill at journal.append"),
+    ],
+    ids=["no-mode", "fail-trial", "crash-at", "kill-at"],
+)
+def test_chaos_modes_other_than_soak_run(args, printed, capsys):
+    """The cases the port refused before it had them: each runs on the CPU
+    and passes."""
+    from katib_tpu_torch import cli
+
+    assert cli.main(["chaos", "--device", "cpu", *args]) == 0
+    assert printed in capsys.readouterr().out
+
+
 def test_chaos_without_soak_raises_from_the_command_line():
-    """``python -m katib_tpu_torch chaos`` in a fresh interpreter."""
+    """``python -m katib_tpu_torch chaos --wedge-device 0`` in a fresh
+    interpreter: the refusal reaches the command line."""
     import subprocess
     import sys
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run(
-        [sys.executable, "-m", "katib_tpu_torch", "chaos"], cwd=root, capture_output=True,
-        text=True, timeout=120, env={**os.environ, "PYTHONPATH": root},
+        [sys.executable, "-m", "katib_tpu_torch", "chaos", "--wedge-device", "0"], cwd=root,
+        capture_output=True, text=True, timeout=120, env={**os.environ, "PYTHONPATH": root},
     )
     assert out.returncode != 0
-    assert "NotImplementedError: chaos without --soak" in out.stderr, out.stderr[-2000:]
+    assert "NotImplementedError: chaos --wedge-device" in out.stderr, out.stderr[-2000:]
