@@ -111,7 +111,19 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    --json``, ``export --format jsonl``, ``trace summary --json`` and
    ``conformance`` in one fresh interpreter on the tune workdir, ``chaos``
    in its default scenario and ``chaos --crash-at journal.append``, each
-   exit 0.
+   exit 0;
+24. ``compile:`` the kernel libraries built in phase 2 published to a
+   temporary shared artifact tier, then loaded from it by a fresh
+   interpreter whose build directory is empty and whose ``nvcc`` raises
+   (the same bytes, the ``ptxas`` lines read back, the fetched mixed-op
+   kernel bit-equal to this process's on one input), ``fsck`` and ``cache``
+   of that tier; ``python -m katib_tpu_torch run
+   examples/hp-tuning/cohort-prewarm.yaml`` as shipped with
+   ``KATIB_COMPILE_CACHE`` and ``KATIB_ARTIFACT_DIR`` in temporary
+   directories: 12 ``Succeeded``, the prewarm worker's twin run and none
+   failed, every first step labelled warm or cold, the port's registry file
+   written and the shared tier left empty; then the same spec with
+   ``prewarm: false``, both runs' walls and first steps side by side.
 
 Every run of the async engine prints its ``async_stats`` (a CLI run prints
 them on its ``async engine:`` line) and fails the script if a loop
@@ -2281,6 +2293,188 @@ def phase_sdk(torch) -> None:
     print(f"sdk: {smi_line()}", flush=True)
 
 
+COHORT_PREWARM_YAML = os.path.join(HERE, "examples", "hp-tuning", "cohort-prewarm.yaml")
+COMPILE_KERNELS = ("mixed_op", "flash_attention")
+
+# a fresh interpreter loads the kernel libraries from a shared tier: its
+# build directory is an empty temporary one and nvcc raises, so a library
+# can only come from the tier
+KERNEL_FETCH_CHILD = """
+import hashlib, json, sys, tempfile, time
+from pathlib import Path
+import torch
+from katib_tpu_torch.compile.artifacts import ARTIFACTS
+from katib_tpu_torch.ops import _build, mixed_op
+from katib_tpu_torch.utils import observability as obs
+
+shared, out_path, names = sys.argv[1], sys.argv[2], sys.argv[3].split(",")
+_build.BUILD_DIR = Path(tempfile.mkdtemp(prefix="chip-smoke-fetched-"))
+
+def no_nvcc():
+    raise RuntimeError("nvcc started")
+
+_build._nvcc = no_nvcc
+ARTIFACTS.configure(shared)
+t0 = time.perf_counter()
+seconds = _build.build(names)
+fetch_s = time.perf_counter() - t0
+w, x = (t.cuda() for t in torch.load(out_path))
+y = mixed_op.mixed_op_sum(w, x)
+torch.cuda.synchronize()
+torch.save(y.cpu(), out_path)
+print(json.dumps({
+    "seconds": seconds, "fetch_s": fetch_s,
+    "sha256": {n: hashlib.sha256(_build.library_path(n).read_bytes()).hexdigest() for n in names},
+    "ptxas": {n: {k: list(v) for k, v in _build.ptxas_report(n).items()} for n in names},
+    "build_dir": sorted(p.name for p in _build.BUILD_DIR.iterdir()),
+    "shared_hits": sum(v for labels, v in obs.artifact_hits.samples()
+                       if (labels or {}).get("tier") == "shared"),
+}))
+"""
+
+
+def compile_run(spec_path: str, what: str) -> dict:
+    """``python -m katib_tpu_torch run <spec_path> --no-preflight`` (the
+    ``doctor:`` phase probes the card) with the compile cache and
+    the shared artifact tier in fresh temporary directories: exit 0, 12
+    trials ``Succeeded`` through the async engine, each ``train_fn`` span
+    labelled warm or cold.  Returns the run's wall, its dirs, its output and
+    its ``train_fn`` spans."""
+    from katib_tpu_torch.orchestrator.status import read_status
+
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-compile-")
+    cache, shared = os.path.join(workdir, "cc"), os.path.join(workdir, "art")
+    name, log = "cohort-prewarm-example", os.path.join(workdir, "run.log")
+    t0 = time.perf_counter()
+    rc, out = _wait(_cli("run", spec_path, "--workdir", workdir, "--no-preflight", log=log,
+                         env={"KATIB_COMPILE_CACHE": cache, "KATIB_ARTIFACT_DIR": shared}),
+                    log, 300)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"compile: {what}: the run exited {rc}:\n{out[-3000:]}")
+    trials = read_status(workdir, name)["trials"]
+    conditions = sorted({t["condition"] for t in trials.values()})
+    fns = sorted(spans_of(workdir, name, "train_fn"), key=lambda r: r["ts"])
+    labels = [r["args"].get("first_step_cache") for r in fns]
+    firsts = [r["args"].get("first_step_s") for r in fns]
+    print(f"compile: {what}: exit {rc} in {wall:.2f}s; {len(trials)} trials {conditions}; "
+          f"first steps {[f'{lab} {s}s' for lab, s in zip(labels, firsts)]}", flush=True)
+    cli_engine(f"compile: {what}", out)
+    check(len(trials) == 12 and conditions == ["Succeeded"],
+          f"{what}: trials {[(t['name'], t['condition'], t['message'][-300:]) for t in trials.values()]}")
+    check(not any("stream is capturing" in t["message"] for t in trials.values()),
+          f"{what}: a trial hit another's capture")
+    check(len(fns) == 12 and set(labels) <= {"warm", "cold"} and None not in firsts,
+          f"{what}: train_fn spans without a warm/cold first step: {labels}")
+    return {"wall": wall, "cache": cache, "shared": shared, "out": out, "first_s": firsts[0],
+            "labels": labels}
+
+
+def phase_compile(torch, mixed_op, built: dict) -> None:
+    """The compile half: the kernel tier's round trip (publish the libraries
+    phase 2 built to a temporary shared tier; a fresh interpreter with an
+    empty build directory and no nvcc loads them from it; the same bytes,
+    the ptxas lines, the fetched mixed-op kernel bit-equal on one input;
+    ``fsck`` and ``cache`` of the tier), then ``cohort-prewarm.yaml`` as
+    shipped through the CLI with the prewarm worker, and again with
+    ``prewarm: false``."""
+    import hashlib
+
+    from katib_tpu_torch.compile.artifacts import ArtifactCache, publish_kernel
+    from katib_tpu_torch.ops import _build
+
+    work = tempfile.mkdtemp(prefix="chip-smoke-kernel-tier-")
+    shared = os.path.join(work, "shared")
+    tier = ArtifactCache()
+    tier.configure(shared)
+    for name in COMPILE_KERNELS:
+        check(publish_kernel(name, tier) == ["shared"], f"compile: {name} was not published")
+    published = {n: hashlib.sha256(_build.library_path(n).read_bytes()).hexdigest()
+                 for n in COMPILE_KERNELS}
+    gen = torch.Generator().manual_seed(15)
+    w = torch.softmax(torch.randn(5, 8, generator=gen), -1)
+    x = torch.randn(5, 8, 65_537, generator=gen)
+    io_path = os.path.join(work, "mixed_op.pt")
+    torch.save((w, x), io_path)
+    logs = {k: os.path.join(work, f"{k}.log") for k in ("fetch", "readers")}
+    started = time.perf_counter()
+    with open(logs["fetch"], "w") as f:
+        fetch = subprocess.Popen(
+            [sys.executable, "-c", KERNEL_FETCH_CHILD, shared, io_path, ",".join(COMPILE_KERNELS)],
+            cwd=HERE, env={**os.environ, "PYTHONPATH": HERE}, stdout=f,
+            stderr=subprocess.STDOUT, text=True)
+    with open(logs["readers"], "w") as f:
+        readers = subprocess.Popen(
+            [sys.executable, "-c", READERS_CHILD,
+             json.dumps([["fsck", shared], ["cache", shared, "--json"]])],
+            cwd=HERE, env={**os.environ, "PYTHONPATH": HERE}, stdout=f,
+            stderr=subprocess.STDOUT, text=True)
+    rc, out = _wait(fetch, logs["fetch"], 180)
+    fetch_wall = time.perf_counter() - started
+    check(rc == 0, f"compile: the fetching interpreter exited {rc}:\n{out[-3000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    mine = mixed_op.mixed_op_sum(w.cuda(), x.cuda()).cpu()
+    theirs = torch.load(io_path)
+    same = {n: got["sha256"][n] == published[n] for n in COMPILE_KERNELS}
+    ptxas = {n: {k: list(v) for k, v in _build.ptxas_report(n).items()} for n in COMPILE_KERNELS}
+    print(f"compile: kernel tier: fetched {sorted(got['seconds'])} in "
+          f"{ {n: round(s, 4) for n, s in got['seconds'].items()} }s "
+          f"(build, whole child {fetch_wall:.2f}s) against nvcc "
+          f"{ {n: round(s, 2) for n, s in built.items()} }s in phase 2; shared hits "
+          f"{got['shared_hits']}; same bytes {same}; ptxas lines read back "
+          f"{ {n: len(got['ptxas'][n]) for n in COMPILE_KERNELS} }; fetched mixed_op "
+          f"bit-equal {torch.equal(mine, theirs)}", flush=True)
+    check(all(same.values()), f"compile: fetched libraries differ from the published {same}")
+    check(got["ptxas"] == ptxas, "compile: the fetched ptxas logs differ")
+    check(got["shared_hits"] == len(COMPILE_KERNELS), f"compile: shared hits {got['shared_hits']}")
+    check(all(s > 0 for s in got["seconds"].values()), f"compile: {got['seconds']}")
+    check(torch.equal(mine, theirs), "compile: the fetched mixed-op kernel is not bit-equal")
+    rc, out = _wait(readers, logs["readers"], 180)
+    check(rc == 0, f"compile: fsck/cache exited {rc}:\n{out[-3000:]}")
+    verbs = json.loads(out.strip().splitlines()[-1])
+    (fsck_rc, fsck_out), (cache_rc, cache_out) = verbs.values()
+    rows = json.loads(cache_out)["artifacts"]
+    print(f"compile: fsck exit {fsck_rc}: {fsck_out.strip().splitlines()[1]}; cache exit "
+          f"{cache_rc}: {[(r['program'], r['status'], r['library_bytes']) for r in rows]}",
+          flush=True)
+    check(fsck_rc == 0 and f"{len(COMPILE_KERNELS)} artifact(s): {len(COMPILE_KERNELS)} valid"
+          in fsck_out, f"compile: fsck:\n{fsck_out}")
+    check(cache_rc == 0 and sorted(r["program"] for r in rows)
+          == [f"kernel:{n}" for n in sorted(COMPILE_KERNELS)]
+          and all(r["status"] == "ok" for r in rows), f"compile: cache rows {rows}")
+
+    on = compile_run(COHORT_PREWARM_YAML, "cohort-prewarm.yaml")
+    lines = [ln for ln in on["out"].splitlines() if ln.startswith("prewarm worker: ")]
+    check(len(lines) == 1, f"compile: {len(lines)} prewarm worker lines")
+    stats = json.loads(lines[0][len("prewarm worker: "):])
+    reason = [ln for ln in on["out"].splitlines() if ln.startswith("artifact tiers: ")]
+    left = os.listdir(on["shared"]) if os.path.isdir(on["shared"]) else []
+    print(f"compile: prewarm worker {stats}; shared tier {left} ({reason[0] if reason else ''}); "
+          f"registry {os.path.relpath(os.path.join(on['cache'], 'torch', 'shape_registry.jsonl'), on['cache'])}",
+          flush=True)
+    check(stats["compiled"] >= 1 and stats["failed"] == 0, f"compile: prewarm worker {stats}")
+    check(os.path.isfile(os.path.join(on["cache"], "torch", "shape_registry.jsonl")),
+          "compile: the port's shape registry was not written")
+    check(not os.path.exists(os.path.join(on["cache"], "shape_registry.jsonl")),
+          "compile: the JAX package's registry file was written")
+    check(not left and reason, f"compile: the shared tier holds {left}")
+
+    spec_dir = tempfile.mkdtemp(prefix="chip-smoke-noprewarm-")
+    off_spec = os.path.join(spec_dir, "cohort-prewarm.yaml")
+    with open(COHORT_PREWARM_YAML) as f:
+        text = f.read()
+    check("  prewarm: true\n" in text, "compile: the spec no longer sets prewarm: true")
+    with open(off_spec, "w") as f:
+        f.write(text.replace("  prewarm: true\n", "  prewarm: false\n"))
+    off = compile_run(off_spec, "prewarm: false")
+    check(not any(ln.startswith("prewarm worker: ") for ln in off["out"].splitlines()),
+          "compile: prewarm: false started the worker")
+    print(f"compile: what prewarm buys: wall {on['wall']:.2f}s with the worker, "
+          f"{off['wall']:.2f}s without; first trial's first step {on['first_s']}s "
+          f"({on['labels'][0]}) with, {off['first_s']}s ({off['labels'][0]}) without; "
+          f"cold first steps {on['labels'].count('cold')} with, "
+          f"{off['labels'].count('cold')} without; {smi_line()}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2341,6 +2535,7 @@ def main() -> int:
     timed(phase_cohort, torch)
     timed(phase_pbt_ondevice, torch)
     timed(phase_sdk, torch)
+    timed(phase_compile, torch, mixed_op, built)
 
     kernels = [{
         "name": "mixed_op_sum",

@@ -24,7 +24,16 @@ Port of ``katib_tpu/cli.py``.  The verbs the port has:
                               and ``--soak`` with a single-run flag raise
                               ``NotImplementedError``
 - ``fsck <workdir>/<exp>``    validate + repair an experiment dir (torn journal tail,
-                              snapshot checksums, suggester fence)
+                              snapshot checksums, suggester fence), or an
+                              artifact dir (envelope checksums and addresses)
+- ``prewarm <experiment.yaml>`` run each width's prewarm twin on ``--device``
+                              and print its capture seconds; record the
+                              signatures; ``--publish`` / ``--fetch-only``
+                              act on the kernel libraries in the artifact
+                              tiers (a capture warms only its own process)
+- ``cache [dir]``             inventory of an artifact tier (the port's kernel
+                              libraries; loadable on this host?) and, for a
+                              compile-cache dir, its registry's history
 - ``doctor``                  bounded device preflight + environment report
 
 ``conformance`` and ``chaos`` take ``--device`` as ``run`` does.  The JAX
@@ -45,9 +54,10 @@ from katib_tpu_torch.core.config import KatibConfig
 
 #: the JAX CLI's verbs the port does not have yet
 UNPORTED_VERBS = (
-    "cost", "profile", "prewarm", "cache", "ui", "sim", "lint",
-    "suggest-server", "db-manager",
+    "cost", "profile", "ui", "sim", "lint", "suggest-server", "db-manager",
 )
+#: the verbs of the cost model (ROADMAP Queue 1 item 8b)
+COST_VERBS = ("cost", "profile")
 
 
 def _fmt_age(start: float, end: float) -> str:
@@ -147,6 +157,11 @@ def cmd_run(args: argparse.Namespace) -> int:
             return 2
     else:
         exp = orch.run(spec)
+    if orch.prewarm_stats is not None:
+        # the background prewarmer's counters; the artifact tiers carry
+        # kernel libraries only, published by the build and the worker
+        print(f"prewarm worker: {json.dumps(orch.prewarm_stats)}", file=sys.stderr)
+        _note_empty_publish(spec, orch.prewarm_stats)
     if orch.async_stats is not None:
         # the engine's summary: its occupancy, rate, lookahead, and what the
         # loop supervisor did (restarts per loop, a fallback to the sync loop)
@@ -517,33 +532,28 @@ def cmd_conformance(args: argparse.Namespace) -> int:
     return 0
 
 
-#: artifact envelope suffixes (``katib_tpu/compile/artifacts.py``)
-_ARTIFACT_SUFFIX = ".katibx"
-_QUARANTINE_SUFFIX = ".quarantined"
-
-
-def _is_artifact_dir(path: str) -> bool:
-    """The JAX CLI's ``is_artifact_dir`` test: envelope files, or a
-    directory named ``artifacts``."""
-    try:
-        names = os.listdir(path)
-    except OSError:
-        return False
-    if any(n.endswith((_ARTIFACT_SUFFIX, _ARTIFACT_SUFFIX + _QUARANTINE_SUFFIX)) for n in names):
-        return True
-    return os.path.basename(os.path.normpath(path)) == "artifacts"
-
-
 def cmd_fsck(args: argparse.Namespace) -> int:
     """Validate and repair an experiment directory (journal checksums,
     torn tails, snapshot integrity, suggester fence) — see
-    ``orchestrator/fsck.py``.  Exit 0 when consistent after repairs.  An
-    artifact-cache directory raises: the port has no artifact cache yet."""
-    if _is_artifact_dir(args.path):
-        raise NotImplementedError(
-            f"{args.path} looks like an artifact-cache directory; fsck of "
-            "artifact caches (katib_tpu/compile/artifacts.py) is not ported yet"
-        )
+    ``orchestrator/fsck.py`` — or an artifact directory (the port's
+    envelopes: checksums and content addresses, corrupt or misaddressed
+    files quarantined) — see ``compile/artifacts.py``; the JAX package's
+    envelopes there are left alone.  Exit 0 when consistent after repairs."""
+    from katib_tpu_torch.compile.artifacts import fsck_artifacts, is_artifact_dir
+
+    if is_artifact_dir(args.path):
+        report = fsck_artifacts(args.path, repair=not args.dry_run)
+        print(f"artifact dir {report.root}")
+        print(report.summary())
+        for name in report.corrupt:
+            print(f"  corrupt: {name}")
+        for name in report.misaddressed:
+            print(f"  misaddressed: {name}")
+        for name in report.stale:
+            print(f"  stale(other-env): {name}")
+        for name in report.quarantined:
+            print(f"  quarantined -> {name}.quarantined (inspect or delete; never loaded)")
+        return 0 if report.consistent else 1
     from katib_tpu_torch.orchestrator.fsck import fsck_experiment
 
     report = fsck_experiment(args.path, repair=not args.dry_run)
@@ -1211,11 +1221,199 @@ def _chaos_single_run(args: argparse.Namespace) -> int:
     return 0
 
 
+def _note_empty_publish(spec, stats: dict) -> None:
+    """Say why a run with artifact tiers published nothing of its own: the
+    tiers carry kernel libraries, and the experiment's program declares
+    none."""
+    from katib_tpu_torch.compile.artifacts import ARTIFACTS
+    from katib_tpu_torch.compile.prewarm import kernels_of
+
+    if ARTIFACTS.enabled() and not stats.get("published") and not kernels_of(spec.train_fn):
+        fn = getattr(spec.train_fn, "__qualname__", "the train_fn")
+        print(f"artifact tiers: no kernel library published: {fn} launches no "
+              "hand-written kernel (its steps are library calls), and a captured "
+              "step program has no serialized form", file=sys.stderr)
+
+
+def _pinned_structural(spec) -> dict:
+    """Parameters pinned to a single structural value: the shapes that join
+    a prewarm signature (everything else rides the workload's defaults)."""
+    from katib_tpu_torch.compile.registry import _structural
+
+    shared = {}
+    for p in spec.parameters:
+        try:
+            vals = p.grid_values()
+        except Exception:
+            continue
+        if len(vals) == 1 and _structural(vals[0]):
+            shared[p.name] = vals[0]
+    return shared
+
+
+def _history_rows(rows: list[dict]) -> str:
+    from katib_tpu_torch.compile.registry import PROCESS_TOKEN
+
+    table = [
+        [r.get("program", "?"), r.get("k", "?"), r.get("source", "?"),
+         r.get("compile_seconds", "-"), r.get("capture_seconds", "-"),
+         "this process" if r.get("process") == PROCESS_TOKEN else "history"]
+        for r in sorted(rows, key=lambda r: (str(r.get("program")), int(r.get("k", 1))))
+    ]
+    return _table(table, ["program", "k", "source", "compile_s", "capture_s", "warm in"])
+
+
+def cmd_prewarm(args: argparse.Namespace) -> int:
+    """Run an experiment's prewarm twin for each width on ``--device`` and
+    print each capture's seconds: the program warms up and captures there.
+    A capture warms only the process it runs in (the trials of a later run
+    capture their own); what crosses processes is the signature rows
+    (history) and, with ``--publish`` / ``--fetch-only``, the kernel
+    libraries the program launches, in the artifact tiers."""
+    from katib_tpu_torch.compile.artifacts import ARTIFACTS
+    from katib_tpu_torch.compile.buckets import prewarm_widths
+    from katib_tpu_torch.compile.prewarm import (
+        PrewarmRequest,
+        PrewarmWorker,
+        kernels_of,
+        prewarm_fn_of,
+    )
+    from katib_tpu_torch.compile.registry import REGISTRY
+    from katib_tpu_torch.device import resolve_device
+    from katib_tpu_torch.runner.cohort import cohort_fn_of
+    from katib_tpu_torch.runner.trial_runner import init_compile_cache
+    from katib_tpu_torch.sdk.yaml_spec import load_experiment_yaml
+
+    spec = load_experiment_yaml(args.experiment)
+    if spec.train_fn is None or prewarm_fn_of(spec.train_fn) is None:
+        print("error: the experiment's train_fn declares no prewarm twin "
+              "(see katib_tpu_torch.compile.prewarm.attach_prewarm_fn)", file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+    cache = init_compile_cache(spec.compile_cache)
+    if not cache:
+        print("note: no compile cache wired (compileCache / KATIB_COMPILE_CACHE): "
+              "the signatures are not kept", file=sys.stderr)
+    artifact_dir = ARTIFACTS.configure(args.artifact_dir or spec.artifact_dir)
+    if args.fetch_only and not artifact_dir:
+        print("error: --fetch-only needs a shared artifact tier "
+              "(--artifact-dir / artifactDir / KATIB_ARTIFACT_DIR)", file=sys.stderr)
+        return 2
+    shared = _pinned_structural(spec)
+    cohort_fn = cohort_fn_of(spec.train_fn)
+    if args.widths:
+        widths = sorted({max(1, int(w)) for w in args.widths.split(",")})
+    elif spec.cohort_width > 1 and cohort_fn is not None:
+        widths = prewarm_widths(spec.cohort_width, buckets=spec.cohort_buckets)
+    else:
+        widths = [1]
+    worker = PrewarmWorker(publish=args.publish, fetch_only=args.fetch_only, force=args.publish)
+    requests = [PrewarmRequest(train_fn=spec.train_fn, shared=shared, k=k,
+                               program_fn=cohort_fn if k > 1 else None, device=device)
+                for k in widths]
+    queued = 0
+    for req in requests:
+        if worker.submit(req):
+            queued += 1
+        else:
+            print(f"k={req.k}: already warm in this process, skipped")
+    done = worker.drain(timeout=args.timeout)
+    worker.stop()
+    if not done:
+        print(f"warning: timed out after {args.timeout}s with twins still queued",
+              file=sys.stderr)
+    for req in requests:
+        key = req.signature().key()
+        if key in worker.captures:
+            capture = worker.captures[key]
+            print(f"k={req.k}: {req.signature().program} captured in "
+                  f"{capture if capture is not None else '-'} s on {device}")
+    stats = worker.stats()
+    print(
+        f"prewarm: {queued} queued, {stats['compiled']} compiled, "
+        f"{stats['fetched']} fetched, {stats['published']} published, "
+        f"{stats['failed']} failed (cache: {cache or '<in-process only>'}"
+        f"{', artifacts: ' + artifact_dir if artifact_dir else ''})"
+    )
+    kernels = kernels_of(spec.train_fn)
+    if (args.publish or args.fetch_only) and not kernels:
+        fn = getattr(spec.train_fn, "__qualname__", "the train_fn")
+        print(f"kernel libraries: 0 — {fn} launches no hand-written kernel (its "
+              "steps are library calls), and a captured step program has no "
+              "serialized form")
+    rows = REGISTRY.signatures()
+    if rows:
+        print(_history_rows(rows))
+    return 0 if stats["failed"] == 0 and done else 1
+
+
+def cmd_cache(args: argparse.Namespace) -> int:
+    """Inventory of an artifact tier: one row per kernel library envelope of
+    the port with its program, size, publishing toolchain and card, and
+    whether this host's fingerprint can load it (``ok``) or not
+    (``stale``).  Given a compile-cache dir, its local tier
+    (``torch/artifacts``) and its registry's rows (history: a capture warms
+    only its own process).  The JAX package's envelopes are not read."""
+    from katib_tpu_torch.compile.artifacts import ARTIFACTS, SUFFIX, env_fingerprint, scan_dir
+    from katib_tpu_torch.compile.registry import PORT_SUBDIR, read_rows
+
+    path = args.path or ARTIFACTS.shared_dir()
+    if not path:
+        print("error: no artifact dir (pass a path or set KATIB_ARTIFACT_DIR)",
+              file=sys.stderr)
+        return 2
+    history: list[dict] = []
+    local = os.path.join(path, PORT_SUBDIR, "artifacts")
+    if not any(n.endswith(SUFFIX) for n in _ls(path)) and os.path.isdir(os.path.join(path, PORT_SUBDIR)):
+        history = read_rows(path)  # a compile-cache dir
+        path = local
+    rows = scan_dir(path)
+    if args.json:
+        print(json.dumps({"dir": path, "artifacts": rows, "registry": history}, indent=2))
+        return 0
+    fp = env_fingerprint()
+    print(f"artifact dir {os.path.abspath(path)} · this host: torch {fp['torch']} · "
+          f"nvcc {fp['nvcc'] or '-'} · {fp['device_name'] or 'no GPU'} "
+          f"{fp['capability']}".rstrip())
+    if rows:
+        table = [
+            [r.get("program", "?"), r.get("status", "?"),
+             f"{r.get('library_bytes', r.get('bytes', 0)) / 1024:.0f}K",
+             r.get("torch", "?"), r.get("nvcc", "?") or "-",
+             f"{r.get('device_name', '?') or '-'} {r.get('capability', '')}".strip()]
+            for r in rows
+        ]
+        print(_table(table, ["program", "status", "library", "torch", "nvcc", "target"]))
+        loadable = sum(1 for r in rows if r.get("status") == "ok")
+        corrupt = sum(1 for r in rows if r.get("status") == "corrupt")
+        print(f"{len(rows)} artifact(s), {loadable} loadable here ({corrupt} corrupt — "
+              "run `fsck` to quarantine)")
+    else:
+        print("(empty)")
+    if history:
+        print("registry history (warm means warmed in the writing process):")
+        print(_history_rows(history))
+    return 0
+
+
+def _ls(path: str) -> list[str]:
+    try:
+        return os.listdir(path)
+    except OSError:
+        return []
+
+
 def _cmd_unported(args: argparse.Namespace) -> int:
+    if args.cmd in COST_VERBS:
+        raise NotImplementedError(
+            f"verb {args.cmd!r} of katib_tpu/cli.py needs the cost model "
+            "(katib_tpu/costmodel/), not ported yet (ROADMAP Queue 1 item 8b, "
+            "the cost half)"
+        )
     raise NotImplementedError(
         f"verb {args.cmd!r} of katib_tpu/cli.py is not ported yet; the port "
         "has run, list, describe, metrics, export, logs, trace, conformance, "
-        "chaos, fsck and doctor"
+        "chaos, fsck, prewarm, cache and doctor"
     )
 
 
@@ -1257,11 +1455,13 @@ def main(argv: list[str] | None = None) -> int:
 
     p = sub.add_parser(
         "fsck",
-        help="validate and repair an experiment dir (journal, snapshots, fence)",
+        help="validate and repair an experiment dir (journal, snapshots, fence) "
+        "or an artifact dir (envelopes)",
     )
     p.add_argument(
         "path",
-        help="experiment directory to check, e.g. <workdir>/<experiment>",
+        help="experiment directory to check, e.g. <workdir>/<experiment>, or "
+        "an artifact dir",
     )
     p.add_argument(
         "--dry-run",
@@ -1269,6 +1469,60 @@ def main(argv: list[str] | None = None) -> int:
         help="report damage without repairing (nonzero exit if any found)",
     )
     p.set_defaults(fn=cmd_fsck)
+
+    p = sub.add_parser(
+        "prewarm",
+        help="run an experiment's prewarm twin for each width on the device and "
+        "print its capture seconds (a capture warms only its own process); "
+        "record the signatures, publish or fetch the kernel libraries",
+    )
+    p.add_argument("experiment", help="experiment YAML")
+    p.add_argument(
+        "--widths",
+        default=None,
+        help="comma-separated cohort widths to warm (default: derived from "
+        "cohortWidth + shape bucketing)",
+    )
+    p.add_argument("--timeout", type=float, default=600.0,
+                   help="max seconds to wait for queued twins")
+    p.add_argument(
+        "--publish",
+        action="store_true",
+        help="publish the kernel libraries the program launches to the artifact "
+        "tiers (--artifact-dir / artifactDir / KATIB_ARTIFACT_DIR)",
+    )
+    p.add_argument(
+        "--fetch-only",
+        action="store_true",
+        help="only fetch the program's kernel libraries from the tiers into the "
+        "build directory (no twin runs)",
+    )
+    p.add_argument(
+        "--artifact-dir",
+        default=None,
+        help="shared artifact tier directory (overrides the spec's artifactDir; "
+        "KATIB_ARTIFACT_DIR wins over both)",
+    )
+    p.add_argument(
+        "--device",
+        default="cuda",
+        help="where the twins run: cuda (default; raises without a GPU) or cpu",
+    )
+    p.set_defaults(fn=cmd_prewarm)
+
+    p = sub.add_parser(
+        "cache",
+        help="inspect an artifact tier (kernel libraries: program, publishing "
+        "toolchain and card, loadable here?) or a compile-cache dir",
+    )
+    p.add_argument(
+        "path",
+        nargs="?",
+        default=None,
+        help="artifact dir or compile-cache dir (default: KATIB_ARTIFACT_DIR)",
+    )
+    p.add_argument("--json", action="store_true", help="machine-readable inventory")
+    p.set_defaults(fn=cmd_cache)
 
     p = sub.add_parser(
         "doctor",

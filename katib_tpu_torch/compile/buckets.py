@@ -48,3 +48,16 @@ def bucketed_cohort_size(k: int, mesh=None) -> int:
 def bucket_table(max_k: int, multiple: int = 1) -> list[tuple[int, int]]:
     """The K -> bucket mapping for widths 1..max_k (docs/tests/CLI view)."""
     return [(k, bucket_size(k, multiple)) for k in range(1, max_k + 1)]
+
+
+def prewarm_widths(
+    max_width: int, buckets: bool = True, multiple: int = 1
+) -> list[int]:
+    """Every padded width the orchestrator's grouping can produce for a
+    sweep with ``cohortWidth = max_width``: the singleton program plus the
+    (bucketed) cohort sizes 2..max_width.  The width set the ``prewarm``
+    verb warms."""
+    widths = {1}
+    for size in range(2, max(1, int(max_width)) + 1):
+        widths.add(bucket_size(size, multiple) if buckets else size)
+    return sorted(widths)

@@ -685,22 +685,23 @@ class ExperimentSpec:
     # (katib_tpu_torch/compile/buckets.py).  Only affects orchestrator-driven
     # cohorts; the direct run_cohort API defaults to exact padding.
     cohort_buckets: bool = True
-    # Background compile prewarm: while trials run, a best-effort daemon
-    # worker compiles upcoming groups' programs (via the train_fn's prewarm
-    # twin, see compile.prewarm.attach_prewarm_fn) into the jit + persistent
-    # caches so their first step deserializes instead of recompiling.
-    # No-op for train_fns without a prewarm twin; never fails a trial.
+    # Background prewarm: while trials run, a best-effort daemon worker warms
+    # up and captures upcoming groups' programs (via the train_fn's prewarm
+    # twin, see compile.prewarm.attach_prewarm_fn) on the orchestrator's
+    # device, so this process's first capture set-up is paid off the
+    # critical path.  No-op for train_fns without a prewarm twin; never
+    # fails a trial.
     prewarm: bool = True
-    # Persistent XLA compilation-cache directory wired at run() start
-    # (jax_compilation_cache_dir); None falls back to the
-    # KATIB_COMPILE_CACHE env var, empty/unset disables.
+    # Compile-cache directory wired at run() start (KATIB_COMPILE_CACHE
+    # wins): the port keeps the shape registry's rows and the local artifact
+    # tier of its kernel libraries under <cache>/torch; empty/unset disables.
     compile_cache: str | None = None
-    # Shared artifact tier: a fleet-shared directory of serialized AOT
-    # executables (compile/artifacts.py).  With it wired, the prewarm
-    # worker publishes what it compiles and the dispatch path fetches
-    # before tracing, so a brand-new host's first step is warm.  None
-    # falls back to KATIB_ARTIFACT_DIR; empty/unset disables the tier
-    # (the local <compile_cache>/artifacts tier still works).
+    # Shared artifact tier: a fleet-shared directory of the port's compiled
+    # kernel libraries (compile/artifacts.py).  A kernel library missing
+    # from the build directory is fetched from the tiers before nvcc runs,
+    # and one nvcc built is published.  KATIB_ARTIFACT_DIR wins;
+    # empty/unset disables the tier (the local <compile_cache>/torch/
+    # artifacts tier still works).
     artifact_dir: str | None = None
     # Hang watchdog: classify a trial FailureKind.HANG (and interrupt it)
     # when no progress signal lands for this long — propagated into every

@@ -19,9 +19,10 @@ trial (port of ``katib_tpu/models/mnist.py``).
   ``device_data`` off each batch is gathered on the host and stepped eagerly.
 - :func:`mnist_trial`, the white-box trial, and its cohort twin
   :func:`mnist_cohort_trial`, which trains K members differing in lr and
-  momentum as one vectorized program through the same :class:`EpochLoop`;
-  the prewarm twin raises until ``compile/prewarm.py`` is ported (ROADMAP
-  Queue 1 item 8).
+  momentum as one vectorized program through the same :class:`EpochLoop`,
+  and its prewarm twin :func:`mnist_prewarm`, which warms up and captures
+  the same step on zeros for the background prewarmer
+  (``compile/prewarm.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils._pytree import tree_flatten, tree_map
 
+from katib_tpu_torch.compile.prewarm import attach_prewarm_fn
 from katib_tpu_torch.device import resolve_device
 from katib_tpu_torch.models.augmentation import KEY_OFFSET
 from katib_tpu_torch.models.data import Dataset, load_mnist
@@ -675,9 +677,10 @@ def mnist_cohort_trial(cctx) -> None:
     Each epoch records a ``cohort.epoch`` span; the capturing epoch's
     carries ``graph_capture_s``.
 
-    The JAX twin's compile-artifact dispatch and cost observation
-    (``compile_artifacts.resolve``, ``costmodel.observe_program``) wait for
-    the compile and cost layer (ROADMAP Queue 1 item 8)."""
+    The JAX twin's compile-artifact dispatch (``compile_artifacts.resolve``)
+    has no counterpart (a captured step has no serialized form), and its
+    cost observation (``costmodel.observe_program``) waits for the cost
+    model (ROADMAP Queue 1 item 8b)."""
     arch = str(cctx.shared("arch", "mlp"))
     if arch == "cnn":
         model = SmallCNN(channels=int(cctx.shared("channels", 32)))
@@ -717,18 +720,84 @@ def mnist_cohort_trial(cctx) -> None:
             break
 
 
-def mnist_prewarm(shared: dict, k: int, mesh=None) -> None:
-    """Compile-only twin of :func:`mnist_trial`; not ported yet."""
-    raise NotImplementedError(
-        "mnist_trial's prewarm twin needs the background compile prewarmer "
-        "(katib_tpu/compile/prewarm.py), not ported yet"
-    )
+def mnist_prewarm(shared: dict, k: int, mesh=None, device=None) -> float:
+    """Warm-up twin of :func:`mnist_trial` / :func:`mnist_cohort_trial` (see
+    ``compile.prewarm.attach_prewarm_fn``): builds the step the trial builds
+    and runs its warm-up and capture once, on ``device`` (resolved as the
+    trial's: ``cuda`` unless it names the CPU).  Returns the capture
+    seconds (0.0 where nothing was captured).
+
+    Dataset-free, as in the JAX package: the train split, the batch and the
+    evaluation batch are zeros of the trial's shapes and dtypes (MNIST is
+    ``[N, 28, 28, 1]`` float32 images and int32 labels).  The model is
+    built and its weights drawn as the trial builds and draws them (a
+    generator seeded 0 after the constructor's own draw).  ``k == 1``
+    builds :func:`classifier_steps` and an :class:`EpochLoop` over them; ``k > 1`` builds
+    :func:`cohort_classifier_steps` over a stacked ``[k, ...]`` state with
+    per-member learning rates and an :class:`EpochLoop` with
+    ``loss_shape=(k,)``.  With the train split on the device (the trial's
+    default) a CUDA device captures the step under the device's capture
+    lock as the trial does (``EpochLoop._build_graph``), and the CPU runs
+    the eager warm-up steps only; with ``KATIB_DEVICE_DATA`` off one eager
+    step runs, as the trial steps eagerly then.  The evaluation runs once on
+    the thread's capture stream and only that stream is waited on (the
+    capture rule of ``compile/prewarm.py``).  Nothing built here is handed
+    to a trial.  A ``mesh`` raises."""
+    if mesh is not None:
+        raise NotImplementedError("mnist_prewarm's mesh is not ported yet")
+    dev = resolve_device(device)
+    p = dict(shared)
+    model = _model(p)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(dev)
+    n_train = int(p.get("n_train", 4096))
+    n_test = int(p.get("n_test", 1024))
+    batch_size = int(p.get("batch_size", 256))
+    optimizer = str(p.get("optimizer", "momentum"))
+    k = int(k)
+    params = {name: v.detach() for name, v in model.named_parameters()}
+    if k > 1:
+        step, evaluate, state = cohort_classifier_steps(
+            model, optimizer, torch.full((k,), 0.05, device=dev),
+            torch.full((k,), 0.9, device=dev), params, k)
+        loss_shape = (k,)
+    else:
+        step, evaluate, state = classifier_steps(model, optimizer, 0.05, 0.9, params)
+        loss_shape = ()
+    x_train = torch.zeros(n_train, 28, 28, 1, device=dev)
+    y_train = torch.zeros(n_train, dtype=torch.int32, device=dev)
+    ne = min(1024, n_test)
+    ebatch = (torch.zeros(ne, 28, 28, 1, device=dev), torch.zeros(ne, dtype=torch.int32, device=dev))
+    env = os.environ.get("KATIB_DEVICE_DATA")
+    n = n_train // batch_size
+    capture_s = 0.0
+    if (env is None or parse_bool(env)) and n >= 1:
+        loop = EpochLoop(step, state, x_train, y_train, n, batch_size, loss_shape=loss_shape)
+        if loop.capture:
+            loop._build_graph()
+            capture_s = loop.capture_s
+        else:
+            copies = tuple(_clone(b) for b in loop.bufs)
+            for _ in range(WARMUP_STEPS):
+                loop._step(copies)
+        state = loop.state
+    else:
+        state, _ = step(state, (x_train[:batch_size], y_train[:batch_size]))
+    if dev.type == "cuda":
+        side, _ = _capture_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            evaluate(state.params, ebatch)
+        side.synchronize()
+    else:
+        evaluate(state.params, ebatch)
+    return capture_s
 
 
 # opt-in: the orchestrator batches compatible mnist_trial proposals through
-# the vectorized twin when the experiment declares a cohort (runner/cohort.py).
-# The prewarm twin is declared as in the JAX package (``attach_prewarm_fn``):
-# the orchestrator engages prewarm only for a train_fn that declares it, so
-# the port refuses exactly where it would run
+# the vectorized twin when the experiment declares a cohort (runner/cohort.py),
+# and its prewarm worker warms up upcoming groups' programs in the background
+# through the warm-up twin (compile/prewarm.py).  The program launches no
+# hand-written kernel: its steps are cuDNN and cuBLAS calls.
 attach_cohort_fn(mnist_trial, mnist_cohort_trial)
-mnist_trial.__prewarm_fn__ = mnist_prewarm
+attach_prewarm_fn(mnist_trial, mnist_prewarm, kernels=())

@@ -185,7 +185,7 @@ def pbt_digits_cohort(cctx) -> None:
     drained on-device member can resume through EITHER path.  Scores are
     test-set accuracy (maximize), matching the host trial's report.  The
     JAX twin's cost observation (``costmodel.observe_program``) waits for
-    the cost layer (ROADMAP Queue 1 item 8)."""
+    the cost layer (ROADMAP Queue 1 item 8b)."""
     from katib_tpu_torch.parallel.pbt import (
         decode_member_hypers,
         encode_hypers,

@@ -7,6 +7,12 @@ digest of its source and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is.  Sources that need building are compiled
 by one ``nvcc`` process each, all started together.  ``ptxas -v``'s report
 (registers and spills of every kernel) is kept beside each library.
+
+With an artifact tier wired (``compile/artifacts.py``: a compile cache's
+local tier, or ``KATIB_ARTIFACT_DIR`` / a spec's ``artifactDir``), a missing
+library is first fetched from the tiers, with its log, and a library that
+``nvcc`` built is published to them.  Without a tier, nothing is fetched or
+published.
 """
 
 from __future__ import annotations
@@ -49,24 +55,40 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
+def _tiers():
+    """The artifact cache when a tier is wired, else None."""
+    from katib_tpu_torch.compile.artifacts import ARTIFACTS
+
+    return ARTIFACTS if ARTIFACTS.enabled() else None
+
+
 def build(names: list[str]) -> dict[str, float]:
     """Compile the libraries of ``names`` that are not built yet, in parallel.
 
-    Returns the seconds each compile took (0 for a library already built).
+    Returns the seconds each compile took (0 for a library already built; a
+    library fetched from an artifact tier, the seconds its fetch took).
     Raises with the compiler's output if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     started = time.perf_counter()
+    seconds = {name: 0.0 for name in names}
+    tiers = _tiers()
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
+        if tiers is not None:
+            from katib_tpu_torch.compile.artifacts import fetch_kernel
+
+            t0 = time.perf_counter()
+            if fetch_kernel(name, tiers) is not None:
+                seconds[name] = time.perf_counter() - t0
+                continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out)
-    seconds = {name: 0.0 for name in names}
     failures = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -78,6 +100,11 @@ def build(names: list[str]) -> dict[str, float]:
         os.replace(tmp, out)  # atomic: another process loading it sees a whole file
     if failures:
         raise RuntimeError("\n".join(failures))
+    if tiers is not None and procs:
+        from katib_tpu_torch.compile.artifacts import publish_kernel
+
+        for name in procs:
+            publish_kernel(name, tiers)
     return seconds
 
 

@@ -26,10 +26,14 @@ which runs every experiment unless ``asyncOrch: false`` or
 loop, settlement, drain, retries, the journal and the cleanup.  Trials run
 on ``device`` (``cuda`` unless the caller names the CPU).  What the port
 does not have yet raises ``NotImplementedError`` when a run asks for it
-(:meth:`Orchestrator._refuse_unported`): a mesh, a declared prewarm twin,
-the compile cache and artifact directory, a slice allocator and the
+(:meth:`Orchestrator._refuse_unported`): a mesh, a slice allocator and the
 profiler.  Vectorized cohorts (``runner/cohort.py``) run on the trial
-device, grouped by both loops.
+device, grouped by both loops.  A run wires the compile cache
+(``compileCache`` / ``KATIB_COMPILE_CACHE``) and the shared artifact tier
+(``artifactDir`` / ``KATIB_ARTIFACT_DIR``), and with ``prewarm`` on (the
+default) a background worker warms up each upcoming group's program on the
+orchestrator's device through the train_fn's prewarm twin
+(``compile/prewarm.py``).
 """
 
 from __future__ import annotations
@@ -72,10 +76,6 @@ from katib_tpu_torch.utils.watchdog import Watchdog
 #: EX_TEMPFAIL (75), already in faults.RETRYABLE_EXIT_CODES, so a supervisor
 #: (or a katib-tpu black-box parent!) reads it as "re-run me with --resume"
 DRAIN_EXIT_CODE = 75
-
-#: the attribute by which a train_fn declares its prewarm twin
-#: (``katib_tpu/compile/prewarm.py``; the cohort twin's is in ``runner/cohort.py``)
-PREWARM_ATTR = "__prewarm_fn__"
 
 
 class Orchestrator:
@@ -180,6 +180,11 @@ class Orchestrator:
         #: sustained-occupancy / throughput summary of the most recent async
         #: run (orchestrator/async_loops.py); None under the sync path
         self.async_stats: dict | None = None
+        # background prewarm worker of the current run (compile/prewarm.py)
+        self._prewarm = None
+        #: the prewarm worker's counters after the most recent run (None
+        #: when the run had prewarm off)
+        self.prewarm_stats: dict | None = None
 
     def stop(self) -> None:
         """Request the experiment wind down (the reference's experiment
@@ -227,6 +232,13 @@ class Orchestrator:
             spec = self.config.apply_to(spec)
         validate_experiment(spec)
         self._refuse_unported(spec)
+        # the compile cache (KATIB_COMPILE_CACHE env wins, spec field second)
+        # and the shared artifact tier (KATIB_ARTIFACT_DIR, then the spec);
+        # both process-global, the first caller wins
+        init_compile_cache(spec.compile_cache)
+        from katib_tpu_torch.compile.artifacts import ARTIFACTS
+
+        ARTIFACTS.configure(spec.artifact_dir)
         if resume and experiment is None:
             experiment = self.load_experiment(spec)
         exp = experiment or Experiment(spec=spec)
@@ -353,6 +365,16 @@ class Orchestrator:
         self.drained = False
         obs.drain_requested.set(1.0 if self._drain_requested.is_set() else 0.0)
         self._watchdog = Watchdog()
+        # background prewarmer (compile/prewarm.py): fed with each upcoming
+        # group's signature, stopped in the finally — best-effort, a dead
+        # worker only means cold first steps
+        self.prewarm_stats = None
+        if spec.prewarm:
+            from katib_tpu_torch.compile.prewarm import PrewarmWorker
+
+            self._prewarm = PrewarmWorker()
+        else:
+            self._prewarm = None
 
         # a bad mesh config must still settle the experiments_current gauge
         # and the status journal before surfacing
@@ -539,6 +561,10 @@ class Orchestrator:
                                 self._materialize(exp, p, early_stopper, suggester)
                                 for p in group
                             ]
+                            # queue the group's signature on the prewarm
+                            # worker: its program warms up in the background
+                            # while the pool runs earlier trials
+                            self._submit_prewarm(spec, trials, mesh)
                             if len(trials) == 1:
                                 futures[
                                     get_clock().submit(pool, self._execute, exp, trials[0], mesh)
@@ -608,6 +634,12 @@ class Orchestrator:
             watchdog, self._watchdog = self._watchdog, None
             if watchdog is not None:
                 watchdog.stop()
+            # wind down the prewarm worker (bounded; a twin in flight is
+            # abandoned on its daemon thread)
+            prewarm, self._prewarm = self._prewarm, None
+            if prewarm is not None:
+                prewarm.stop(timeout=5.0)
+                self.prewarm_stats = prewarm.stats()
             # final durable-state write so a completed-then-reopened
             # experiment (raised max_trial_count) resumes the suggester too
             self._persist_suggester(exp, suggester)
@@ -763,23 +795,6 @@ class Orchestrator:
         """Raise ``NotImplementedError`` for whatever the run asks of the
         JAX orchestrator that the port does not have yet, before anything
         is journaled: nothing is ignored."""
-        init_compile_cache(spec.compile_cache)
-        artifact_dir = os.environ.get("KATIB_ARTIFACT_DIR") or spec.artifact_dir
-        if artifact_dir:
-            raise NotImplementedError(
-                f"artifact directory {artifact_dir!r} (spec artifactDir or "
-                "KATIB_ARTIFACT_DIR): the port has no serialized-executable "
-                "tier yet (katib_tpu/compile/artifacts.py)"
-            )
-        # the JAX orchestrator engages its prewarmer only for a train_fn that
-        # declares the twin (``compile/prewarm.py``); elsewhere it is a
-        # no-op, as here
-        if spec.prewarm and getattr(spec.train_fn, PREWARM_ATTR, None) is not None:
-            raise NotImplementedError(
-                "spec prewarm with a train_fn that declares a prewarm twin asks "
-                "for the background compile prewarmer "
-                "(katib_tpu/compile/prewarm.py), not ported yet"
-            )
         if self.slice_allocator is not None:
             raise NotImplementedError(
                 "a slice allocator (katib_tpu/parallel/distributed.py) needs "
@@ -788,7 +803,8 @@ class Orchestrator:
         if self.config is not None and self.config.init.enable_profiler:
             raise NotImplementedError(
                 "init.enable_profiler asks for per-trial profiles "
-                "(katib_tpu/costmodel/profiler.py), not ported yet"
+                "(katib_tpu/costmodel/profiler.py), not ported yet "
+                "(ROADMAP Queue 1 item 8b, the cost half)"
             )
 
     def _resolve_mesh(self, spec: ExperimentSpec):
@@ -840,10 +856,36 @@ class Orchestrator:
         return groups
 
     def _submit_prewarm(self, spec: ExperimentSpec, trials: list[Trial], mesh) -> None:
-        """Enqueue one group's compile signature on the prewarm worker.  The
-        JAX worker compiles only for a train_fn that declares a prewarm
-        twin, a run :meth:`_refuse_unported` refuses before the engine
-        starts; for every other train_fn it does nothing, as here."""
+        """Enqueue one group's signature on the prewarm worker, to run on this
+        orchestrator's device.  Best-effort and non-blocking: no worker, no
+        prewarm twin, a full queue, or a signature this process already
+        warmed all do nothing, and nothing here may fail the submit path.
+        The width is the one ``run_cohort`` classifies against: the bucket
+        with ``cohortBuckets``, else the group's size."""
+        worker = self._prewarm
+        if worker is None:
+            return
+        try:
+            from katib_tpu_torch.compile.buckets import bucket_size
+            from katib_tpu_torch.compile.prewarm import PrewarmRequest
+            from katib_tpu_torch.compile.registry import shared_structural
+
+            if len(trials) > 1:
+                k = bucket_size(len(trials)) if spec.cohort_buckets else len(trials)
+                program_fn = cohort_fn_of(spec.train_fn)
+            else:
+                k, program_fn = 1, None
+            worker.submit(
+                PrewarmRequest(
+                    train_fn=spec.train_fn,
+                    shared=shared_structural([t.params() for t in trials]),
+                    k=k,
+                    program_fn=program_fn,
+                    device=self.device,
+                )
+            )
+        except Exception:
+            pass  # prewarm must never take down the submit loop
 
     def _execute_cohort(self, exp: Experiment, trials: list[Trial], mesh):
         """Run a cohort on one pool thread; returns ``{name: TrialResult}``.

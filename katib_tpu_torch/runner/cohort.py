@@ -27,11 +27,12 @@ cohort path is unavailable (K == 1, no cohort fn) or raises mid-flight:
 cohort mode is never worse than serial, just slower on the fallback
 (``obs.cohort_fallbacks`` counts those).
 
-Left out of the JAX runner: the compile registry's warm/cold first-step
-classification, cost publication and artifact fetch (the compile and cost
-layer, ROADMAP Queue 1 item 8), and the elastic degradation of a
-trial-sharded mesh (Queue 1 item 9; a cohort runs on one device, and a mesh
-raises).
+The cohort's first step is classified warm or cold against the shape
+registry on the padded-K cohort signature (``compile/registry.py``), as a
+singleton's is.  Left out of the JAX runner: cost publication and the
+artifact fetch of a step program (the port's step has no serialized form),
+and the elastic degradation of a trial-sharded mesh (ROADMAP Queue 1 item
+9; a cohort runs on one device, and a mesh raises).
 """
 
 from __future__ import annotations
@@ -409,7 +410,27 @@ def run_cohort(
         compile_hang_event.set()
         hang_event.set()  # cooperative unwind through the hang path
 
+    # warm/cold first-step classification on the padded-K cohort signature:
+    # the cohort's first step-boundary report closes the window
+    from katib_tpu_torch.compile import registry as compile_registry
+
+    sig_holder: list = [None]
+    first_step_at: list[float] = [0.0]
+    first_step: dict = {}
+
     def _beat() -> None:
+        sig = sig_holder[0]
+        if sig is not None:
+            sig_holder[0] = None
+            try:
+                dt = time.perf_counter() - first_step_at[0]
+                label = compile_registry.REGISTRY.note_first_step(sig, dt)
+                obs.trial_first_step_seconds.set(
+                    dt, phase="first_report", cache=label, workload=sig.program
+                )
+                first_step.update(first_step_cache=label, first_step_s=round(dt, 4))
+            except Exception:
+                pass  # classification is telemetry, never a cohort failure
         hb = compile_hb_holder[0]
         if hb is not None:
             # first step-boundary report = first dispatch done
@@ -432,6 +453,10 @@ def run_cohort(
                 drain_event=drain_event, hang_event=hang_event, heartbeat=_beat,
                 buckets=buckets, device=device,
             )
+            sig_holder[0] = compile_registry.cohort_signature(
+                cohort_fn, survivors, ctx.padded_size
+            )
+            first_step_at[0] = time.perf_counter()
             with tracing.span(
                 "cohort",
                 size=k,
@@ -439,8 +464,11 @@ def run_cohort(
                 devices=1,
                 members_per_device=ctx.padded_size,
                 tier=0,
-            ):
-                cohort_fn(ctx)
+            ) as cohort_sp:
+                try:
+                    cohort_fn(ctx)
+                finally:
+                    cohort_sp.set(**first_step)
         except Exception:
             # the vectorized path is an optimization, never a correctness
             # dependency: re-run every member serially (duplicate metric

@@ -20,15 +20,11 @@ terminal verdict (goal hit, failure budget blown) it sets the event and
 in-flight trials wind down as ``Killed`` (the reference deletes running trial
 jobs on experiment completion, ``experiment_controller.go:362-403``).
 
-Not ported yet, and raising where asked for:
-
-- the persistent compile cache (:func:`init_compile_cache`);
-- a trial mesh.
-
-The JAX runner also classifies each trial's first step as a warm or cold
-compile and publishes a live roofline through ``costmodel`` and
-``compile.registry``.  That is telemetry only, it changes no result, and it
-waits for the port's compile and cost layer.
+Each white-box trial's first step is classified warm or cold against the
+shape registry (``compile/registry.py``; warm means this process warmed the
+signature before), and :func:`init_compile_cache` wires the directory the
+registry and the local artifact tier persist to.  A trial mesh raises, and
+the JAX runner's live roofline (``costmodel``) is not ported.
 """
 
 from __future__ import annotations
@@ -55,21 +51,48 @@ from katib_tpu_torch.utils.faults import (
     classify_exit_code,
 )
 
-#: the environment variable the JAX runner reads for its compile cache
+#: the environment variable that names the compile cache (both packages')
 COMPILE_CACHE_ENV = "KATIB_COMPILE_CACHE"
 
 
-def init_compile_cache(cache_dir: str | None = None) -> None:
-    """The JAX package wires XLA's persistent compilation cache here
-    (``KATIB_COMPILE_CACHE``, then the spec's ``compileCache``).  The port
-    has no compile cache yet, so asking for one raises."""
+def init_compile_cache(cache_dir: str | None = None) -> str | None:
+    """Wire the compile cache, once per process.
+
+    Resolution: ``KATIB_COMPILE_CACHE``, then ``cache_dir``
+    (``ExperimentSpec.compile_cache``), else off.  The port keeps its part
+    under ``<cache>/torch/``: the shape registry's
+    ``shape_registry.jsonl`` and the local artifact tier ``artifacts/`` of
+    its kernel libraries (``compile/artifacts.py``); the JAX package's XLA
+    cache and registry beside it stay untouched.  The first caller wins; a
+    second asking for another directory gets a ``RuntimeWarning``.
+    Returns the effective directory (None = off); an unwritable directory
+    never fails the run."""
+    from katib_tpu_torch.compile import registry
+
     requested = os.environ.get(COMPILE_CACHE_ENV) or cache_dir
-    if requested:
-        raise NotImplementedError(
-            f"compile cache {requested!r} (spec compileCache or "
-            f"{COMPILE_CACHE_ENV}): the port has no persistent compile cache "
-            "yet (katib_tpu/compile/)"
-        )
+    wired = registry.cache_root()
+    if wired is not None:
+        if requested and os.path.abspath(requested) != wired:
+            import warnings
+
+            warnings.warn(
+                f"compile cache already wired to {wired!r}; ignoring the "
+                f"requested {os.path.abspath(requested)!r} (process-global — "
+                "first caller wins)",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+        return wired
+    if not requested:
+        return None
+    resolved = os.path.abspath(requested)
+    try:
+        os.makedirs(os.path.join(resolved, registry.PORT_SUBDIR), exist_ok=True)
+    except OSError:
+        return None
+    registry._CACHE_ROOT = resolved
+    obs.compile_cache_enabled.set(1.0)
+    return resolved
 
 
 class TrialResult:
@@ -197,7 +220,28 @@ def _run_whitebox(
             on_hang=_on_compile_hang,
         )
 
+    # warm/cold first-step classification: the first ctx.report() marks the
+    # first step boundary (build, warm-up, capture and first epoch behind
+    # it, read back to the host); the shape registry decides whether this
+    # process had warmed the program before
+    from katib_tpu_torch.compile import registry as compile_registry
+
+    first_step_sig = compile_registry.trial_signature(trial.spec.train_fn, trial)
+    started_holder = [get_clock().perf_counter()]
+    first_step: dict = {}
+
     def _beat() -> None:
+        if not first_step:
+            dt = get_clock().perf_counter() - started_holder[0]
+            try:
+                label = compile_registry.REGISTRY.note_first_step(first_step_sig, dt)
+                obs.trial_first_step_seconds.set(
+                    dt, phase="first_report", cache=label,
+                    workload=first_step_sig.program,
+                )
+                first_step.update(first_step_cache=label, first_step_s=round(dt, 4))
+            except Exception:
+                first_step["first_step_cache"] = None  # telemetry, never a failure
         if compile_hb is not None:
             # first metric report = first dispatch completed: compile is done
             compile_hb.close()
@@ -256,8 +300,13 @@ def _run_whitebox(
             # did decides the settlement (HANG / KILLED / DRAINED)
             injector.maybe_hang(trial, events=(hang_event, stop_event, drain_event))
             ctx.raise_if_stopped()
-        with tracing.span("train_fn", trial=trial.name):
-            trial.spec.train_fn(ctx)
+        started_holder[0] = get_clock().perf_counter()  # first-step clock starts here
+        with tracing.span("train_fn", trial=trial.name) as sp:
+            try:
+                trial.spec.train_fn(ctx)
+            finally:
+                if first_step.get("first_step_cache"):
+                    sp.set(**first_step)
     except TrialEarlyStopped as e:
         if evaluator.triggered is not None:
             return TrialResult(TrialCondition.EARLY_STOPPED, str(e))

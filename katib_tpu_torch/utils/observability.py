@@ -531,27 +531,29 @@ pbt_onchip = REGISTRY.gauge(
 )
 compile_cache_enabled = REGISTRY.gauge(
     "katib_compile_cache_enabled",
-    "1 when the persistent XLA compilation cache is wired "
-    "(KATIB_COMPILE_CACHE / ExperimentSpec.compile_cache)",
+    "1 when a compile cache is wired (KATIB_COMPILE_CACHE / "
+    "ExperimentSpec.compile_cache): the shape registry's rows and the local "
+    "artifact tier of kernel libraries persist under <cache>/torch",
 )
 
 # -- compile amortization (katib_tpu_torch/compile/) --------------------------------
 
 compile_cache_hits = REGISTRY.counter(
     "katib_compile_cache_hits_total",
-    "First steps whose compile signature was already registered "
-    "(warm: in-process jit cache or persistent-cache deserialize; "
-    "program label)",
+    "First steps whose signature this process had already warmed (by a "
+    "trial's capture or the prewarm twin: cuDNN/cuBLAS set-up and the "
+    "capture machinery paid before; program label)",
 )
 compile_cache_misses = REGISTRY.counter(
     "katib_compile_cache_misses_total",
-    "First steps whose compile signature was never seen before "
-    "(cold: full XLA compile on the critical path; program label)",
+    "First steps whose signature this process had not warmed before "
+    "(cold: the first warm-up and capture on the critical path; program "
+    "label)",
 )
 prewarm_compiles = REGISTRY.counter(
     "katib_prewarm_compiles_total",
-    "Programs compiled ahead of execution by the background prewarm "
-    "worker / CLI prewarm verb (program label)",
+    "Programs warmed up and captured ahead of their trials by the "
+    "background prewarm worker / CLI prewarm verb (program label)",
 )
 first_step_compile_seconds = REGISTRY.histogram(
     "katib_first_step_compile_seconds",
@@ -560,18 +562,18 @@ first_step_compile_seconds = REGISTRY.histogram(
 )
 artifact_hits = REGISTRY.counter(
     "katib_artifact_hits_total",
-    "Serialized-executable artifacts fetched and loaded, per tier "
-    "(tier=local|shared) — a shared hit is a compile another host paid",
+    "Kernel libraries fetched from an artifact tier, per tier "
+    "(tier=local|shared) — a shared hit is an nvcc build another host paid",
 )
 artifact_misses = REGISTRY.counter(
     "katib_artifact_misses_total",
     "Artifact lookups that found nothing in a tier (tier label); a miss "
-    "in every tier degrades to a cold compile",
+    "in every tier builds the kernel library with nvcc",
 )
 artifact_publishes = REGISTRY.counter(
     "katib_artifact_publishes_total",
-    "Serialized executables published to an artifact tier (tier label; "
-    "deduped on content address, so fleets publish each program once)",
+    "Kernel libraries published to an artifact tier (tier label; deduped "
+    "on content address, so fleets publish each library once)",
 )
 artifact_quarantines = REGISTRY.counter(
     "katib_artifact_quarantines_total",

@@ -29,6 +29,7 @@ from katib_tpu_torch.orchestrator.status import read_status
 from katib_tpu_torch.sdk.yaml_spec import load_experiment_yaml
 from katib_tpu_torch.store.sqlite import SqliteObservationStore
 from katib_tpu_torch.suggest.base import make_suggester
+from tests.torch_compile_state import fresh_compile_state  # noqa: F401  (fixture)
 
 torch.set_num_threads(1)
 
@@ -200,16 +201,26 @@ def test_run_on_cuda_without_a_gpu_raises(tmp_path, monkeypatch):
         main(["run", tiny_spec(tmp_path / "darts.yaml"), "--workdir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("verb", UNPORTED_VERBS)
-def test_unported_verbs_raise(verb):
-    with pytest.raises(NotImplementedError, match=verb):
+@pytest.mark.parametrize("verb", UNPORTED_VERBS + ("prewarm", "cache"))
+def test_unported_verbs_raise(verb, tmp_path, capsys, fresh_compile_state):
+    if verb == "cache":  # ported: an empty artifact tier's inventory
+        assert main(["cache", str(tmp_path)]) == 0
+        assert "(empty)" in capsys.readouterr().out
+        return
+    if verb == "prewarm":  # ported: a spec whose train_fn has no twin is an error
+        assert main(["prewarm", tiny_spec(tmp_path / "darts.yaml"), "--device", "cpu"]) == 2
+        assert "no prewarm twin" in capsys.readouterr().err
+        return
+    match = f"{verb}.*item 8b" if verb in ("cost", "profile") else verb
+    with pytest.raises(NotImplementedError, match=match):
         main([verb])
 
 
-def test_fsck_of_an_artifact_cache_raises(tmp_path):
+def test_fsck_of_an_artifact_cache_raises(tmp_path, capsys):
+    """Ported: fsck of an (empty) artifact dir reports and exits 0."""
     (tmp_path / "artifacts").mkdir()
-    with pytest.raises(NotImplementedError, match="artifact"):
-        main(["fsck", str(tmp_path / "artifacts")])
+    assert main(["fsck", str(tmp_path / "artifacts")]) == 0
+    assert "0 artifact(s)" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("name", ["darts.yaml", "darts-paper-protocol.yaml"])

@@ -1,6 +1,7 @@
-"""The shipped specs that the black-box runner, the host suggesters and
-on-device PBT lift: the 14 ``command:`` specs, ``simple-pbt.yaml`` and
-``pbt-ondevice.yaml``, each run as shipped
+"""The shipped specs that the black-box runner, the host suggesters,
+on-device PBT and the compile half lift: the 14 ``command:`` specs,
+``simple-pbt.yaml``, ``pbt-ondevice.yaml`` and ``cohort-prewarm.yaml``, each
+run as shipped
 through the port's loader and ``Orchestrator.run`` on the CPU, must end as
 the JAX orchestrator's run of it ends: the same experiment condition, the
 same trial count and trial conditions, no failed trial.  Where the outcome
@@ -11,7 +12,12 @@ through ``python -m katib_tpu_torch run ... --device cpu`` and ``fsck``.
 A run writes only under its test's temporary directory (the workdir, and the
 cwd: PBT writes ``katib_runs/<name>/pbt`` relative to it) and in the
 ``/tmp/katib-metrics-<trial>.log`` files of ``file-metrics-collector.yaml``,
-which the test removes."""
+which the test removes.  ``cohort-prewarm.yaml`` names a compile cache and
+an artifact directory under ``/tmp``: its run points both packages at the
+test's temporary directory instead (``KATIB_COMPILE_CACHE``,
+``KATIB_ARTIFACT_DIR``, which win over the spec), and the process-global
+state that wires them is put back after it.  The JAX run trains its 12
+``mnist_trial``s and prewarms on the CPU in about 10 s, so it runs whole."""
 
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from katib_tpu.orchestrator import Orchestrator as JaxOrchestrator
 from katib_tpu.sdk.yaml_spec import load_experiment_yaml as jax_load
 from katib_tpu_torch.orchestrator import Orchestrator
 from katib_tpu_torch.sdk.yaml_spec import load_experiment_yaml
+from tests.torch_compile_state import fresh_compile_state  # noqa: F401  (fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COMMAND_SPECS = ["early-stopping/median-stop"] + [
@@ -35,7 +42,8 @@ COMMAND_SPECS = ["early-stopping/median-stop"] + [
         "asha", "bayesian-optimization", "cma-es", "file-metrics-collector", "grid",
         "hyperband", "metrics-strategy", "multivariate-tpe", "random", "resume-long-running",
         "sobol", "tpe", "trial-metadata")]
-SPECS = COMMAND_SPECS + ["hp-tuning/simple-pbt", "hp-tuning/pbt-ondevice"]
+SPECS = COMMAND_SPECS + ["hp-tuning/simple-pbt", "hp-tuning/pbt-ondevice",
+                         "hp-tuning/cohort-prewarm"]
 #: suggesters whose proposals cannot depend on when trials finish
 TIMING_FREE = {"hp-tuning/grid", "hp-tuning/sobol"}
 
@@ -58,15 +66,45 @@ def _run(pkg: str, name: str, tmp_path):
     workdir = tmp_path / pkg
     workdir.mkdir()
     if pkg == "jax":
-        exp = JaxOrchestrator(workdir=str(workdir)).run(jax_load(_path(name)))
+        orch = JaxOrchestrator(workdir=str(workdir))
+        exp = orch.run(jax_load(_path(name)))
     else:
         spec = load_experiment_yaml(_path(name))
-        exp = Orchestrator(workdir=str(workdir), device="cpu").run(spec)
+        orch = Orchestrator(workdir=str(workdir), device="cpu")
+        exp = orch.run(spec)
     for trial in exp.trials:
         metrics_file = f"/tmp/katib-metrics-{trial}.log"
         if os.path.exists(metrics_file):
             os.unlink(metrics_file)
-    return exp
+    return exp, orch
+
+
+@pytest.fixture
+def compile_dirs(tmp_path, fresh_compile_state):
+    """``KATIB_COMPILE_CACHE`` and ``KATIB_ARTIFACT_DIR`` under ``tmp_path``
+    for both packages; the JAX package's process-global compile-cache
+    wiring (its runner's directory, the jax config) is put back after."""
+    import jax
+
+    from katib_tpu.compile import artifacts as jart
+    from katib_tpu.runner import trial_runner as jrunner
+
+    monkeypatch = fresh_compile_state
+    old = {key: getattr(jax.config, key) for key in (
+        "jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")}
+    monkeypatch.setattr(jrunner, "_COMPILE_CACHE_DIR", jrunner._COMPILE_CACHE_DIR)
+    monkeypatch.setenv("KATIB_COMPILE_CACHE", str(tmp_path / "cc"))
+    monkeypatch.setenv("KATIB_ARTIFACT_DIR", str(tmp_path / "art"))
+    yield tmp_path / "cc", tmp_path / "art"
+    jart.ARTIFACTS.reset()
+    for key, value in old.items():
+        jax.config.update(key, value)
+    try:
+        from jax._src import compilation_cache
+
+        compilation_cache.reset_cache()
+    except Exception:
+        pass
 
 
 def _summary(exp) -> dict:
@@ -83,14 +121,16 @@ def _summary(exp) -> dict:
 
 
 @pytest.mark.parametrize("name", SPECS)
-def test_shipped_spec_ends_as_the_jax_run(name, tmp_path, monkeypatch):
+def test_shipped_spec_ends_as_the_jax_run(name, tmp_path, monkeypatch, request):
     # the two packages' runs go side by side, on two threads, in one cwd
     monkeypatch.chdir(tmp_path)
-    runs, errors = {}, []
+    if name == "hp-tuning/cohort-prewarm":
+        cache, shared = request.getfixturevalue("compile_dirs")
+    runs, orchs, errors = {}, {}, []
 
     def go(pkg):
         try:
-            runs[pkg] = _run(pkg, name, tmp_path)
+            runs[pkg], orchs[pkg] = _run(pkg, name, tmp_path)
         except BaseException as e:  # re-raised below, on the test's thread
             errors.append(e)
 
@@ -133,6 +173,19 @@ def test_shipped_spec_ends_as_the_jax_run(name, tmp_path, monkeypatch):
             labels = [t.spec.labels for t in e.trials.values()]
             assert {lab["pbt-generation"] for lab in labels} == {"10"}
             assert {lab["pbt-parent"] for lab in labels} <= set(e.trials)
+    if name == "hp-tuning/cohort-prewarm":
+        # the worker ran mnist_trial's twin on the CPU; each package keeps its
+        # own registry file in the one compile cache; the port published no
+        # kernel library (mnist_trial launches none) and left JAX's
+        # envelopes in the one artifact dir alone
+        stats = orchs["torch"].prewarm_stats
+        assert stats["failed"] == 0 and stats["published"] == 0, stats
+        rows = [json.loads(line) for line in
+                (cache / "torch" / "shape_registry.jsonl").read_text().splitlines()]
+        assert {r["program"] for r in rows} == {"mnist_trial"}
+        assert all("process" in r and "fingerprint" in r for r in rows)
+        assert (cache / "shape_registry.jsonl").is_file()  # the JAX run's
+        assert not [n for n in os.listdir(shared) if n.endswith(".katibso")] if shared.is_dir() else True
 
 
 def test_random_spec_runs_through_the_cli_and_fscks_clean(tmp_path):

@@ -236,7 +236,9 @@ def test_asha_promotes_under_the_engine(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("changes,match", [
-    ({"prewarm": True}, "compile/prewarm.py"),
+    # the prewarmer is ported: the sweep runs with mnist_trial's warm-up
+    # twin on the worker (at a smaller split), as in the JAX package
+    pytest.param({"prewarm": True}, "runs", id="changes0-compile/prewarm.py"),
     # cohorts are ported: the spec passes the refusals (the sweep itself
     # runs in tests/test_torch_cohort.py's cohort spec)
     pytest.param({"cohortWidth": 4}, None, id="changes1-runner/cohort.py"),
@@ -247,6 +249,8 @@ def test_mnist_trial_refuses_prewarm_and_cohorts(changes, match, tmp_path):
     if match is None:
         orch._refuse_unported(spec)
         return
-    with pytest.raises(NotImplementedError, match=match):
-        orch.run(spec)
-    assert not os.path.exists(os.path.join(str(tmp_path), spec.name, "status.json"))
+    spec = _sweep_spec(parameters={"n_train": "128", "n_test": "64"}, **changes)
+    assert spec.prewarm and spec.train_fn is mnist_trial
+    exp = orch.run(spec)
+    _sweep_invariants(exp)
+    assert orch.prewarm_stats["failed"] == 0, orch.prewarm_stats

@@ -224,16 +224,23 @@ def test_mnist_trial_reports_each_epoch(params):
 
 
 def test_mnist_trial_declares_the_jax_twins_and_they_raise():
-    """Both twins are declared as in the JAX package; the cohort twin runs
-    (``tests/test_torch_cohort.py``), the prewarm twin still raises."""
+    """Both twins are declared as in the JAX package, and both run: the
+    cohort twin in ``tests/test_torch_cohort.py``, the warm-up twin here on
+    the CPU (its eager warm-up steps; nothing is captured, so no capture
+    seconds), declaring no kernel library; only a mesh raises."""
+    from katib_tpu_torch.compile.prewarm import kernels_of, prewarm_fn_of
     from katib_tpu_torch.runner.cohort import cohort_fn_of
 
     assert cohort_fn_of(tmnist.mnist_trial) is tmnist.mnist_cohort_trial
-    assert tmnist.mnist_trial.__prewarm_fn__ is tmnist.mnist_prewarm
+    assert prewarm_fn_of(tmnist.mnist_trial) is tmnist.mnist_prewarm
+    assert kernels_of(tmnist.mnist_trial) == ()
     assert hasattr(jmnist.mnist_trial, "__cohort_fn__")
     assert hasattr(jmnist.mnist_trial, "__prewarm_fn__")
-    with pytest.raises(NotImplementedError, match="compile/prewarm.py"):
-        tmnist.mnist_prewarm({}, 2)
+    shared = {"units": 16, "n_train": 256, "n_test": 64, "batch_size": 64}
+    assert tmnist.mnist_prewarm(shared, 2, device="cpu") == 0.0
+    assert tmnist.mnist_prewarm(dict(shared, arch="cnn", channels=4), 1, device="cpu") == 0.0
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tmnist.mnist_prewarm({}, 2, mesh=object(), device="cpu")
 
 
 def test_mnist_trial_refuses_a_mesh():

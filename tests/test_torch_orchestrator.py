@@ -28,13 +28,15 @@ from katib_tpu_torch.core import types as ttypes
 from katib_tpu_torch.core.config import KatibConfig
 from katib_tpu_torch.orchestrator import journal as tjournal
 from katib_tpu_torch.orchestrator.fsck import fsck_experiment as t_fsck
-from katib_tpu_torch.orchestrator.orchestrator import PREWARM_ATTR, Orchestrator
+from katib_tpu_torch.compile.prewarm import _PREWARM_ATTR as PREWARM_ATTR
+from katib_tpu_torch.orchestrator.orchestrator import Orchestrator
 from katib_tpu_torch.orchestrator.resume import experiment_from_dict as t_from_dict
 from katib_tpu_torch.orchestrator.status import read_status as t_read_status
 from katib_tpu_torch.runner.cohort import COHORT_ATTR
 from katib_tpu_torch.runner.trial_runner import run_trial
 from katib_tpu_torch.store.base import MemoryObservationStore
 from katib_tpu_torch.utils import faults
+from tests.torch_compile_state import fresh_compile_state  # noqa: F401  (fixture)
 
 PKGS = {
     "jax": SimpleNamespace(types=jtypes, journal=jjournal, fsck=j_fsck,
@@ -282,7 +284,7 @@ def _with_attr(attr):
     def fn(ctx):
         quadratic_trainer(ctx)
 
-    setattr(fn, attr, lambda *a: None)
+    setattr(fn, attr, lambda *a, **kw: None)
     return fn
 
 
@@ -293,11 +295,14 @@ REFUSALS = {
     # vectorized cohorts are ported: a declared twin and a width run (the
     # keyless proposals stay singletons, as in the JAX package)
     "cohort": dict(match=None, cohort_width=2, train_fn=_with_attr(COHORT_ATTR)),
-    "prewarm": dict(match="prewarm", train_fn=_with_attr(PREWARM_ATTR)),
-    "compile-cache-spec": dict(match="compile cache", compile_cache="/tmp/katib-cc"),
-    "compile-cache-env": dict(match="compile cache", env={"KATIB_COMPILE_CACHE": "/tmp/cc"}),
-    "artifact-dir-spec": dict(match="artifact", artifact_dir="/tmp/katib-art"),
-    "artifact-dir-env": dict(match="artifact", env={"KATIB_ARTIFACT_DIR": "/tmp/art"}),
+    # the compile half is ported: a declared prewarm twin runs on the worker,
+    # and the compile cache and artifact tier are wired (<tmp> is the
+    # test's temporary directory)
+    "prewarm": dict(match=None, train_fn=_with_attr(PREWARM_ATTR)),
+    "compile-cache-spec": dict(match=None, compile_cache="<tmp>/cc"),
+    "compile-cache-env": dict(match=None, env={"KATIB_COMPILE_CACHE": "<tmp>/cc"}),
+    "artifact-dir-spec": dict(match=None, artifact_dir="<tmp>/art"),
+    "artifact-dir-env": dict(match=None, env={"KATIB_ARTIFACT_DIR": "<tmp>/art"}),
     # black-box command: trials are ported: the spec runs to its end
     "command-trials": dict(match=None, train_fn=None,
                            command=[sys.executable, "-c", "print('accuracy=0.5')"],
@@ -311,15 +316,43 @@ REFUSALS = {
 }
 
 
+def _lifted(case, kw, tmp_path, monkeypatch):
+    """A case the port no longer lacks runs as in the JAX package, with the
+    effect of its setting."""
+    from katib_tpu_torch.compile.artifacts import ARTIFACTS
+    from katib_tpu_torch.compile.registry import REGISTRY
+
+    def here(value):
+        return value.replace("<tmp>", str(tmp_path)) if isinstance(value, str) else value
+
+    for key, value in kw.pop("env", {}).items():
+        monkeypatch.setenv(key, here(value))
+    spec = grid_spec("torch", "lifted", max_trial_count=2,
+                     **{k: here(v) for k, v in kw.items()})
+    orch = Orchestrator(workdir=str(tmp_path / "runs"), device="cpu")
+    exp = orch.run(spec)
+    assert exp.succeeded_count == 2, exp.message
+    if case == "prewarm":
+        # the worker took the group's signature (the twin, or a trial that
+        # got there first, warmed it) and nothing failed
+        assert orch.prewarm_stats["failed"] == 0
+        assert spec.train_fn.__qualname__ in [s["program"] for s in REGISTRY.signatures()]
+    if case.startswith("compile-cache"):
+        # the port's own registry file, not the JAX package's
+        assert (tmp_path / "cc" / "torch" / "shape_registry.jsonl").is_file()
+        assert not (tmp_path / "cc" / "shape_registry.jsonl").exists()
+    if case.startswith("artifact-dir"):
+        assert ARTIFACTS.shared_dir() == str(tmp_path / "art")
+
+
 @pytest.mark.parametrize("case", sorted(REFUSALS))
-def test_what_the_port_lacks_raises(case, tmp_path, monkeypatch):
+def test_what_the_port_lacks_raises(case, tmp_path, fresh_compile_state):
+    monkeypatch = fresh_compile_state
     monkeypatch.delenv("KATIB_ASYNC_ORCH", raising=False)
     kw = dict(REFUSALS[case])
     if kw["match"] is None:  # no longer lacking: it runs as in the JAX package
         kw.pop("match")
-        spec = grid_spec("torch", "lifted", max_trial_count=2, **kw)
-        exp = Orchestrator(workdir=str(tmp_path), device="cpu").run(spec)
-        assert exp.succeeded_count == 2, exp.message
+        _lifted(case, kw, tmp_path, monkeypatch)
         return
     _refused(tmp_path, monkeypatch=monkeypatch, **kw)
 
