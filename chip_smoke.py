@@ -48,9 +48,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 11. drive the HP-tuning path: ``python -m katib_tpu_torch run
    katib_tpu_torch/specs/hyperband-mnist.yaml`` in a fresh interpreter (a
    32-trial Hyperband sweep of ``mnist_trial``, 16 trials at a time) under
-   the async engine and with ``KATIB_ASYNC_ORCH=0`` (the synchronous loop),
-   once each, and check each run's experiment, rungs, each trial's
-   reported epochs and ``fsck``;
+   the async engine, and check the experiment, the rungs, each trial's
+   reported epochs and ``fsck`` (the synchronous loop's run of the same
+   sweep was cut for the ``remote:`` phase's seconds; phase 15 still holds
+   both loops against each other);
 12. ``blackbox:`` ``python -m katib_tpu_torch run
    examples/hp-tuning/hyperband.yaml`` as shipped, in a fresh interpreter,
    on ``cuda`` with the preflight: 32 black-box ``python -c`` trials, 16 at
@@ -123,7 +124,22 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    directories: 12 ``Succeeded``, the prewarm worker's twin run and none
    failed, every first step labelled warm or cold, the port's registry file
    written and the shared tier left empty; then the same spec with
-   ``prewarm: false``, both runs' walls and first steps side by side.
+   ``prewarm: false``, both runs' walls and first steps side by side;
+25. ``remote:`` one suggestion service (``serve_suggestions`` on ``cuda``
+   with a bearer token) in this process serving two ``Orchestrator.run``
+   experiments on ``cuda`` at once, each on the async engine in a thread of
+   its own: ``examples/nas/enas.yaml`` rewritten to ``remote`` over
+   ``enas`` with 8 trials (two rounds of 4), and
+   ``katib_tpu_torch/specs/hyperband-mnist.yaml`` rewritten to ``remote``
+   over ``random`` (fixed ``random_state``, 8 trials, each epoch captured):
+   both end with every trial ``Succeeded`` and ``fsck`` clean, the served
+   ENAS controller trained once on ``cuda`` between its rounds, round 0's
+   architectures equal a fresh in-process ``EnasSuggester``'s on the card,
+   the mnist assignments equal the in-process ``random`` suggester's, every
+   trial captured its graph; then ``python -m katib_tpu_torch run`` of a
+   4-trial mnist spec with ``endpoint: auto`` (the composer's
+   ``suggest-server --device cpu`` child): exit 0, the in-process
+   assignments, the child gone after the run, TLS or plain HTTP printed.
 
 Every run of the async engine prints its ``async_stats`` (a CLI run prints
 them on its ``async engine:`` line) and fails the script if a loop
@@ -1227,15 +1243,10 @@ def hyperband_run(engine: bool) -> tuple[float, dict]:
 
 
 def phase_hyperband() -> float:
-    """The Hyperband sweep on the async engine and then on the synchronous
-    loop, in one process tree on one card: the walls side by side, and the
-    same rung table from both runs.  Returns the engine run's wall."""
-    wall_engine, table_engine = hyperband_run(True)
-    wall_sync, table_sync = hyperband_run(False)
+    """The Hyperband sweep on the async engine; returns its wall."""
+    wall_engine, _ = hyperband_run(True)
     print(f"hyperband: async engine {wall_engine:.2f}s = {32 / wall_engine * 3600:.0f} "
-          f"trials/hour; synchronous loop {wall_sync:.2f}s = {32 / wall_sync * 3600:.0f} "
-          f"trials/hour; engine/sync wall {wall_engine / wall_sync:.3f}", flush=True)
-    check(table_engine == table_sync, f"rung tables differ: {table_engine} {table_sync}")
+          f"trials/hour", flush=True)
     return wall_engine
 
 
@@ -2475,6 +2486,230 @@ def phase_compile(torch, mixed_op, built: dict) -> None:
           f"{off['labels'].count('cold')} without; {smi_line()}", flush=True)
 
 
+# -- the suggestion service ----------------------------------------------------
+
+REMOTE_SEED = "17"  # the random suggester's random_state behind the service
+
+
+def remote_spec_file(src: str, out: str, settings: dict, **spec_kw) -> str:
+    """A copy of the spec at ``src`` whose algorithm is ``remote`` over its
+    own (keeping its settings) or over ``settings["algorithm"]`` (dropping
+    them), with ``settings`` added and ``spec_kw`` set in its ``spec``;
+    returns the copy's path."""
+    import yaml
+
+    with open(src) as f:
+        doc = yaml.safe_load(f)
+    algo = doc["spec"]["algorithm"]
+    own = algo["algorithmName"]
+    settings = {"algorithm": own, **settings}
+    kept = algo.get("algorithmSettings") or [] if settings["algorithm"] == own else []
+    algo["algorithmName"] = "remote"
+    algo["algorithmSettings"] = kept + [{"name": k, "value": v} for k, v in settings.items()]
+    doc["spec"].update(spec_kw)
+    with open(out, "w") as f:
+        yaml.safe_dump(doc, f)
+    return out
+
+
+def in_process_random(n: int):
+    """The assignments ``random`` (at ``REMOTE_SEED``) proposes in one call
+    of ``n`` for the Hyperband spec's space, sorted."""
+    from katib_tpu_torch.core.types import AlgorithmSpec, Experiment
+    from katib_tpu_torch.sdk.yaml_spec import load_experiment_yaml
+    from katib_tpu_torch.suggest.base import make_suggester
+
+    spec = load_experiment_yaml(HYPERBAND_YAML)
+    spec.algorithm = AlgorithmSpec(name="random", settings={"random_state": REMOTE_SEED})
+    return sorted(sorted(p.as_dict().items()) for p in
+                  make_suggester(spec).get_suggestions(Experiment(spec=spec), n))
+
+
+def suggest_server_pids() -> set[int]:
+    """The running processes whose command line names ``suggest-server``."""
+    pids = set()
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/cmdline", "rb") as f:
+                    if b"suggest-server" in f.read():
+                        pids.add(int(entry))
+            except OSError:
+                pass
+    return pids
+
+
+def phase_remote(torch) -> None:
+    """One suggestion service on the card serving two experiments at once
+    (ENAS and a random mnist sweep), then the composer through the CLI."""
+    import secrets
+    import threading
+
+    from katib_tpu_torch.core.types import Experiment
+    from katib_tpu_torch.nas.enas.service import EnasSuggester
+    from katib_tpu_torch.orchestrator import Orchestrator
+    from katib_tpu_torch.orchestrator.fsck import fsck_experiment
+    from katib_tpu_torch.orchestrator.status import read_status
+    from katib_tpu_torch.sdk.yaml_spec import load_experiment_yaml
+    from katib_tpu_torch.store.base import MemoryObservationStore
+    from katib_tpu_torch.suggest.service import serve_suggestions
+    from katib_tpu_torch.utils.clock import get_clock
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-remote-")
+    token = secrets.token_hex(16)
+    svc = serve_suggestions(device="cuda", token=token)
+    endpoint = f"http://127.0.0.1:{svc.port}"
+    specs = {
+        "enas-example": remote_spec_file(
+            ENAS_YAML, os.path.join(workdir, "enas.yaml"),
+            {"endpoint": endpoint, "token": token}, maxTrialCount=8),
+        "hyperband-mnist": remote_spec_file(
+            HYPERBAND_YAML, os.path.join(workdir, "mnist.yaml"),
+            {"endpoint": endpoint, "token": token, "algorithm": "random",
+             "random_state": REMOTE_SEED}, maxTrialCount=8),
+    }
+    # the served controller's trainings: (device, start, end) on the run's clock
+    trainings: list = []
+    train_controller = EnasSuggester.train_controller
+
+    def recorded(self, reward):
+        t0 = get_clock().time()
+        train_controller(self, reward)
+        trainings.append((str(self.device), t0, get_clock().time()))
+
+    results: dict = {}
+
+    def run(name: str) -> None:
+        try:
+            # the memory store: a diverged mnist trial's NaN loss fails it
+            # under sqlite (ROADMAP F3)
+            orch = Orchestrator(workdir=os.path.join(workdir, "runs"), device="cuda",
+                                store=MemoryObservationStore())
+            t0 = time.perf_counter()
+            exp = orch.run(load_experiment_yaml(specs[name]))
+            results[name] = (exp, orch.async_stats, time.perf_counter() - t0)
+        except Exception:  # reported below, on the main thread
+            import traceback
+
+            results[name] = RuntimeError(traceback.format_exc())
+
+    EnasSuggester.train_controller = recorded
+    try:
+        threads = [threading.Thread(target=run, args=(n,)) for n in specs]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        both_wall = time.perf_counter() - t0
+    finally:
+        EnasSuggester.train_controller = train_controller
+        svc.stop()
+    for name, got in results.items():
+        check(not isinstance(got, Exception), f"remote: {name} raised {got}")
+    check(set(results) == set(specs), f"remote: runs that did not end {set(specs) - set(results)}")
+    runs = os.path.join(workdir, "runs")
+    for name, (exp, stats, wall) in results.items():
+        conditions = sorted({t.condition.value for t in exp.trials.values()})
+        report = fsck_experiment(os.path.join(runs, name), repair=False)
+        print(f"remote: {name} through the service: experiment {exp.condition.value} in "
+              f"{wall:.2f}s; {len(exp.trials)} trials {conditions}; fsck ok {report.ok()}",
+              flush=True)
+        engine_stats(f"remote: {name}", stats)
+        check(exp.condition.value in SUCCESS and conditions == ["Succeeded"]
+              and len(exp.trials) == 8, f"remote: {name} ended {exp.condition} {conditions}")
+        check(report.ok(), f"remote: fsck of {name}: {report}")
+
+    # ENAS behind the service: trained once on cuda between its rounds, and
+    # round 0 as a fresh in-process suggester of the same spec samples it
+    status = read_status(runs, "enas-example")
+    _, children = enas_spans(runs, "enas-example")
+    spans = [{"args": {"round": 0}, "wall": t0, "dur": t1 - t0} for _, t0, t1 in trainings]
+    enas_rounds("remote: enas-example", status["trials"], spans, 2, 4)
+    check(all(d.startswith("cuda") for d, _, _ in trainings),
+          f"remote: the served controller trained on {trainings}")
+    exp_enas = results["enas-example"][0]
+    round0 = [t.params()["architecture"] for t in exp_enas.trials.values()
+              if t.labels.get("enas-round") == "0"]
+    local_spec = load_experiment_yaml(ENAS_YAML)
+    local = EnasSuggester(local_spec, device="cuda").get_suggestions(
+        Experiment(spec=local_spec), len(round0))
+    want = [p.as_dict()["architecture"] for p in local]
+    print(f"remote: served ENAS controller on {trainings[0][0]}, trained "
+          f"{[round(t1 - t0, 4) for _, t0, t1 in trainings]}s; round 0 architectures equal the "
+          f"in-process suggester's on the card: {round0 == want}", flush=True)
+    check(round0 == want, f"remote: round 0 {round0} != in-process {want}")
+    # the random sweep behind the service: the in-process suggester's points
+    exp_mnist = results["hyperband-mnist"][0]
+    got = sorted(sorted(t.params().items()) for t in exp_mnist.trials.values())
+    check(got == in_process_random(8), "remote: the mnist assignments differ from the "
+          f"in-process random suggester's: {got}")
+    epochs_run, captures = trial_spans(runs, "hyperband-mnist")
+    enas_captures = sorted(c["capture_s"] for c in children.values())
+    print(f"remote: mnist assignments equal the in-process random suggester's; "
+          f"{len(captures)} of 8 mnist trials captured their epoch, seconds "
+          f"{sorted(round(v, 4) for v in captures.values())}; ENAS children's captures "
+          f"{[round(v, 4) for v in enas_captures]}", flush=True)
+    check(len(captures) == 8 and all(math.isfinite(v) for v in captures.values()),
+          f"remote: mnist captures {captures}")
+    check(len(enas_captures) == 8 and all(math.isfinite(v) for v in enas_captures),
+          f"remote: ENAS captures {enas_captures}")
+    bad = {t: e for t, e in epochs_run.items()
+           if sorted(e) != list(range(int(exp_mnist.trials[t].params()["epochs"])))}
+    check(not bad, f"remote: mnist trials whose epochs differ from their resource: {bad}")
+    print(f"remote: both experiments at once {both_wall:.2f}s", flush=True)
+
+    # the composer through the CLI: endpoint auto, a 4-trial mnist sweep
+    path = remote_spec_file(HYPERBAND_YAML, os.path.join(workdir, "auto.yaml"),
+                            {"endpoint": "auto", "algorithm": "random",
+                             "random_state": REMOTE_SEED},
+                            maxTrialCount=4, parallelTrialCount=4)
+    before = suggest_server_pids()
+    log = os.path.join(workdir, "auto.log")
+    t0 = time.perf_counter()
+    proc = _cli("run", path, "--workdir", os.path.join(workdir, "auto"), "--no-preflight",
+                log=log)
+    children_seen: set[int] = set()
+    # seconds into the run when the child was first seen, and last seen
+    child_at = child_gone = math.nan
+    while proc.poll() is None and time.perf_counter() - t0 < 300:
+        alive = suggest_server_pids() - before
+        children_seen |= alive
+        if alive and math.isnan(child_at):
+            child_at = time.perf_counter() - t0
+        if alive:
+            child_gone = time.perf_counter() - t0
+        time.sleep(0.1)
+    rc, out = _wait(proc, log, 30)
+    wall = time.perf_counter() - t0
+    left = {pid for pid in children_seen if os.path.exists(f"/proc/{pid}")}
+    try:
+        import cryptography  # noqa: F401
+        tls = "TLS (cryptography present)"
+    except ImportError:
+        tls = "plain HTTP (no cryptography on this host)"
+    warned = "serve plain HTTP" in out
+    status = read_status(os.path.join(workdir, "auto"), "hyperband-mnist")
+    got = sorted(sorted((k, v) for k, v in rec["assignments"].items())
+                 for rec in status["trials"].values())
+    conditions = sorted({rec["condition"] for rec in status["trials"].values()})
+    print(f"remote: composer: run {os.path.basename(path)} with endpoint auto: exit {rc} in "
+          f"{wall:.2f}s; {len(status['trials'])} trials {conditions}; the child "
+          f"suggest-server pids {sorted(children_seen)}, left running {sorted(left)}; "
+          f"transport {tls}; plain-HTTP warning printed: {warned}", flush=True)
+    print(f"remote: composer: the child seen from {child_at:.2f}s to {child_gone:.2f}s into "
+          f"the run; spans "
+          f"{span_totals(os.path.join(workdir, 'auto'), 'hyperband-mnist')}", flush=True)
+    cli_engine("remote: composer", out)
+    check(rc == 0 and conditions == ["Succeeded"] and len(got) == 4,
+          f"remote: composer run exited {rc}:\n{out[-3000:]}")
+    check(children_seen and not left, f"remote: composer children {children_seen}, left {left}")
+    check(warned == tls.startswith("plain"), f"remote: transport {tls}, warning {warned}")
+    check(got == in_process_random(4), f"remote: composer run's assignments {got}")
+    print(f"remote: phase {time.perf_counter() - t_phase:.2f}s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2536,6 +2771,7 @@ def main() -> int:
     timed(phase_pbt_ondevice, torch)
     timed(phase_sdk, torch)
     timed(phase_compile, torch, mixed_op, built)
+    timed(phase_remote, torch)
 
     kernels = [{
         "name": "mixed_op_sum",

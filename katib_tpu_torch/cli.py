@@ -35,11 +35,15 @@ Port of ``katib_tpu/cli.py``.  The verbs the port has:
                               libraries; loadable on this host?) and, for a
                               compile-cache dir, its registry's history
 - ``doctor``                  bounded device preflight + environment report
+- ``suggest-server``          suggestion-as-a-service daemon (``--token`` or
+                              ``KATIB_SUGGEST_TOKEN``, ``--cert-dir`` for TLS);
+                              ``--device`` names where its suggesters compute
 
-``conformance`` and ``chaos`` take ``--device`` as ``run`` does.  The JAX
-CLI's other verbs are listed in :data:`UNPORTED_VERBS`; each raises
-``NotImplementedError`` naming it.  This module imports no JAX, and no verb
-does: the crash scenario's child interpreter blocks the JAX modules.
+``conformance``, ``chaos`` and ``suggest-server`` take ``--device`` as
+``run`` does.  The JAX CLI's other verbs are listed in
+:data:`UNPORTED_VERBS`; each raises ``NotImplementedError`` naming it.
+This module imports no JAX, and no verb does: the crash scenario's child
+interpreter blocks the JAX modules.
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ from katib_tpu_torch.core.config import KatibConfig
 
 #: the JAX CLI's verbs the port does not have yet
 UNPORTED_VERBS = (
-    "cost", "profile", "ui", "sim", "lint", "suggest-server", "db-manager",
+    "cost", "profile", "ui", "sim", "lint", "db-manager",
 )
 #: the verbs of the cost model (ROADMAP Queue 1 item 8b)
 COST_VERBS = ("cost", "profile")
@@ -1403,6 +1407,71 @@ def _ls(path: str) -> list[str]:
         return []
 
 
+def cmd_suggest_server(args: argparse.Namespace) -> int:
+    """Run the suggestion-as-a-service daemon (the reference's per-experiment
+    algorithm Deployment entrypoint, ``cmd/suggestion/*/v1beta1/main.py``).
+    The auth token comes from ``--token`` or ``KATIB_SUGGEST_TOKEN``;
+    unset = open (localhost development).  Suggesters that compute on a
+    device run on ``--device``."""
+    from katib_tpu_torch.suggest.service import serve_suggestions
+
+    token = args.token or os.environ.get("KATIB_SUGGEST_TOKEN") or None
+    ssl_context = _maybe_tls(args)
+    svc = serve_suggestions(
+        port=args.port, host=args.host, token=token, ssl_context=ssl_context,
+        device=args.device,
+    )
+    scheme = "https" if ssl_context else "http"
+    print(
+        f"katib-tpu suggestion service: {scheme}://{args.host}:{svc.port} "
+        f"(auth: {'bearer token' if token else 'open'})",
+        flush=True,
+    )
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        svc.stop()
+    return 0
+
+
+def _maybe_tls(args: argparse.Namespace):
+    """``--cert-dir`` turns a serving command into TLS: the rotator in
+    ``utils.certgen`` (re)generates the self-signed bundle there and the
+    server wraps its socket with it (reference ``certgenerator/generator.go``)."""
+    cert_dir = getattr(args, "cert_dir", None)
+    if not cert_dir:
+        return None
+    import ipaddress
+    import socket
+
+    from katib_tpu_torch.utils.certgen import ensure_certs, server_ssl_context
+
+    host = getattr(args, "host", "127.0.0.1")
+    dns, ips = ["localhost"], ["127.0.0.1"]
+    try:
+        ip = ipaddress.ip_address(host)
+        if ip.is_unspecified:
+            # bound on all interfaces: remote clients will connect via the
+            # machine's real addresses, so the leaf needs those SANs too
+            dns.append(socket.gethostname())
+            try:
+                for addr in socket.gethostbyname_ex(socket.gethostname())[2]:
+                    if addr not in ips:
+                        ips.append(addr)
+            except OSError:
+                pass
+        elif str(ip) != "127.0.0.1":
+            ips.append(str(ip))
+    except ValueError:
+        dns.append(host)
+    return server_ssl_context(
+        ensure_certs(cert_dir, dns_names=tuple(dns), ip_addresses=tuple(ips))
+    )
+
+
 def _cmd_unported(args: argparse.Namespace) -> int:
     if args.cmd in COST_VERBS:
         raise NotImplementedError(
@@ -1413,7 +1482,7 @@ def _cmd_unported(args: argparse.Namespace) -> int:
     raise NotImplementedError(
         f"verb {args.cmd!r} of katib_tpu/cli.py is not ported yet; the port "
         "has run, list, describe, metrics, export, logs, trace, conformance, "
-        "chaos, fsck, prewarm, cache and doctor"
+        "chaos, fsck, prewarm, cache, doctor and suggest-server"
     )
 
 
@@ -1671,6 +1740,23 @@ def main(argv: list[str] | None = None) -> int:
         "per --seed",
     )
     p.set_defaults(fn=cmd_chaos)
+
+    p = sub.add_parser(
+        "suggest-server", help="run the suggestion-as-a-service daemon"
+    )
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=6789)
+    p.add_argument("--token", default=None, help="bearer token (or KATIB_SUGGEST_TOKEN)")
+    p.add_argument(
+        "--cert-dir", default=None,
+        help="serve over TLS with a self-signed bundle rotated in this dir",
+    )
+    p.add_argument(
+        "--device",
+        default="cuda",
+        help="where suggesters compute: cuda (default; raises without a GPU) or cpu",
+    )
+    p.set_defaults(fn=cmd_suggest_server)
 
     for verb in UNPORTED_VERBS:
         p = sub.add_parser(verb, help="not ported yet", add_help=False)

@@ -102,10 +102,15 @@ def validate_experiment(spec: ExperimentSpec) -> None:
     if not spec.algorithm or not spec.algorithm.name:
         errors.append("algorithm.name is required")
     algo = spec.algorithm.name if spec.algorithm else ""
+    # ``remote`` serves the algorithm its ``algorithm`` setting names: ENAS
+    # behind a suggestion service is a NAS experiment too.  The JAX package
+    # checks the name ``remote`` here and so refuses every NAS spec behind a
+    # service (ROADMAP Queue 3, F12; fixed in the port only)
+    served = spec.algorithm.setting("algorithm") if algo == "remote" else algo
 
-    if algo in _NAS_ALGORITHMS:
+    if served in _NAS_ALGORITHMS:
         if spec.nas_config is None:
-            errors.append(f"algorithm {algo!r} requires nas_config")
+            errors.append(f"algorithm {served!r} requires nas_config")
         elif not spec.nas_config.operations:
             errors.append("nas_config.operations must be non-empty")
     else:

@@ -76,18 +76,29 @@ class _Lease:
         self.free.append(self.stream)
 
 
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def lease_stream(device: torch.device) -> _Lease:
+    """A stream of ``device``'s free list, the caller's alone until the
+    lease is dropped: no capture stream of another thread."""
+    index = _device_index(device)
+    with _streams_lock:
+        free = _free_streams.setdefault(index, [])
+        _capture_locks.setdefault(index, threading.Lock())
+        return _Lease(free, free.pop() if free else torch.cuda.Stream(index))
+
+
 def _capture_stream(device: torch.device) -> tuple[torch.cuda.Stream, threading.Lock]:
     """This thread's capture stream on ``device`` and the device's capture
     lock."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
+    index = _device_index(device)
     leases = getattr(_thread_streams, "leases", None)
     if leases is None:
         leases = _thread_streams.leases = {}
     if index not in leases:
-        with _streams_lock:
-            free = _free_streams.setdefault(index, [])
-            leases[index] = _Lease(free, free.pop() if free else torch.cuda.Stream(index))
-            _capture_locks.setdefault(index, threading.Lock())
+        leases[index] = lease_stream(device)
     return leases[index].stream, _capture_locks[index]
 
 

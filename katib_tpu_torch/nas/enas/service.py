@@ -9,12 +9,20 @@ then samples the next round's architectures.  Each trial carries two string
 parameters, ``architecture`` (per layer ``[op_id, skip...]``) and
 ``nn_config`` (network shape and op vocabulary), as in the JAX package.
 
-The controller runs on the suggester's device: the orchestrator's, handed
-through ``make_suggester(spec, device=...)``; a bare ``EnasSuggester(spec)``
-resolves ``cuda`` and raises where there is none.  ``state_dict()`` holds
-the round, the trained rounds and the controller's parameters, Adam state,
-baseline and step as CPU tensors, so a state written on the card loads on a
-host without one; the random stream is not in it, as in the JAX package.
+The controller runs on the suggester's device: the orchestrator's (or a
+suggestion service's), handed through ``make_suggester(spec, device=...)``;
+a bare ``EnasSuggester(spec)`` resolves ``cuda`` and raises where there is
+none.  On a CUDA device every operation of the suggester runs on a stream
+it leases for its life (``nas/darts/step_loop.py::lease_stream``), and it
+waits on that stream only: the capture rule of ``compile/prewarm.py``.  A
+suggestion service shared by several experiments trains the controller
+while another experiment's trials capture CUDA graphs on the same card; a
+device-wide sync there could land inside their capture.
+
+``state_dict()`` holds the round, the trained rounds and the controller's
+parameters, Adam state, baseline and step as CPU tensors, so a state
+written on the card loads on a host without one; the random stream is not
+in it, as in the JAX package.
 A JAX package's ENAS pickle (its controller state holds optax and JAX
 classes) is not read: ``load_state_dict`` raises on it, and the orchestrator
 then rebuilds a fresh suggester from the journal, as for any unreadable
@@ -23,6 +31,7 @@ state.
 
 from __future__ import annotations
 
+import contextlib
 import json
 
 import numpy as np
@@ -36,6 +45,7 @@ from katib_tpu_torch.core.types import (
 )
 from katib_tpu_torch.device import resolve_device
 from katib_tpu_torch.models.mnist import AdamState
+from katib_tpu_torch.nas.darts.step_loop import lease_stream
 from katib_tpu_torch.nas.enas.child import DEFAULT_OPERATIONS
 from katib_tpu_torch.nas.enas.controller import (
     ControllerConfig,
@@ -154,27 +164,41 @@ class EnasSuggester(Suggester):
             skip_weight=get("controller_skip_weight", 0.8, float),
         )
         self.train_steps = get("controller_train_steps", 50, int)
+        self._lease = lease_stream(self.device) if self.device.type == "cuda" else None
         init, self._train_step, self._sample = make_reinforce(self.cfg, self.device)
         # the weights from the CPU (the same on every device), the samples
         # from a generator on the controller's device
-        self.state = init(torch.Generator().manual_seed(self.seed()))
+        with self._own_stream():
+            self.state = init(torch.Generator().manual_seed(self.seed()))
         self._gen = torch.Generator(device=self.device).manual_seed(self.seed(1))
         self.round = 0
         self._trained_rounds: set[int] = set()
+
+    @contextlib.contextmanager
+    def _own_stream(self):
+        """Run the body's device work on the suggester's own stream (a no-op
+        off CUDA)."""
+        if self._lease is None:
+            yield
+            return
+        with torch.cuda.stream(self._lease.stream):
+            yield
 
     # -- persistence hooks --------------------------------------------------
 
     def state_dict(self) -> dict:
         st = self.state
-        return {
-            "round": self.round,
-            "trained_rounds": sorted(self._trained_rounds),
-            "controller": _to({
+        with self._own_stream():
+            controller = _to({
                 "params": st.params._asdict(),
                 "opt_state": st.opt_state._asdict(),
                 "baseline": st.baseline,
                 "step": st.step,
-            }, "cpu"),
+            }, "cpu")
+        return {
+            "round": self.round,
+            "trained_rounds": sorted(self._trained_rounds),
+            "controller": controller,
         }
 
     def load_state_dict(self, data: dict) -> None:
@@ -184,7 +208,8 @@ class EnasSuggester(Suggester):
                 f"not a katib_tpu_torch ENAS controller state ({type(ctrl).__name__}); "
                 "a JAX package's state is not read by the port"
             )
-        ctrl = _to(ctrl, self.device)
+        with self._own_stream():
+            ctrl = _to(ctrl, self.device)
         state = ReinforceState(ControllerParams(**ctrl["params"]), AdamState(**ctrl["opt_state"]),
                                ctrl["baseline"], ctrl["step"])
         self.round = data["round"]
@@ -216,13 +241,15 @@ class EnasSuggester(Suggester):
 
     def train_controller(self, reward: float) -> None:
         """``controller_train_steps`` REINFORCE steps, each on a fresh
-        sample, with ``reward``; returns once the device has finished them."""
-        r = torch.full((), reward, dtype=torch.float32, device=self.device)
-        for _ in range(self.train_steps):
-            arc, _ = self._sample(self.state.params, self._gen)
-            self.state, _ = self._train_step(self.state, arc, r)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        sample, with ``reward``; returns once the device has finished them
+        (a wait on the suggester's own stream, never the whole device)."""
+        with self._own_stream():
+            r = torch.full((), reward, dtype=torch.float32, device=self.device)
+            for _ in range(self.train_steps):
+                arc, _ = self._sample(self.state.params, self._gen)
+                self.state, _ = self._train_step(self.state, arc, r)
+        if self._lease is not None:
+            self._lease.stream.synchronize()
 
     def get_suggestions(
         self, experiment: Experiment, count: int
@@ -252,11 +279,14 @@ class EnasSuggester(Suggester):
         )
         out = []
         for _ in range(count):
-            arc, _ = self._sample(self.state.params, self._gen)
+            # the arc's transfer to the host waits on the suggester's stream
+            with self._own_stream():
+                arc, _ = self._sample(self.state.params, self._gen)
+                architecture = json.dumps(arc_to_json(arc))
             out.append(
                 TrialAssignmentSet(
                     assignments=[
-                        ParameterAssignment("architecture", json.dumps(arc_to_json(arc))),
+                        ParameterAssignment("architecture", architecture),
                         ParameterAssignment("nn_config", nn_config),
                     ],
                     labels={ROUND_LABEL: str(self.round)},

@@ -1,13 +1,12 @@
 """Import side-effect module: registers the suggesters the port has.
 
-Copy of ``katib_tpu/suggest/algorithms.py`` limited to the ported
-suggesters: ``asha``, ``bayesianoptimization``, ``cmaes``, ``grid``,
-``hyperband``, ``pbt``, ``pbt-ondevice``, ``random``, ``sobol``, ``tpe``
-and ``multivariate-tpe`` register here, ``darts`` and ``enas`` lazily from
-``nas/darts/service.py`` and ``nas/enas/service.py``.  The JAX registry's
-other algorithm, ``remote``, is listed in :data:`UNPORTED_ALGORITHMS` with
-the JAX module it would port, and ``base.make_suggester`` raises
-``NotImplementedError`` naming that module.  scipy (``sobol``,
+Copy of ``katib_tpu/suggest/algorithms.py``: ``asha``,
+``bayesianoptimization``, ``cmaes``, ``grid``, ``hyperband``, ``pbt``,
+``pbt-ondevice``, ``random``, ``remote`` (``suggest/service.py``),
+``sobol``, ``tpe`` and ``multivariate-tpe`` register here, ``darts`` and
+``enas`` lazily from ``nas/darts/service.py`` and ``nas/enas/service.py``.
+Every algorithm of the JAX registry is ported, so
+:data:`UNPORTED_ALGORITHMS` is empty.  scipy (``sobol``,
 ``bayesianoptimization``) and scikit-learn (``bayesianoptimization``) are
 imported at first use, so importing this module needs neither.
 """
@@ -19,6 +18,7 @@ from katib_tpu_torch.suggest import grid  # noqa: F401
 from katib_tpu_torch.suggest import hyperband  # noqa: F401
 from katib_tpu_torch.suggest import pbt  # noqa: F401
 from katib_tpu_torch.suggest import random_search  # noqa: F401
+from katib_tpu_torch.suggest import service  # noqa: F401  (registers "remote")
 from katib_tpu_torch.suggest import sobol  # noqa: F401
 from katib_tpu_torch.suggest import tpe  # noqa: F401
 
@@ -29,6 +29,4 @@ LAZY_ALGORITHMS = {
 }
 
 #: the JAX registry's other algorithms -> the module each would port
-UNPORTED_ALGORITHMS = {
-    "remote": "katib_tpu/suggest/service.py",
-}
+UNPORTED_ALGORITHMS: dict[str, str] = {}

@@ -201,8 +201,34 @@ def test_run_on_cuda_without_a_gpu_raises(tmp_path, monkeypatch):
         main(["run", tiny_spec(tmp_path / "darts.yaml"), "--workdir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("verb", UNPORTED_VERBS + ("prewarm", "cache"))
+def serve_healthz(*args: str) -> tuple[str, int, dict]:
+    """Start ``python -m katib_tpu_torch suggest-server --port 0 <args>`` in a
+    fresh interpreter, read the address from its first line, GET
+    ``/healthz`` and stop it; returns the line, the status and the reply."""
+    import urllib.request
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "katib_tpu_torch", "suggest-server", "--port", "0", *args],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    try:
+        line = proc.stdout.readline().strip()
+        assert line.startswith("katib-tpu suggestion service: "), line + proc.stdout.read()
+        address = line.split()[3]
+        with urllib.request.urlopen(f"{address}/healthz", timeout=10) as r:
+            return line, r.status, json.loads(r.read())
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+
+
+@pytest.mark.parametrize("verb", UNPORTED_VERBS + ("prewarm", "cache", "suggest-server"))
 def test_unported_verbs_raise(verb, tmp_path, capsys, fresh_compile_state):
+    if verb == "suggest-server":  # ported: it serves /healthz, on the CPU as asked
+        line, status, reply = serve_healthz("--device", "cpu")
+        assert line.startswith("katib-tpu suggestion service: http://127.0.0.1:")
+        assert line.endswith("(auth: open)") and status == 200 and reply == {"status": "serving"}
+        return
     if verb == "cache":  # ported: an empty artifact tier's inventory
         assert main(["cache", str(tmp_path)]) == 0
         assert "(empty)" in capsys.readouterr().out

@@ -83,7 +83,10 @@ def _run(pkg: str, name: str, tmp_path):
 def compile_dirs(tmp_path, fresh_compile_state):
     """``KATIB_COMPILE_CACHE`` and ``KATIB_ARTIFACT_DIR`` under ``tmp_path``
     for both packages; the JAX package's process-global compile-cache
-    wiring (its runner's directory, the jax config) is put back after."""
+    wiring (its runner's directory, the jax config) starts unwired, as
+    ``tests/test_cohort.py`` starts it (a JAX test run earlier in the same
+    process may have wired another directory, first caller wins), and is
+    put back after."""
     import jax
 
     from katib_tpu.compile import artifacts as jart
@@ -92,7 +95,7 @@ def compile_dirs(tmp_path, fresh_compile_state):
     monkeypatch = fresh_compile_state
     old = {key: getattr(jax.config, key) for key in (
         "jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")}
-    monkeypatch.setattr(jrunner, "_COMPILE_CACHE_DIR", jrunner._COMPILE_CACHE_DIR)
+    monkeypatch.setattr(jrunner, "_COMPILE_CACHE_DIR", None)
     monkeypatch.setenv("KATIB_COMPILE_CACHE", str(tmp_path / "cc"))
     monkeypatch.setenv("KATIB_ARTIFACT_DIR", str(tmp_path / "art"))
     yield tmp_path / "cc", tmp_path / "art"

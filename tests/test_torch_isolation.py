@@ -213,6 +213,61 @@ def test_port_imports_and_steps_with_jax_and_katib_tpu_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_suggestion_service_and_composer_child_run_with_jax_and_katib_tpu_blocked(tmp_path):
+    """The suggestion service, ``remote`` against it (tpe, and the shipped
+    ENAS spec's first round), and the composer's ``suggest-server`` child
+    (``endpoint: auto``), with JAX and the JAX package unimportable in this
+    process and, through a ``sitecustomize`` on ``PYTHONPATH``, in the
+    child: a child that imported either would die before it is healthy."""
+    blocker = tmp_path / "blocker"
+    blocker.mkdir()
+    (blocker / "sitecustomize.py").write_text(
+        f"import sys\nfor name in {BANNED!r}:\n    sys.modules[name] = None\n")
+    script = textwrap.dedent(f"""
+        import sys
+        for name in {BANNED!r}:
+            assert sys.modules.get(name, 0) is None, name
+        import tempfile
+        from katib_tpu_torch.core import types as T
+        from katib_tpu_torch.orchestrator import Orchestrator
+        from katib_tpu_torch.sdk.yaml_spec import load_experiment_yaml
+        from katib_tpu_torch.suggest.base import make_suggester
+        from katib_tpu_torch.suggest.service import serve_suggestions
+        svc = serve_suggestions(device="cpu", token="t0k")
+        def spec(name, settings):
+            return T.ExperimentSpec(
+                name=name, algorithm=T.AlgorithmSpec(name="remote", settings=settings),
+                objective=T.ObjectiveSpec(type=T.ObjectiveType.MAXIMIZE,
+                                          objective_metric_name="accuracy"),
+                parameters=[T.ParameterSpec("x", T.ParameterType.DOUBLE,
+                                            T.FeasibleSpace(min=0.0, max=1.0))],
+                max_trial_count=3, parallel_trial_count=1,
+                train_fn=lambda ctx: ctx.report(step=0, accuracy=float(ctx.params["x"])))
+        endpoint = f"http://127.0.0.1:{{svc.port}}"
+        exp = Orchestrator(workdir=tempfile.mkdtemp(), device="cpu").run(
+            spec("iso-tpe", {{"endpoint": endpoint, "algorithm": "tpe", "token": "t0k"}}))
+        assert exp.succeeded_count == 3, exp.message
+        enas = load_experiment_yaml("examples/nas/enas.yaml")
+        enas.algorithm = T.AlgorithmSpec(name="remote", settings={{
+            **enas.algorithm.settings, "endpoint": endpoint, "algorithm": "enas", "token": "t0k"}})
+        props = make_suggester(enas).get_suggestions(T.Experiment(spec=enas), 4)
+        assert [p.labels["enas-round"] for p in props] == ["0"] * 4
+        svc.stop()
+        exp = Orchestrator(workdir=tempfile.mkdtemp(), device="cpu").run(
+            spec("iso-auto", {{"endpoint": "auto", "algorithm": "random"}}))
+        assert exp.succeeded_count == 3, exp.message
+        leaked = sorted(n for n in sys.modules if n.split(".")[0] in {BANNED!r} and sys.modules[n])
+        assert not leaked, leaked
+        print("ok")
+    """)
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": f"{blocker}{os.pathsep}{ROOT}", "OMP_NUM_THREADS": "1"},
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_cuda_is_refused_where_there_is_none(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for asked in (None, "cuda", "cuda:0", torch.device("cuda")):

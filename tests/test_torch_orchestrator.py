@@ -35,6 +35,7 @@ from katib_tpu_torch.orchestrator.status import read_status as t_read_status
 from katib_tpu_torch.runner.cohort import COHORT_ATTR
 from katib_tpu_torch.runner.trial_runner import run_trial
 from katib_tpu_torch.store.base import MemoryObservationStore
+from katib_tpu_torch.suggest.base import SuggesterError
 from katib_tpu_torch.utils import faults
 from tests.torch_compile_state import fresh_compile_state  # noqa: F401  (fixture)
 
@@ -72,7 +73,8 @@ def grid_spec(pkg: str, name: str, **kw):
     return t.ExperimentSpec(
         name=name,
         objective=t.ObjectiveSpec(type=t.ObjectiveType.MAXIMIZE, objective_metric_name="accuracy"),
-        algorithm=t.AlgorithmSpec(name=kw.pop("algorithm", "grid")),
+        algorithm=t.AlgorithmSpec(name=kw.pop("algorithm", "grid"),
+                                  settings=kw.pop("algorithm_settings", {})),
         parameters=[t.ParameterSpec("x", t.ParameterType.DOUBLE,
                                     t.FeasibleSpace(min=0.0, max=4.0, step=1.0))],
         async_orch=kw.pop("async_orch", False),
@@ -263,12 +265,13 @@ def test_drain_and_resume_match_the_jax_package(tmp_path):
     assert got["starts"] == [0, 2] and got["reported"] == [[0, 1, 2, 3]] and got["fsck"]
 
 
-def _refused(tmp_path, match, orch_kw=None, env=None, monkeypatch=None, **spec_kw):
+def _refused(tmp_path, match, orch_kw=None, env=None, monkeypatch=None,
+             error=NotImplementedError, **spec_kw):
     for key, value in (env or {}).items():
         monkeypatch.setenv(key, value)
     spec = grid_spec("torch", "refused", **spec_kw)
     orch = Orchestrator(workdir=str(tmp_path), device="cpu", **(orch_kw or {}))
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         orch.run(spec)
     status = t_read_status(str(tmp_path), "refused")
     if "mesh" in match:
@@ -311,8 +314,12 @@ REFUSALS = {
     "slice-allocator": dict(match="slice allocator", orch_kw={"slice_allocator": object()}),
     "profiler": dict(match="profile", orch_kw={
         "config": KatibConfig.from_dict({"init": {"enable_profiler": True}})}),
-    "unported-suggester": dict(match="suggest/service.py", algorithm="remote",
-                               async_orch=False),
+    # the remote suggester is ported: what it refuses is the JAX package's
+    # refusal of pbt behind a service, before anything is journaled
+    "unported-suggester": dict(match="share a filesystem", algorithm="remote",
+                               algorithm_settings={"endpoint": "http://127.0.0.1:9",
+                                                   "algorithm": "pbt"},
+                               error=SuggesterError, async_orch=False),
 }
 
 

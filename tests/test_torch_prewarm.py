@@ -274,14 +274,18 @@ class TestOrchestratorPrewarm:
 
     @pytest.mark.parametrize("loop", ["sync", "async"])
     def test_twin_runs_on_the_orchestrators_device(self, loop, tmp_path, fresh_compile_state):
-        seen, twin_ran = [], threading.Event()
+        seen = []
 
         def twin(s, k, m=None, device=None):
             seen.append((k, str(device)))
-            twin_ran.set()
 
         def train_fn(tctx):
-            twin_ran.wait(10.0)  # the group is submitted to the worker first
+            # the group is submitted to the worker first: wait (bounded) for
+            # the row the worker records once its twin has returned, not for
+            # the twin itself, which runs before that row is written
+            deadline = time.monotonic() + 10.0
+            while not _rows(train_fn) and time.monotonic() < deadline:
+                time.sleep(0.01)
             tctx.report(loss=float(tctx.params["x"]))
 
         attach_prewarm_fn(train_fn, twin)

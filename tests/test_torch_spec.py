@@ -38,7 +38,7 @@ from katib_tpu_torch.sdk.yaml_spec import (
 from katib_tpu_torch.store.base import MemoryObservationStore
 from katib_tpu_torch.store.sqlite import SqliteObservationStore
 from katib_tpu_torch.suggest import algorithms
-from katib_tpu_torch.suggest.base import make_suggester, registered_algorithms
+from katib_tpu_torch.suggest.base import SuggesterError, make_suggester, registered_algorithms
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = sorted(
@@ -204,18 +204,29 @@ def test_config_refuses_mesh_axes():
 def test_registry_holds_the_ported_suggesters():
     assert registered_algorithms() == ["asha", "bayesianoptimization", "cmaes", "darts",
                                        "enas", "grid", "hyperband", "multivariate-tpe", "pbt",
-                                       "pbt-ondevice", "random", "sobol", "tpe"]
+                                       "pbt-ondevice", "random", "remote", "sobol", "tpe"]
 
 
-@pytest.mark.parametrize("name", sorted(algorithms.UNPORTED_ALGORITHMS))
+@pytest.mark.parametrize("name", ["remote"])
 def test_unported_suggesters_raise_naming_their_jax_module(name):
+    """The last unported algorithm, ``remote``, is ported: none raises
+    ``NotImplementedError`` any more, and ``remote`` on a shipped spec
+    refuses a missing endpoint as the JAX package's does."""
+    from katib_tpu.suggest.base import SuggesterError as JSuggesterError
+    from katib_tpu.suggest.base import make_suggester as j_make_suggester
     from katib_tpu.suggest.base import registered_algorithms as j_registered
 
-    assert name in j_registered()
-    spec = load_experiment_yaml(os.path.join(REPO, "examples", "hp-tuning", "random.yaml"))
+    assert name in j_registered() and name in registered_algorithms()
+    assert name not in algorithms.UNPORTED_ALGORITHMS
+    path = os.path.join(REPO, "examples", "hp-tuning", "random.yaml")
+    spec, j_spec = load_experiment_yaml(path), j_load(path)
     spec.algorithm = AlgorithmSpec(name=name)
-    with pytest.raises(NotImplementedError, match=algorithms.UNPORTED_ALGORITHMS[name]):
+    j_spec.algorithm = type(j_spec.algorithm)(name=name)
+    with pytest.raises(JSuggesterError, match="endpoint") as want:
+        j_make_suggester(j_spec)
+    with pytest.raises(SuggesterError, match="endpoint") as got:
         make_suggester(spec)
+    assert str(got.value) == str(want.value)
 
 
 def test_the_port_and_the_jax_registry_cover_the_same_names():

@@ -389,13 +389,16 @@ def test_a_missing_optional_dependency_is_a_suggester_error(monkeypatch, missing
 
 
 def test_only_pbt_ondevice_and_remote_are_unported():
+    """Both are ported now: no algorithm is left unported, and ``remote``
+    is registered (``tests/test_torch_suggest_service.py``)."""
     from katib_tpu_torch.suggest import algorithms
+    from katib_tpu_torch.suggest.service import RemoteSuggester
 
-    # pbt-ondevice is ported too (tests/test_torch_pbt_ondevice.py)
-    assert set(algorithms.UNPORTED_ALGORITHMS) == {"remote"}
-    for name in ("sobol", "cmaes", "bayesianoptimization", "pbt", "pbt-ondevice"):
+    assert algorithms.UNPORTED_ALGORITHMS == {}
+    for name in ("sobol", "cmaes", "bayesianoptimization", "pbt", "pbt-ondevice", "remote"):
         assert name in tbase.registered_algorithms()
-    for name in ("remote",):
-        with pytest.raises(NotImplementedError, match=name):
-            tbase.make_suggester(_spec("torch", name, {"n_population": "5",
-                                                       "truncation_threshold": "0.2"}))
+    assert tbase._resolve("remote") is RemoteSuggester
+    # its own validation, as in the JAX package: an endpoint is required
+    for pkg in PKGS:
+        with pytest.raises(PKGS[pkg].base.SuggesterError, match="endpoint"):
+            PKGS[pkg].base.make_suggester(_spec(pkg, "remote", {"algorithm": "tpe"}))
