@@ -13,7 +13,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 4. time each kernel, its plain version and the one PyTorch call that
    computes the same function, beside the least time the card could take;
 5. hold the DARTS step replayed from a CUDA graph against the same step
-   run eagerly on the card (search width, ``remat_policy="dots"``, 2 steps);
+   run eagerly on the card (16 channels, 4 nodes, batch 64, 3 cells,
+   ``remat_policy="dots"``, 2 steps);
 6. drive the first main path: ``darts_trial`` through ``TrialContext`` at
    the DARTS search width (8 cells, 16 channels, 4 nodes, the 8 default
    primitives, batch 64, bf16, 2 epochs of 8 steps by CUDA-graph replay in
@@ -34,7 +35,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    as shipped, in a fresh interpreter, under the async engine, SIGTERM once
    the trial is journaled running (the drain lands at epoch 0's report;
    exit 75), then ``--resume`` to its end, ``fsck`` clean and each epoch
-   reported once; then ``python -m katib_tpu_torch doctor``;
+   reported once; ``python -m katib_tpu_torch doctor`` beside the resumed
+   run (the native runtime built);
 9. drive the second main path: ``transformer_trial`` at the long-context
    width (vocab 256, d_model 512, 8 heads, 4 layers, seq 4096, batch 4,
    bf16) for 10 steps, with the three flash-attention launch counts set to
@@ -139,7 +141,26 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    trial captured its graph; then ``python -m katib_tpu_torch run`` of a
    4-trial mnist spec with ``endpoint: auto`` (the composer's
    ``suggest-server --device cpu`` child): exit 0, the in-process
-   assignments, the child gone after the run, TLS or plain HTTP printed.
+   assignments, the child gone after the run, TLS or plain HTTP printed;
+26. ``fused:`` the fused mixed-op plan at the search width: ``FusedSepDil``
+   against ``SepConv``/``DilConv`` on the same parameters at both strides,
+   in float32 and bf16; the fused supernet (8 cells, 16 channels, 4 nodes,
+   8 primitives, batch 64, bf16, second order, no remat) replayed from its
+   captured step against the same 2 steps run eagerly, bit for bit, with
+   its mixed-op launches per replay; its replayed step's wall, images/s,
+   capture seconds and peak memory beside the unfused step's; then a copy
+   of ``examples/nas/darts.yaml`` with ``fused: true`` at the search width
+   (1,024 images, 1 epoch, its operations widened to the 7 primitives a
+   spec can name) through ``Orchestrator.run``: ``Succeeded``, ``fsck``
+   clean, launches as predicted;
+27. ``native:`` ``darts_trial`` with ``KATIB_NATIVE_LOADER=1`` at the search
+   width on 3 eager steps fed by the C++ loaders (the loader's wait per
+   batch beside each step's wall); ``python -m katib_tpu_torch db-manager
+   --db <journal>`` as a child, then at once ``run --no-preflight`` of a
+   4-trial random copy of ``katib_tpu_torch/specs/hyperband-mnist.yaml``
+   with ``store: remote`` and the same copy with ``store: native``; the
+   daemon killed by SIGKILL, restarted on its journal, and ``metrics``
+   reading back every row.
 
 Every run of the async engine prints its ``async_stats`` (a CLI run prints
 them on its ``async engine:`` line) and fails the script if a loop
@@ -153,6 +174,7 @@ and exits nonzero without printing a result when either is missing.
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import contextlib
 import functools
@@ -482,6 +504,10 @@ def phase_kernel_timing(torch, mixed_op) -> dict:
 
 
 DARTS_LAYERS, DARTS_NODES = 8, 4
+# replay against eager under remat "dots": cut from 8 cells to 3 (the fused
+# phase holds its replay bit-equal to eager at 8 cells without remat); at 8
+# cells its eager steps and capture took about 57 s on an H100
+GRAPH_VS_EAGER_LAYERS = 3
 # the DARTS main path: the search width, its specs' step-loop window, search
 # augmentation, the augment phase and a checkpoint dir
 DARTS_SETTINGS = {
@@ -574,11 +600,12 @@ def phase_graph_vs_eager(torch) -> None:
     from katib_tpu_torch.parallel.train import cross_entropy_loss
 
     s = DARTS_SETTINGS
-    # 2 steps: an eager step under remat takes about 12 s on the card; the
-    # second step reads what the first wrote, in the replay as eagerly
+    # 2 steps: the second step reads what the first wrote, in the replay as
+    # eagerly; GRAPH_VS_EAGER_LAYERS cells (a normal and two reduction cells)
     steps, batch = 2, s["batch_size"]
-    net = DartsNetwork(DEFAULT_PRIMITIVES, init_channels=s["init_channels"], num_layers=DARTS_LAYERS,
-                       n_nodes=DARTS_NODES, remat=True, remat_policy="dots")
+    net = DartsNetwork(DEFAULT_PRIMITIVES, init_channels=s["init_channels"],
+                       num_layers=GRAPH_VS_EAGER_LAYERS, n_nodes=DARTS_NODES, remat=True,
+                       remat_policy="dots")
     gen = torch.Generator().manual_seed(5)
     net.reset_parameters(gen)
     alphas = init_alphas(DARTS_NODES, len(DEFAULT_PRIMITIVES), gen)
@@ -609,7 +636,8 @@ def phase_graph_vs_eager(torch) -> None:
     (eager, eager_m, eager_s, _), (graph, graph_m, graph_s, capture_s) = runs[False], runs[True]
     init = dict((k, v.cpu()) for k, v in state_items(state))
     loss_rel = float(((graph_m - eager_m).abs() / eager_m.abs().clamp(min=1e-30)).max())
-    print(f"graph vs eager: 8 cells, remat dots, search augment, {steps} steps: eager "
+    print(f"graph vs eager: {GRAPH_VS_EAGER_LAYERS} cells, remat dots, search augment, "
+          f"{steps} steps: eager "
           f"{eager_s:.2f}s, capture {capture_s:.2f}s (warm-up included) + replays "
           f"{graph_s - capture_s:.2f}s; train losses eager "
           f"{[round(float(v), 6) for v in eager_m[0]]} graph "
@@ -912,7 +940,7 @@ def _wait(proc: subprocess.Popen, log: str, timeout: float) -> tuple[int, str]:
 def phase_cli() -> None:
     """``python -m katib_tpu_torch run examples/nas/darts.yaml`` as shipped:
     drained by SIGTERM during epoch 0 (exit 75), resumed with ``--resume``,
-    fsck'd; then ``doctor``."""
+    fsck'd; ``doctor`` beside the resumed run."""
     from katib_tpu_torch.orchestrator.status import read_status
     from katib_tpu_torch.store.sqlite import SqliteObservationStore
 
@@ -964,6 +992,10 @@ def phase_cli() -> None:
     check(first_steps == [0], f"the drained run reported epochs {first_steps}, not [0]")
 
     t0 = time.perf_counter()
+    # doctor runs beside the resumed run: its probe interpreter and the
+    # trial share the card, and the two walls overlap
+    doctor_log = os.path.join(workdir, "doctor.log")
+    doctor = _cli("doctor", log=doctor_log)
     rc, out = _wait(_cli(*run, "--resume", log=log), log, 600)
     resume_wall = time.perf_counter() - t0
     status = read_status(workdir, name)
@@ -984,11 +1016,11 @@ def phase_cli() -> None:
     print(f"cli: fsck exit {rc}: {out.strip().splitlines()[-1]}", flush=True)
     check(rc == 0 and "result: consistent" in out, f"fsck:\n{out}")
 
-    t0 = time.perf_counter()
-    rc, out = _wait(_cli("doctor", log=log), log, 180)
-    print(f"doctor: exit {rc} in {time.perf_counter() - t0:.2f}s: "
-          f"{' | '.join(out.strip().splitlines())}", flush=True)
+    rc, out = _wait(doctor, doctor_log, 180)
+    print(f"doctor: exit {rc} beside the resumed run, done {time.perf_counter() - t0:.2f}s after "
+          f"it started: {' | '.join(out.strip().splitlines())}", flush=True)
     check(rc == 0 and out.startswith("pool healthy"), f"doctor:\n{out}")
+    check("native runtime: built" in out, f"doctor: the native runtime did not build:\n{out}")
 
 
 def phase_transformer(torch, fa, kernel_ms: float) -> dict[str, int]:
@@ -2710,6 +2742,424 @@ def phase_remote(torch) -> None:
     print(f"remote: phase {time.perf_counter() - t_phase:.2f}s", flush=True)
 
 
+# -- the fused mixed-op plan ----------------------------------------------------
+
+# (stride, channels, input size) of FusedSepDil on the main path: a normal
+# cell's edges at 16 channels on 32x32, and the first reduction cell's
+# stride-2 edges at 32 channels on 32x32 (the reduction halves the size)
+FUSED_SHAPES = ((1, 16, 32), (2, 32, 32))
+FUSED_F32_ATOL = 1e-4  # float32 with TF32 off: rounding of two summation orders
+FUSED_STEPS, FUSED_EPOCHS = 2, 4  # epoch 0 against eager, epochs 1-3 timed
+# darts.yaml's operations widened to the four conv primitives the fused plan
+# needs, and the two pools (a spec cannot name "none": 7 primitives)
+FUSED_OPERATIONS = [
+    {"operationType": t, "parameters": [{"name": "filter_size", "parameterType": "categorical",
+                                         "feasibleSpace": {"list": sizes}}]}
+    for t, sizes in (("separable_convolution", ["3", "5"]), ("dilated_convolution", ["3", "5"]),
+                     ("max_pooling", ["3"]), ("avg_pooling", ["3"]))
+] + [{"operationType": "skip_connection"}]
+
+
+def fused_embedded(unfused: dict) -> dict:
+    """A ``FusedSepDil`` state dict holding the parameters of the unfused
+    ``SepConv``/``DilConv`` modules in ``unfused`` (``{primitive: module}``)."""
+    import torch
+
+    from katib_tpu_torch.nas.darts.fused import BRANCH_SPECS
+
+    sd = {}
+    for name, _, _, second in BRANCH_SPECS:
+        mod = unfused[name]
+        first = mod.depthwise[0] if second else mod.depthwise
+        sd[f"stage_a.dw_{name}_0"] = first.kernel
+        if second:
+            sd[f"stage_b.dw_{name}_1"] = mod.depthwise[1].kernel
+    sd["pw_0"] = torch.stack([unfused[n].pointwise[0].kernel if s else unfused[n].pointwise.kernel
+                              for n, _, _, s in BRANCH_SPECS])
+    sd["pw_1"] = torch.stack([unfused[n].pointwise[1].kernel for n, _, _, s in BRANCH_SPECS if s])
+    return {k: v.detach().clone() for k, v in sd.items()}
+
+
+def fused_module_parity(torch) -> None:
+    """(a) ``FusedSepDil`` against ``SepConv``/``DilConv`` on the same
+    parameters embedded in it, at the main path's shapes and both strides:
+    float32 within ``FUSED_F32_ATOL``; in bf16 the fused output no further
+    from the float32 value than twice the unfused bf16 output is."""
+    from katib_tpu_torch.nas.darts.fused import FUSED_PRIMITIVES, FusedSepDil
+    from katib_tpu_torch.nas.darts.ops import build_op
+
+    for stride, c, hw in FUSED_SHAPES:
+        gen = torch.Generator().manual_seed(stride)
+        mods = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            mods[dtype] = {n: build_op(n, c, stride, dtype=dtype) for n in FUSED_PRIMITIVES}
+            mods[dtype]["fused"] = FusedSepDil(c, stride, dtype=dtype)
+        for name, mod in mods[torch.float32].items():
+            if name != "fused":
+                for m in mod.modules():
+                    if m is not mod and hasattr(m, "reset_parameters"):
+                        m.reset_parameters(gen)
+        mods[torch.float32]["fused"].load_state_dict(fused_embedded(mods[torch.float32]))
+        for name, mod in mods[torch.bfloat16].items():
+            mod.load_state_dict(mods[torch.float32][name].state_dict())
+        x = torch.randn(64, c, hw, hw, generator=gen).cuda()
+        xb = x.bfloat16().float()
+        with torch.no_grad():
+            out = {dtype: {name: mod.cuda()(x if dtype == torch.float32 else xb)
+                           for name, mod in ms.items()} for dtype, ms in mods.items()}
+            ref = {n: mods[torch.float32][n](xb) for n in FUSED_PRIMITIVES}
+        torch.cuda.synchronize()
+        f32_err = max(float((out[torch.float32]["fused"][n] - out[torch.float32][n]).abs().max())
+                      for n in FUSED_PRIMITIVES)
+        bf = {}
+        for n in FUSED_PRIMITIVES:
+            bf[n] = (float((out[torch.bfloat16]["fused"][n].float() - ref[n]).abs().max()),
+                     float((out[torch.bfloat16][n].float() - ref[n]).abs().max()))
+        print(f"fused: FusedSepDil vs SepConv/DilConv, stride {stride}, {c} channels, "
+              f"{hw}x{hw}, batch 64: float32 max_abs_err={f32_err:.3e} (tolerance "
+              f"{FUSED_F32_ATOL}); bf16 max_abs_err against float32, fused/unfused "
+              f"{ {n[:-4]: (round(a, 5), round(b, 5)) for n, (a, b) in bf.items()} }", flush=True)
+        check(f32_err <= FUSED_F32_ATOL, f"fused plan differs in float32 by {f32_err:.3e}")
+        for n, (fused_err, unfused_err) in bf.items():
+            check(fused_err <= 2 * unfused_err,
+                  f"fused {n} in bf16 is {fused_err:.3e} from float32, the unfused "
+                  f"{unfused_err:.3e}")
+
+
+def phase_fused(torch, mixed_op) -> None:
+    """The fused mixed-op plan at the search width: (a) the module against
+    the unfused primitives; (b) the fused supernet's captured step replayed
+    against the same steps run eagerly, bit for bit, and its mixed-op
+    launches per replay; (c) its replayed step's wall, images/s, capture
+    seconds and peak memory beside the unfused step's, in this process;
+    (d) ``darts_trial`` with ``fused`` through ``Orchestrator.run`` on a
+    temporary copy of ``darts.yaml``."""
+    import numpy as np
+    import yaml
+
+    from katib_tpu_torch.models.augmentation import KEY_OFFSET, random_crop_flip
+    from katib_tpu_torch.models.data import load_cifar10
+    from katib_tpu_torch.nas.darts.architect import (
+        DartsHyper, init_search_state, make_search_step, state_items)
+    from katib_tpu_torch.nas.darts.fused import FusedSepDil
+    from katib_tpu_torch.nas.darts.model import (
+        Alphas, DartsNetwork, init_alphas, mixed_op_launches_per_forward, n_edges)
+    from katib_tpu_torch.nas.darts.ops import DEFAULT_PRIMITIVES
+    from katib_tpu_torch.nas.darts.search import _draw_epoch_indices, split_train
+    from katib_tpu_torch.nas.darts.step_loop import WARMUP_STEPS, StepLoop
+    from katib_tpu_torch.orchestrator import Orchestrator
+    from katib_tpu_torch.orchestrator.fsck import fsck_experiment
+    from katib_tpu_torch.parallel.train import cross_entropy_loss
+    from katib_tpu_torch.sdk.yaml_spec import load_experiment_yaml
+
+    fused_module_parity(torch)
+    s = DARTS_SETTINGS
+    batch, seed = s["batch_size"], 7
+    (x_w, y_w), (x_a, y_a) = split_train(load_cifar10(n_train=s["n_train"], n_test=8), seed=seed)
+    splits = tuple(torch.from_numpy(np.ascontiguousarray(t)).cuda() for t in (x_w, y_w, x_a, y_a))
+    per_step = 5 * mixed_op_launches_per_forward(DARTS_LAYERS, DARTS_NODES)
+
+    def indices(epoch):
+        return tuple(ix.reshape(-1, batch) for ix in _draw_epoch_indices(
+            seed, epoch, len(x_w), len(x_a), FUSED_STEPS * batch))
+
+    def search(fused: bool):
+        net = DartsNetwork(DEFAULT_PRIMITIVES, init_channels=s["init_channels"],
+                           num_layers=DARTS_LAYERS, n_nodes=DARTS_NODES, remat=False,
+                           fused_convs=fused)
+        gen = torch.Generator().manual_seed(seed)
+        net.reset_parameters(gen)
+        alphas = init_alphas(DARTS_NODES, len(DEFAULT_PRIMITIVES), gen)
+        net.cuda()
+
+        def loss_fn(w, a, b):
+            return cross_entropy_loss(torch.func.functional_call(net, w, (b[0], a)), b[1])
+
+        hyper = DartsHyper(total_steps=16)
+        state = init_search_state({k: v.detach() for k, v in net.named_parameters()},
+                                  Alphas(*(a.cuda() for a in alphas)), hyper)
+        return net, make_search_step(loss_fn, hyper), state
+
+    def loop(step, state, capture):
+        return StepLoop(step, state, splits, FUSED_STEPS, batch, random_crop_flip,
+                        seed + KEY_OFFSET, capture=capture)
+
+    def captured(step, state) -> dict:
+        torch.cuda.reset_peak_memory_stats()
+        mixed_op.launches = 0
+        lp = loop(step, state, capture=True)
+        lp.run_epoch(*indices(0), window=FUSED_STEPS)
+        torch.cuda.synchronize()
+        out = {"launches": mixed_op.launches, "per_replay": lp.launches_per_replay,
+               "capture_s": lp.capture_s, "times": [],
+               "state": {k: v.to("cpu", copy=True) for k, v in state_items(lp.state)},
+               "metrics": lp.metrics.to("cpu", copy=True)}
+        for epoch in range(1, FUSED_EPOCHS):
+            lp.run_epoch(*indices(epoch), window=FUSED_STEPS, step_times=out["times"])
+        out["peak"] = torch.cuda.max_memory_allocated()
+        return out
+
+    net, step, state = search(True)
+    n_fused = sum(isinstance(m, FusedSepDil) for m in net.modules())
+    check(n_fused == DARTS_LAYERS * n_edges(DARTS_NODES),
+          f"{n_fused} FusedSepDil modules in the fused supernet")
+    eager = loop(step, state, capture=False)
+    t0 = time.perf_counter()
+    eager.run_epoch(*indices(0), window=FUSED_STEPS)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    want = ({k: v.to("cpu", copy=True) for k, v in state_items(eager.state)},
+            eager.metrics.to("cpu", copy=True))
+    del eager
+    runs = {True: captured(step, state)}
+    del net, step, state
+    runs[False] = captured(*search(False)[1:])
+    got = runs[True]
+    same_metrics = torch.equal(got["metrics"], want[1])
+    differ = sorted(k for k in want[0] if not torch.equal(got["state"][k], want[0][k]))
+    print(f"fused: 8 cells x 16 ch x 4 nodes, 8 primitives, batch 64, bf16, no remat, "
+          f"{FUSED_STEPS} steps: eager {eager_s:.2f}s; replayed train losses "
+          f"{[round(float(v), 6) for v in got['metrics'][0]]}, eager "
+          f"{[round(float(v), 6) for v in want[1][0]]}; step metrics bit-equal {same_metrics}; "
+          f"state tensors that differ {len(differ)} of {len(want[0])} {differ[:4]}", flush=True)
+    predicted = (WARMUP_STEPS + FUSED_STEPS) * per_step
+    print(f"fused: mixed_op launches per replay {got['per_replay']} (predicted {per_step}); "
+          f"warm-up and {FUSED_STEPS} replays {got['launches']} (predicted {predicted})",
+          flush=True)
+    check(same_metrics and not differ, "the fused step replayed differs from its eager run")
+    check(got["per_replay"] == per_step and got["launches"] == predicted,
+          f"fused mixed-op launches {got['per_replay']} per replay, {got['launches']} in all")
+    for fused in (True, False):
+        r = runs[fused]
+        median = statistics.median(r["times"])
+        print(f"fused: {'fused  ' if fused else 'unfused'} replayed step median {median:.4f}s "
+              f"({[round(t, 4) for t in r['times']]}) = {batch / median:.1f} images/s; capture "
+              f"{r['capture_s']:.3f}s (warm-up included); max_memory_allocated "
+              f"{r['peak'] / 2**30:.2f} GiB", flush=True)
+        check(len(r["times"]) == (FUSED_EPOCHS - 1) * FUSED_STEPS, "timed replays")
+
+    # (d) darts_trial with fused through the orchestrator, on a copy of darts.yaml
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-fused-")
+    with open(DARTS_YAML) as f:
+        doc = yaml.safe_load(f)
+    settings = {**ORCH_SETTINGS, "num_epochs": "1", "fused": "true"}
+    algo = doc["spec"]["algorithm"]
+    algo["algorithmSettings"] = [x for x in algo["algorithmSettings"] if x["name"] not in settings]
+    algo["algorithmSettings"] += [{"name": k, "value": v} for k, v in settings.items()]
+    doc["spec"]["nasConfig"] = {"graphConfig": {"numLayers": ORCH_LAYERS},
+                                "operations": FUSED_OPERATIONS}
+    path = os.path.join(workdir, "darts-fused.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(doc, f)
+    spec = load_experiment_yaml(path)
+    mixed_op.launches = 0
+    t0 = time.perf_counter()
+    exp = Orchestrator(workdir=workdir, device="cuda").run(spec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mixed_op.launches
+    (trial,) = exp.trials.values()
+    prims = json.loads(trial.params()["search-space"])
+    steps = (int(settings["n_train"]) // 2) // int(settings["batch_size"])
+    trial_predicted = ((steps + WARMUP_STEPS) * 5 + 1) * mixed_op_launches_per_forward(
+        ORCH_LAYERS, DARTS_NODES)
+    report = fsck_experiment(os.path.join(workdir, spec.name), repair=False)
+    print(f"fused: darts.yaml copy ({ORCH_LAYERS} layers, {len(prims)} primitives {prims}, "
+          f"{settings}) through Orchestrator.run on cuda in {wall:.2f}s: experiment "
+          f"{exp.condition.value}; trial {trial.condition.value}; mixed_op launches {launches} "
+          f"(predicted {trial_predicted}); spans {span_totals(workdir, spec.name)}; fsck "
+          f"{'consistent' if report.ok() else report.lines()}", flush=True)
+    check(exp.condition.value in SUCCESS and trial.condition.value == "Succeeded",
+          f"fused trial {trial.condition.value}: {trial.message}")
+    check(launches == trial_predicted, f"fused trial launched {launches}")
+    check(report.ok(), f"fused fsck: {report.lines()}")
+
+
+# -- the native runtime ---------------------------------------------------------
+
+# native prefetch at the search width: 3 eager steps of batch 64 (384 images)
+NATIVE_SETTINGS = {"batch_size": 64, "init_channels": 16, "num_nodes": DARTS_NODES,
+                   "num_epochs": 1, "n_train": 384, "n_test": 64, "remat": "false"}
+NATIVE_TRIALS = 4
+
+
+def daemon_pids(journal: str) -> set[int]:
+    """The running ``katib-db-manager`` processes serving ``journal``."""
+    pids = set()
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/cmdline", "rb") as f:
+                    argv = f.read().split(b"\0")
+            except OSError:
+                continue
+            if argv and b"katib-db-manager" in argv[0] and journal.encode() in argv:
+                pids.add(int(entry))
+    return pids
+
+
+# every db-manager wrapper started, killed at exit if still running (its
+# daemon dies with it: PR_SET_PDEATHSIG)
+DB_MANAGERS: list[subprocess.Popen] = []
+
+
+@atexit.register
+def stop_db_managers() -> None:
+    for proc in DB_MANAGERS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_db_manager(journal: str, log: str) -> tuple[subprocess.Popen, int]:
+    """``python -m katib_tpu_torch db-manager --port 0 --db journal`` in a
+    fresh interpreter; returns it and the port its first line names."""
+    proc = _cli("db-manager", "--port", "0", "--db", journal, log=log)
+    DB_MANAGERS.append(proc)
+    deadline = time.perf_counter() + 120
+    while time.perf_counter() < deadline:
+        with open(log) as f:
+            line = f.readline()
+        if line.endswith("\n"):
+            check(line.startswith("katib-tpu db-manager: 127.0.0.1:"), f"db-manager: {line}")
+            return proc, int(line.split()[2].split(":")[1])
+        check(proc.poll() is None, f"db-manager exited {proc.returncode}: {line}")
+        time.sleep(0.05)
+    check(False, "db-manager printed no address in 120 s")
+
+
+def phase_native(torch, mixed_op) -> None:
+    """The native runtime: (a) ``darts_trial`` with ``KATIB_NATIVE_LOADER=1``
+    at the search width on eager steps fed by the C++ loaders; (b) a
+    ``db-manager`` child serving a 4-trial copy of the Hyperband spec run
+    through ``run`` with ``store: remote``, the daemon killed by SIGKILL and
+    restarted on its journal, ``metrics`` reading back the same rows; (c) the
+    same copy under ``store: native``, beside (b)'s run."""
+    import yaml
+
+    from katib_tpu_torch.nas.darts.model import mixed_op_launches_per_forward
+    from katib_tpu_torch.nas.darts.ops import DEFAULT_PRIMITIVES
+    from katib_tpu_torch.nas.darts.search import darts_trial
+    from katib_tpu_torch.native.dbmanager import RemoteObservationStore
+    from katib_tpu_torch.orchestrator.status import read_status
+    from katib_tpu_torch.runner.context import TrialContext
+
+    # (b) and (c) start first: a db-manager child with a journal, then the
+    # two CLI runs at once; (a) runs in this process meanwhile
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-native-")
+    with open(HYPERBAND_YAML) as f:
+        doc = yaml.safe_load(f)
+    doc["spec"]["algorithm"] = {"algorithmName": "random", "algorithmSettings": [
+        {"name": "random_state", "value": REMOTE_SEED}]}
+    doc["spec"].update(maxTrialCount=NATIVE_TRIALS, parallelTrialCount=NATIVE_TRIALS)
+    spec_path = os.path.join(workdir, "hyperband-mnist-4.yaml")
+    with open(spec_path, "w") as f:
+        yaml.safe_dump(doc, f)
+    journal = os.path.join(workdir, "obs.journal")
+    t_daemon = time.perf_counter()
+    daemon, port = start_db_manager(journal, os.path.join(workdir, "daemon.log"))
+    daemon_start = time.perf_counter() - t_daemon
+
+    def config(name: str, store: dict) -> str:
+        path = os.path.join(workdir, f"{name}.yaml")
+        with open(path, "w") as f:
+            json.dump({"store": store}, f)  # JSON is YAML
+        return path
+
+    def run(backend: str, store: dict):
+        """One CLI run with ``store``: its exit code, output and wall."""
+        log = os.path.join(workdir, f"{backend}.log")
+        t0 = time.perf_counter()
+        proc = _cli("--config", config(backend, store), "run", spec_path, "--workdir",
+                    os.path.join(workdir, backend), "--no-preflight", log=log)
+        rc, out = _wait(proc, log, 300)
+        return rc, out, time.perf_counter() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    pending = {backend: pool.submit(run, backend, store) for backend, store in (
+        ("remote", {"backend": "remote", "host": "127.0.0.1", "port": port}),
+        ("native", {"backend": "native"}))}
+
+    # (a) native prefetch
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-native-darts-")
+    ctx = TrialContext({"algorithm-settings": json.dumps(NATIVE_SETTINGS),
+                        "search-space": json.dumps(list(DEFAULT_PRIMITIVES)),
+                        "num-layers": str(DARTS_LAYERS)},
+                       checkpoint_dir=out_dir, device="cuda", step_times=[])
+    os.environ["KATIB_NATIVE_LOADER"] = "1"
+    mixed_op.launches = 0
+    t0 = time.perf_counter()
+    try:
+        darts_trial(ctx)
+    finally:
+        del os.environ["KATIB_NATIVE_LOADER"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = (NATIVE_SETTINGS["n_train"] // 2) // NATIVE_SETTINGS["batch_size"]
+    predicted = (steps * 5 + 1) * mixed_op_launches_per_forward(DARTS_LAYERS, DARTS_NODES)
+    wait = ctx.timings.get("loader_wait_s", math.nan)
+    print(f"native: darts_trial with KATIB_NATIVE_LOADER=1 at the search width "
+          f"({NATIVE_SETTINGS}), beside the two CLI runs, in {wall:.2f}s: {len(ctx.step_times)} "
+          f"eager steps {[round(t, 4) for t in ctx.step_times]}s, loader wait "
+          f"{wait / steps:.6f}s per batch; reports {ctx.reports}; mixed_op launches "
+          f"{mixed_op.launches} (predicted {predicted})", flush=True)
+    check("loader_wait_s" in ctx.timings, "the native loaders did not feed the steps")
+    check(len(ctx.step_times) == steps, f"{len(ctx.step_times)} steps, predicted {steps}")
+    check(mixed_op.launches == predicted, f"native prefetch trial launched {mixed_op.launches}")
+    check([st for st, _ in ctx.reports] == [0]
+          and all(math.isfinite(v) for _, m in ctx.reports for v in m.values()),
+          f"native prefetch reports {ctx.reports}")
+
+    results = {}
+    for backend, future in pending.items():
+        rc, out, run_wall = future.result()
+        status = read_status(os.path.join(workdir, backend), "hyperband-mnist")
+        trials = sorted((status or {}).get("trials") or {})
+        conditions = sorted({rec["condition"] for rec in status["trials"].values()})
+        results[backend] = trials
+        print(f"native: run {os.path.basename(spec_path)} with store {backend}: exit {rc} in "
+              f"{run_wall:.2f}s; {len(trials)} trials {conditions}", flush=True)
+        cli_engine(f"native: {backend} run", out)
+        check(rc == 0 and conditions == ["Succeeded"] and len(trials) == NATIVE_TRIALS,
+              f"native: the {backend} run exited {rc}:\n{out[-3000:]}")
+    pool.shutdown()
+
+    def rows(p: int) -> dict:
+        client = RemoteObservationStore("127.0.0.1", p)
+        try:
+            return {t: [f"{m.timestamp:.3f}\t{m.step}\t{m.metric_name}\t{m.value}"
+                        for m in client.get(t)] for t in results["remote"]}
+        finally:
+            client.close()
+
+    before = rows(port)
+    pids = daemon_pids(journal)
+    check(len(pids) == 1, f"native: daemons serving the journal {pids}")
+    os.kill(pids.pop(), 9)  # SIGKILL: no shutdown path runs
+    rc, _ = _wait(daemon, os.path.join(workdir, "daemon.log"), 30)
+    t_daemon = time.perf_counter()
+    daemon, port = start_db_manager(journal, os.path.join(workdir, "daemon2.log"))
+    restart = time.perf_counter() - t_daemon
+    cfg = config("restarted", {"backend": "remote", "host": "127.0.0.1", "port": port})
+    readers = {t: _cli("--config", cfg, "metrics", t, log=os.path.join(workdir, f"{t}.metrics"))
+               for t in results["remote"]}
+    after = {}
+    for t, proc in readers.items():
+        rc_m, out = _wait(proc, os.path.join(workdir, f"{t}.metrics"), 120)
+        check(rc_m == 0, f"native: metrics {t} exited {rc_m}: {out}")
+        after[t] = out.strip().splitlines()
+    daemon.terminate()
+    rc_stop, _ = _wait(daemon, os.path.join(workdir, "daemon2.log"), 30)
+    n_rows = sum(len(v) for v in before.values())
+    print(f"native: db-manager started in {daemon_start:.2f}s; {n_rows} rows of "
+          f"{len(before)} trials through the wire; the daemon killed by SIGKILL (its wrapper "
+          f"exited {rc}), restarted on the journal in {restart:.2f}s; metrics read back "
+          f"{sum(len(v) for v in after.values())} rows, the same: {after == before}; "
+          f"SIGTERM exit {rc_stop}", flush=True)
+    check(n_rows > 0 and after == before, "native: the rows read back after the restart differ")
+    check(rc_stop == 0, f"native: db-manager exited {rc_stop} on SIGTERM")
+
+
 def main() -> int:
     import torch
 
@@ -2772,6 +3222,8 @@ def main() -> int:
     timed(phase_sdk, torch)
     timed(phase_compile, torch, mixed_op, built)
     timed(phase_remote, torch)
+    timed(phase_fused, torch, mixed_op)
+    timed(phase_native, torch, mixed_op)
 
     kernels = [{
         "name": "mixed_op_sum",

@@ -38,6 +38,8 @@ Port of ``katib_tpu/cli.py``.  The verbs the port has:
 - ``suggest-server``          suggestion-as-a-service daemon (``--token`` or
                               ``KATIB_SUGGEST_TOKEN``, ``--cert-dir`` for TLS);
                               ``--device`` names where its suggesters compute
+- ``db-manager``              native observation-log daemon (``--db`` = durable
+                              journal); raises if the C++ runtime cannot build
 
 ``conformance``, ``chaos`` and ``suggest-server`` take ``--device`` as
 ``run`` does.  The JAX CLI's other verbs are listed in
@@ -58,7 +60,7 @@ from katib_tpu_torch.core.config import KatibConfig
 
 #: the JAX CLI's verbs the port does not have yet
 UNPORTED_VERBS = (
-    "cost", "profile", "ui", "sim", "lint", "db-manager",
+    "cost", "profile", "ui", "sim", "lint",
 )
 #: the verbs of the cost model (ROADMAP Queue 1 item 8b)
 COST_VERBS = ("cost", "profile")
@@ -277,8 +279,8 @@ def cmd_describe(args: argparse.Namespace) -> int:
 
 def cmd_metrics(args: argparse.Namespace) -> int:
     """A trial's raw metric log from the config's store (``--config``:
-    sqlite, mysql or postgres; the default memory store holds nothing
-    across processes)."""
+    sqlite, remote, mysql or postgres; the default memory store, and the
+    in-process native one, hold nothing across processes)."""
     cfg = KatibConfig.load(args.config)
     store = cfg.store.make_store()
     logs = store.get(args.trial)
@@ -595,7 +597,15 @@ def cmd_doctor(args: argparse.Namespace) -> int:
     import torch
 
     print(f"torch {torch.__version__} (cuda {torch.version.cuda})")
-    print("native runtime: not ported")
+    from katib_tpu_torch.native.build import build_error, native_available
+    from katib_tpu_torch.runner.metrics import text_parser
+
+    if native_available():
+        print("native runtime: built")
+    else:
+        why = (build_error() or "").strip().splitlines() or ["unknown error"]
+        print(f"native runtime: unavailable ({why[0]})")
+    print(f"text metrics parser: {text_parser()}")
     cfg = KatibConfig.load(args.config)
     print(f"workdir: {cfg.init.workdir}")
     print(f"store: {cfg.store.backend}")
@@ -1472,6 +1482,50 @@ def _maybe_tls(args: argparse.Namespace):
     )
 
 
+def cmd_db_manager(args: argparse.Namespace) -> int:
+    """Run the native db-manager daemon standalone (the reference ships it as
+    its own binary, ``cmd/db-manager/v1beta1/main.go:51``).  ``--db`` turns
+    on the append-only frame journal: acknowledged mutations survive kill -9
+    and replay at the next start.  Blocks until interrupted; clients point a
+    ``store: {backend: remote, host, port}`` config (or
+    ``RemoteObservationStore``) at the printed address.  Raises if the
+    runtime cannot build."""
+    import signal
+
+    from katib_tpu_torch.native.dbmanager import spawn_db_manager
+
+    # PDEATHSIG: the daemon dies with this wrapper, so even a wrapper killed
+    # by SIGKILL cannot leave a daemon holding the port and the journal
+    handle = spawn_db_manager(host=args.host, port=args.port, db_path=args.db,
+                              kill_on_parent_exit=True)
+    print(
+        f"katib-tpu db-manager: {args.host}:{handle.port} "
+        f"({'journal: ' + args.db if args.db else 'in-memory'})",
+        flush=True,
+    )
+    stopped_by_us = False
+
+    def _on_term(signum, frame):
+        nonlocal stopped_by_us
+        stopped_by_us = True
+        # signal only: proc.wait() here would deadlock on the Popen lock the
+        # interrupted wait() of the main thread holds
+        handle.proc.terminate()
+
+    signal.signal(signal.SIGTERM, _on_term)
+    try:
+        handle.proc.wait()
+    except KeyboardInterrupt:
+        stopped_by_us = True
+        handle.stop()
+    # a shutdown this wrapper started is a clean exit, whatever signal ended
+    # the daemon; only a daemon that died by itself is a failure
+    if stopped_by_us:
+        return 0
+    rc = handle.proc.returncode
+    return rc if rc and rc > 0 else (1 if rc else 0)
+
+
 def _cmd_unported(args: argparse.Namespace) -> int:
     if args.cmd in COST_VERBS:
         raise NotImplementedError(
@@ -1482,7 +1536,7 @@ def _cmd_unported(args: argparse.Namespace) -> int:
     raise NotImplementedError(
         f"verb {args.cmd!r} of katib_tpu/cli.py is not ported yet; the port "
         "has run, list, describe, metrics, export, logs, trace, conformance, "
-        "chaos, fsck, prewarm, cache, doctor and suggest-server"
+        "chaos, fsck, prewarm, cache, doctor, suggest-server and db-manager"
     )
 
 
@@ -1757,6 +1811,15 @@ def main(argv: list[str] | None = None) -> int:
         help="where suggesters compute: cuda (default; raises without a GPU) or cpu",
     )
     p.set_defaults(fn=cmd_suggest_server)
+
+    p = sub.add_parser("db-manager", help="run the native observation-log daemon")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=6789)
+    p.add_argument(
+        "--db", default=None,
+        help="journal file: acked mutations survive crashes and replay on start",
+    )
+    p.set_defaults(fn=cmd_db_manager)
 
     for verb in UNPORTED_VERBS:
         p = sub.add_parser(verb, help="not ported yet", add_help=False)

@@ -18,6 +18,13 @@ their parameters follows from the module tree alone.  A cell is
 holding the preprocessing modules and then the kept ops in node order,
 ``Dense_0``), so :func:`state_dict_from_flax` carries it across as well.
 
+Under the fused plan (``fused_convs=True``) a mixed op's four conv
+primitives are one ``FusedSepDil_0`` (``_MaskedDepthwise_0`` and ``_1``
+holding ``dw_<primitive>_0`` and ``dw_<primitive>_1``, then ``pw_0`` and
+``pw_1``), stacked on the edge axis like the rest, before the other
+primitives' modules; the port's ``MixedOp`` registers them in that order,
+so the same rule carries it across.
+
 The transformer LM (:func:`transformer_state_dict_from_flax`) follows the
 same rule with an explicit table, since its modules are named for reading.
 

@@ -1,7 +1,8 @@
 """Typed framework configuration — the KatibConfig equivalent (port of
-``katib_tpu/core/config.py``: the memory, sqlite and DB-API (``mysql``,
-``postgres``) stores are built; the ``native`` and remote backends and any
-mesh axes raise ``NotImplementedError`` until the port has them).
+``katib_tpu/core/config.py``: every store backend is built; ``native``
+builds the C++ runtime or raises where the JAX package falls back to a
+memory store; any mesh axes raise ``NotImplementedError`` until the port
+has them).
 
 The reference loads a single ``KatibConfig`` object (apiVersion
 ``config.kubeflow.org/v1beta1``) with an ``init`` section of controller flags
@@ -168,14 +169,16 @@ class StoreConfig:
             return SqliteObservationStore(self.path)
         if self.backend in ("mysql", "postgres"):
             return self._make_dbapi_store()
-        missing = {
-            "native": "the native observation store (katib_tpu/native/store.py)",
-            "remote": "the remote db-manager store (katib_tpu/native/dbmanager.py)",
-        }[self.backend]
-        raise NotImplementedError(
-            f"store.backend {self.backend!r} needs {missing}, which the port "
-            "does not have yet; use 'memory', 'sqlite', 'mysql' or 'postgres'"
-        )
+        if self.backend == "native":
+            # builds the C++ runtime or raises: the JAX package returns a
+            # memory store when it cannot build, the port never runs on a
+            # store other than the one asked for
+            from katib_tpu_torch.native.store import NativeObservationStore
+
+            return NativeObservationStore()
+        from katib_tpu_torch.native.dbmanager import RemoteObservationStore
+
+        return RemoteObservationStore(self.host, self.port)
 
     def _make_dbapi_store(self):
         """External-SQL store over the reference's observation_logs schema

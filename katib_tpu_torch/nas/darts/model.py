@@ -73,11 +73,12 @@ def _edge_groups(n_nodes: int, reduction: bool):
 
 class Cell(nn.Module):
     """One DARTS cell: nodes connected by mixed ops; output = channel-concat
-    of the intermediate nodes.  Each edge group is one mixed-op launch."""
+    of the intermediate nodes.  Each edge group is one mixed-op launch.
+    ``fused_convs``: every mixed op runs the fused plan (``fused.py``)."""
 
     def __init__(self, primitives: Sequence[str], in_pp: int, in_p: int, channels: int,
                  n_nodes: int = 4, reduction: bool = False, reduction_prev: bool = False,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, fused_convs: bool = False):
         super().__init__()
         self.n_nodes, self.reduction = n_nodes, reduction
         if reduction_prev:
@@ -87,7 +88,7 @@ class Cell(nn.Module):
         self.preprocess1 = ReluConvBn(in_p, channels, dtype=dtype)
         self.plan = _edge_groups(n_nodes, reduction)
         self.groups = nn.ModuleList(
-            EdgeGroup(count, primitives, channels, stride, dtype)
+            EdgeGroup(count, primitives, channels, stride, dtype, fused=fused_convs)
             for node_groups in self.plan
             for _, count, stride in node_groups
         )
@@ -154,7 +155,10 @@ def macro_layout(init_channels: int, num_layers: int, stem_multiplier: int, cell
 # convolution outputs of the cell's two preprocessing modules, and nothing
 # else.  (JAX also keeps, through its nested ``jit`` of ``jnp.var``, the
 # centred input of those convolutions' batch norms; the port recomputes its
-# batch norms.)
+# batch norms.)  The fused plan (``fused.py``) changes nothing here: its
+# pointwise is a product with a batch dimension (the branch), which
+# ``dots_with_no_batch_dims_saveable`` does not save, and it runs inside the
+# edge groups, outside ``_saveable_dots``, so it is recomputed as in JAX.
 
 _dots = threading.local()
 
@@ -191,19 +195,25 @@ class DartsNetwork(nn.Module):
     ``remat_policy="dots"`` keeps the outputs the JAX policy of that name
     keeps (:func:`dots_policy`) and recomputes the rest.  Neither reads the
     RNG state (DARTS draws no random number in a cell), so both capture in
-    a CUDA graph."""
+    a CUDA graph.
+
+    ``fused_convs=True`` evaluates the four depthwise-separable primitives
+    of every mixed op through the fused plan (``fused.py``); it changes the
+    parameter tree, so a snapshot of one plan does not restore into the
+    other."""
 
     def __init__(self, primitives: Sequence[str] = DEFAULT_PRIMITIVES, init_channels: int = 16,
                  num_layers: int = 8, n_nodes: int = 4, num_classes: int = 10,
                  stem_multiplier: int = 3, in_channels: int = 3, remat: bool = True,
-                 remat_policy: str | None = None, dtype: torch.dtype = torch.bfloat16):
+                 remat_policy: str | None = None, dtype: torch.dtype = torch.bfloat16,
+                 fused_convs: bool = False):
         super().__init__()
         # validated even with remat off, as the JAX network does
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(
                 f"unknown remat_policy {remat_policy!r}; expected 'dots' or None"
             )
-        self.remat, self.dtype = remat, dtype
+        self.remat, self.dtype, self.fused_convs = remat, dtype, fused_convs
         policy = REMAT_POLICIES[remat_policy]
         self._context_fn = (
             functools.partial(create_selective_checkpoint_contexts, policy)
@@ -213,7 +223,8 @@ class DartsNetwork(nn.Module):
                                           lambda c: n_nodes * c)
         self.stem = Conv(in_channels, c_cur, 3, dtype=dtype)
         self.cells = nn.ModuleList(
-            Cell(primitives, c_pp, c_p_in, c, n_nodes, reduction, reduction_prev, dtype)
+            Cell(primitives, c_pp, c_p_in, c, n_nodes, reduction, reduction_prev, dtype,
+                 fused_convs=fused_convs)
             for c_pp, c_p_in, c, reduction, reduction_prev in layers
         )
         self.classifier = Dense(c_p, num_classes, dtype=torch.float32)

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from katib_tpu_torch.nas.darts.fused import FUSED_PRIMITIVES, FusedSepDil
 from katib_tpu_torch.ops.depthwise import Conv, DepthwiseConv, PointwiseConv, pad_same
 from katib_tpu_torch.ops.mixed_op import mixed_op_sum
 
@@ -156,16 +157,32 @@ def build_op(name: str, channels: int, stride: int, dtype=torch.bfloat16) -> nn.
 
 
 class MixedOp(nn.Module):
-    """Continuous relaxation of one edge: softmax-weighted sum of primitives."""
+    """Continuous relaxation of one edge: softmax-weighted sum of primitives.
+
+    ``fused=True`` evaluates the four depthwise-separable primitives through
+    :class:`~katib_tpu_torch.nas.darts.fused.FusedSepDil` (2 masked depthwise
+    + 2 batched-pointwise launches instead of 6 + 6) when all four are in
+    the primitive set, as the JAX package does; the other primitives keep
+    their own modules.  Same math, another evaluation plan and another
+    parameter tree (``fused`` before ``ops``, as flax creates them)."""
 
     def __init__(self, primitives: Sequence[str], channels: int, stride: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, fused: bool = False):
         super().__init__()
-        self.ops = nn.ModuleList(build_op(p, channels, stride, dtype) for p in primitives)
+        self.primitives = tuple(primitives)
+        self.fused = None
+        if fused and set(FUSED_PRIMITIVES) <= set(self.primitives):
+            self.fused = FusedSepDil(channels, stride, dtype=dtype)
+        self.ops = nn.ModuleList(
+            build_op(p, channels, stride, dtype) for p in self.primitives
+            if self.fused is None or p not in FUSED_PRIMITIVES
+        )
 
     def branches(self, x) -> list[torch.Tensor]:
         """Every primitive's output on ``x``, in primitive order."""
-        return [op(x) for op in self.ops]
+        fused_outs = self.fused(x) if self.fused is not None else {}
+        ops = iter(self.ops)
+        return [fused_outs[p] if p in fused_outs else next(ops)(x) for p in self.primitives]
 
     def forward(self, x, weights):
         # weights: (n_ops,) softmax over this edge's alphas
@@ -178,13 +195,15 @@ class EdgeGroup(nn.Module):
     """The incoming edges of one node that share a stride: one MixedOp per
     edge (so batch-norm statistics stay per edge) and ONE kernel launch for
     the whole group, which returns the sum over its edges.  The JAX cell
-    runs the same group as one ``nn.vmap``-ed MixedOp."""
+    runs the same group as one ``nn.vmap``-ed MixedOp.  ``fused``: each
+    edge's mixed op runs the fused plan; the group still makes one
+    launch."""
 
     def __init__(self, n_edges: int, primitives: Sequence[str], channels: int, stride: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, fused: bool = False):
         super().__init__()
         self.edges = nn.ModuleList(
-            MixedOp(primitives, channels, stride, dtype) for _ in range(n_edges)
+            MixedOp(primitives, channels, stride, dtype, fused=fused) for _ in range(n_edges)
         )
 
     def forward(self, states: Sequence[torch.Tensor], w_rows: torch.Tensor) -> torch.Tensor:

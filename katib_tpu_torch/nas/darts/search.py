@@ -17,7 +17,14 @@ environment variable, then default):
   losses stay on the device and are fetched once per epoch;
 - **eager stepping** (``step_loop=False`` or ``KATIB_STEP_LOOP=0``): one
   Python call of the bilevel step per batch, each history row carrying its
-  steps' metrics; ``KATIB_DEVICE_DATA=0`` gathers these batches on the host.
+  steps' metrics; ``KATIB_DEVICE_DATA=0`` gathers these batches on the host,
+  and native prefetch (``native_prefetch=True`` or ``KATIB_NATIVE_LOADER=1``)
+  has two C++ loaders (``native/dataloader.py``) gather them on worker
+  threads while the card steps.  A loader that cannot start raises; the
+  JAX package warns and gathers in Python instead.
+
+``fused=True`` (the trial setting ``fused``) runs the fused mixed-op plan
+(``fused.py``); a snapshot of the other plan raises instead of restoring.
 
 With a checkpoint dir the state is saved after every epoch and a restarted
 search resumes at the newest snapshot that verifies, its history, best
@@ -34,9 +41,12 @@ captured the step's graph also carries ``graph_capture_s`` in its span.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import shutil
+import tempfile
 import time
 from typing import Any, Callable
 
@@ -110,6 +120,19 @@ def _write_search_meta(checkpoint_dir: str, meta: dict) -> None:
     atomic_replace(os.path.join(checkpoint_dir, SEARCH_META), json.dumps(meta).encode())
 
 
+def check_plan(checkpoint_dir: str, fused: bool) -> None:
+    """Raise when the search snapshot under ``checkpoint_dir`` was written
+    by the other mixed-op plan (``search_meta.json``'s ``fused``, False when
+    absent): its parameter tree cannot restore into this network."""
+    meta = read_search_meta(checkpoint_dir)
+    if meta is not None and bool(meta.get("fused", False)) != bool(fused):
+        plans = {True: "the fused mixed-op plan", False: "the unfused plan"}
+        raise ValueError(
+            f"the search snapshot in {checkpoint_dir} was written by {plans[not fused]}; "
+            f"this search runs {plans[bool(fused)]}, whose parameter tree differs"
+        )
+
+
 @dataclasses.dataclass
 class Resumed:
     """Where a restarted search continues: the first epoch to run, the
@@ -140,6 +163,8 @@ def search_epochs(
     checkpointer: TrialCheckpointer | None = None,
     resumed: Resumed | None = None,
     timings: dict | None = None,
+    loaders: tuple | None = None,
+    split: tuple | None = None,
 ) -> tuple[SearchState, list[dict]]:
     """The epoch loop from ``state``: returns the final state and the
     history, one row per epoch (after ``resumed.history``, when resuming).
@@ -155,8 +180,14 @@ def search_epochs(
     ``step_times``, when given, receives each step's wall seconds, measured
     to the device's completion of the step.  ``checkpointer``: save the
     state after each epoch, before the report, with ``search_meta.json``
-    beside it.  ``timings`` receives ``graph_capture_s`` under the step
-    loop on the card."""
+    beside it (recording ``net``'s mixed-op plan).  ``timings`` receives
+    ``graph_capture_s`` under the step loop on the card.  ``loaders``: the
+    w- and alpha-split :class:`~katib_tpu_torch.native.NativeBatchLoader`
+    feeding the eager steps (with ``device_data=False``), one epoch of each
+    per epoch, in lockstep; ``timings`` then receives ``loader_wait_s``,
+    the seconds spent waiting for their batches.  ``split``: the
+    :func:`split_train` of ``dataset`` and ``seed``, when the caller has
+    it already."""
 
     def loss_fn(w, a, batch):
         x, y = batch
@@ -165,7 +196,7 @@ def search_epochs(
     resumed = resumed or Resumed()
     search_step = make_search_step(loss_fn, hyper)
     aug_key = seed + KEY_OFFSET
-    (x_w, y_w), (x_a, y_a) = split_train(dataset, seed)
+    (x_w, y_w), (x_a, y_a) = split if split is not None else split_train(dataset, seed)
     splits = tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
                    for t in (x_w, y_w, x_a, y_a)) if device_data else None
     ne = min(len(dataset.x_test), EVAL_IMAGES)
@@ -208,9 +239,17 @@ def search_epochs(
                 timings["graph_capture_s"] = loop.capture_s
         else:
             step_metrics = []
+            pairs = zip(loaders[0].epoch(), loaders[1].epoch()) if loaders else None
             for i in range(steps):
                 t_step = time.perf_counter()
-                if splits is not None:
+                if pairs is not None:  # gathered by the C++ loaders' threads
+                    batches = next(pairs)
+                    if timings is not None:
+                        timings["loader_wait_s"] = (timings.get("loader_wait_s", 0.0)
+                                                    + time.perf_counter() - t_step)
+                    train, val = (tuple(torch.from_numpy(t).to(device) for t in pair)
+                                  for pair in batches)
+                elif splits is not None:
                     wi = torch.from_numpy(w_ix[i]).to(device)
                     ai = torch.from_numpy(a_ix[i]).to(device)
                     train = (splits[0][wi], splits[1][wi])
@@ -278,6 +317,7 @@ def search_epochs(
             checkpointer.save(host_state, epoch + 1)
             t_mark = _trace("ckpt-save", t_mark)
             _write_search_meta(checkpointer.directory, {
+                "fused": net.fused_convs,
                 "epochs_completed": epoch + 1,
                 "best_accuracy": best_acc,
                 "history": [{k: v for k, v in h.items() if k != "steps"} for h in history],
@@ -304,9 +344,9 @@ def resolve_step_loop(
 
     An explicit step loop that cannot engage (splits not on the device, or
     a split smaller than one batch) raises :class:`StepLoopUnavailable`; a
-    default one quietly steps eagerly.  A native prefetch that would engage
-    (requested, with the splits off the device) raises
-    ``NotImplementedError``: the C++ loader is not ported."""
+    default one quietly steps eagerly.  A native-prefetch request turns the
+    device-data default off; whether its loaders engage is
+    :func:`resolve_native_prefetch`."""
     prefetch_requested = native_prefetch is True or parse_bool(
         os.environ.get("KATIB_NATIVE_LOADER"))
     env_sl = os.environ.get("KATIB_STEP_LOOP")
@@ -316,16 +356,14 @@ def resolve_step_loop(
     env_dd = os.environ.get("KATIB_DEVICE_DATA")
     if device_data is None:
         device_data = not prefetch_requested if env_dd is None else parse_bool(env_dd)
-    if prefetch_requested and not device_data:
-        raise NotImplementedError(
-            "native prefetch (native_prefetch=True or KATIB_NATIVE_LOADER=1) asks for the C++ "
-            "batch loader (katib_tpu/native), not ported yet"
-        )
     if step_loop and (not device_data or steps < 1):
         reasons = []
+        if prefetch_requested:
+            reasons.append(
+                "native prefetch was requested (it disables the device-resident data default)")
         if env_dd is not None and not parse_bool(env_dd):
             reasons.append("KATIB_DEVICE_DATA=0 disables the device-data path")
-        elif not device_data:
+        elif not device_data and not reasons:
             reasons.append("device_data=False was passed")
         if steps < 1:
             reasons.append("the train split is smaller than one batch")
@@ -344,6 +382,46 @@ def resolve_step_loop(
         )
     window = steps if step_loop_window is None else max(1, min(step_loop_window, steps))
     return step_loop, window, device_data
+
+
+def resolve_native_prefetch(native_prefetch: bool | None, device_data: bool) -> bool:
+    """Whether the C++ loaders feed the steps, as the JAX package decides it
+    (``katib_tpu/nas/darts/search.py:478-482``): the parameter, else
+    ``KATIB_NATIVE_LOADER`` set to anything but ``""`` and ``"0"``; moot
+    with the splits on the device."""
+    if native_prefetch is None:
+        native_prefetch = os.environ.get("KATIB_NATIVE_LOADER", "") not in ("", "0")
+    return bool(native_prefetch) and not device_data
+
+
+@contextlib.contextmanager
+def native_loaders(split, *, batch_size: int, seed: int, start_epoch: int):
+    """The two C++ loaders of native prefetch, over packed copies of
+    ``split`` (:func:`split_train`'s) in a temporary directory that is
+    removed with them.  The
+    alpha-split is cut to the w-split's length (it can be one longer), so
+    the two streams keep their epochs in lockstep; the w-loader is seeded
+    with ``seed``, the alpha-loader with ``seed + 1``; both open at
+    ``start_epoch``.  Raises if either cannot start."""
+    from katib_tpu_torch.native.dataloader import NativeBatchLoader
+
+    (x_w, y_w), (x_a, y_a) = split
+    cache_dir = tempfile.mkdtemp(prefix="darts-loader-")
+    n_sync = len(x_w)
+    built: list = []
+    try:
+        for xs, ys, sd, name in ((x_w, y_w, seed, "w.bin"),
+                                 (x_a[:n_sync], y_a[:n_sync], seed + 1, "a.bin")):
+            built.append(NativeBatchLoader(xs, ys, batch=batch_size, seed=sd,
+                                           cache_path=os.path.join(cache_dir, name),
+                                           start_epoch=start_epoch))
+        yield tuple(built)
+    finally:
+        # an exception mid-epoch must not leak the worker threads, the
+        # mapping or a dataset-sized directory
+        for loader in built:
+            loader.close()
+        shutil.rmtree(cache_dir, ignore_errors=True)
 
 
 def check_scan_unroll(scan_unroll: int | None) -> None:
@@ -387,6 +465,7 @@ def run_darts_search(
     step_times: list | None = None,
     timings: dict | None = None,
     scan_unroll: int | None = None,
+    fused: bool = False,
 ) -> dict[str, Any]:
     """Run the bilevel architecture search; returns genotype + final metrics.
 
@@ -394,8 +473,9 @@ def run_darts_search(
     raises when CUDA is asked for and absent).  Weights and alphas are drawn
     from a ``torch.Generator`` seeded with ``seed``.  The step-loop,
     device-data and native-prefetch settings resolve as in
-    :func:`resolve_step_loop`; ``search_augment`` (else ``KATIB_SEARCH_AUG``)
-    picks ``augment_fn`` = :func:`~katib_tpu_torch.models.augmentation.random_crop_flip`.
+    :func:`resolve_step_loop` and :func:`resolve_native_prefetch`;
+    ``fused``: the fused mixed-op plan (``fused.py``); ``search_augment``
+    (else ``KATIB_SEARCH_AUG``) picks ``augment_fn`` = :func:`~katib_tpu_torch.models.augmentation.random_crop_flip`.
     ``checkpoint_dir``: snapshot every epoch and resume from it.
     ``step_times`` and ``timings``: see :func:`search_epochs`.
     ``scan_unroll`` (else ``KATIB_SCAN_UNROLL``): see :func:`check_scan_unroll`."""
@@ -411,6 +491,7 @@ def run_darts_search(
         in_channels=dataset.input_shape[-1],
         remat=remat,
         remat_policy=remat_policy,
+        fused_convs=fused,
     )
     gen = torch.Generator().manual_seed(seed)
     net.reset_parameters(gen)
@@ -435,6 +516,7 @@ def run_darts_search(
 
     checkpointer, resumed = None, Resumed()
     if checkpoint_dir is not None:
+        check_plan(checkpoint_dir, fused)
         checkpointer = TrialCheckpointer(checkpoint_dir, max_to_keep=2)
         items = state_items(state)
         restored = checkpointer.restore(template=dict(items))
@@ -450,12 +532,19 @@ def run_darts_search(
                 resumed.best_accuracy = float(meta.get("best_accuracy", 0.0))
                 resumed.elapsed_s = float(meta.get("elapsed_s", 0.0))
 
-    state, history = search_epochs(
-        net, state, dataset, hyper=hyper, num_epochs=num_epochs, batch_size=batch_size,
-        seed=seed, device=dev, report=report, step_times=step_times, step_loop=step_loop,
-        window=window, device_data=device_data, augment_fn=augment_fn,
-        checkpointer=checkpointer, resumed=resumed, timings=timings,
-    )
+    split = split_train(dataset, seed)
+    # a resumed run's loaders open at its epoch: the (seed, epoch) shuffle of
+    # the uninterrupted run, not a replay of epoch 0
+    with (native_loaders(split, batch_size=batch_size, seed=seed, start_epoch=resumed.start_epoch)
+          if resolve_native_prefetch(native_prefetch, device_data)
+          else contextlib.nullcontext()) as loaders:
+        state, history = search_epochs(
+            net, state, dataset, hyper=hyper, num_epochs=num_epochs, batch_size=batch_size,
+            seed=seed, device=dev, report=report, step_times=step_times, step_loop=step_loop,
+            window=window, device_data=device_data, augment_fn=augment_fn,
+            checkpointer=checkpointer, resumed=resumed, timings=timings, loaders=loaders,
+            split=split,
+        )
     alphas = Alphas(*(a.cpu() for a in state.alphas))
     return {
         "genotype": extract_genotype(alphas, primitives, n_nodes=n_nodes),
@@ -463,16 +552,6 @@ def run_darts_search(
         "history": history,
         "alphas": alphas,
     }
-
-
-def _reject_unported(settings: dict) -> None:
-    """Raise for settings that ask for parts of the JAX trial not ported yet
-    (ROADMAP.md): never run without what was asked for."""
-    if parse_bool(settings.get("fused")):
-        raise NotImplementedError(
-            f"setting fused={settings['fused']!r} asks for the fused mixed-op plan "
-            "(nas/darts/fused.py), not ported yet"
-        )
 
 
 def darts_trial(ctx) -> None:
@@ -489,7 +568,6 @@ def darts_trial(ctx) -> None:
     settings = json.loads(ctx.params.get("algorithm-settings", "{}"))
     primitives = tuple(json.loads(ctx.params.get("search-space", "null")) or DEFAULT_PRIMITIVES)
     num_layers = int(ctx.params.get("num-layers", 8))
-    _reject_unported(settings)
     if ctx.mesh is not None:
         raise NotImplementedError("a trial mesh asks for the sharded search step, not ported yet")
 
@@ -539,6 +617,8 @@ def darts_trial(ctx) -> None:
         batch_size=batch_size,
         hyper=hyper,
         report=report,
+        # the fused mixed-op evaluation plan (fused.py)
+        fused=parse_bool(settings.get("fused")),
         step_loop=parse_bool(settings["step_loop"]) if "step_loop" in settings else None,
         step_loop_window=int(raw_window) if raw_window is not None else None,
         remat=parse_bool(settings.get("remat"), default=True),

@@ -21,6 +21,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import threading
 import time
 from datetime import datetime
 from typing import Sequence
@@ -125,16 +126,42 @@ def parse_json_lines(
     return out
 
 
+_native_parser = None
+_native_checked = False
+_native_lock = threading.Lock()
+
+
+def text_parser() -> str:
+    """Which parser :func:`parse_text_lines_fast` runs for the default
+    filter: ``"native"`` when the C++ runtime is built (building it if
+    needed), else ``"python"``."""
+    global _native_parser, _native_checked
+    with _native_lock:
+        if not _native_checked:
+            _native_checked = True
+            from katib_tpu_torch.native.build import native_available
+
+            if native_available():
+                from katib_tpu_torch.native.store import parse_text_lines_native
+
+                _native_parser = parse_text_lines_native
+    return "python" if _native_parser is None else "native"
+
+
 def parse_text_lines_fast(
     lines: Sequence[str],
     metric_names: Sequence[str],
     filters: Sequence[str] = (),
 ) -> list[MetricLog]:
-    """``parse_text_lines`` under the JAX package's name for its C++ fast
-    path.  The port has no native parser yet (``katib_tpu/native``), so
-    every filter goes through the Python parser, which gives the same
-    result."""
-    return parse_text_lines(lines, metric_names, filters)
+    """``parse_text_lines`` with the C++ fast path, as the JAX package
+    chooses it: the native parser for the default filter when the runtime
+    builds, the Python parser otherwise and for custom regex filters (both
+    give the same result)."""
+    if filters:
+        return parse_text_lines(lines, metric_names, filters)
+    if text_parser() == "native":
+        return _native_parser(lines, metric_names)
+    return parse_text_lines(lines, metric_names)
 
 
 _PROM_SAMPLE = re.compile(

@@ -222,8 +222,40 @@ def serve_healthz(*args: str) -> tuple[str, int, dict]:
         proc.wait(timeout=30)
 
 
-@pytest.mark.parametrize("verb", UNPORTED_VERBS + ("prewarm", "cache", "suggest-server"))
+def db_manager_round_trip(tmp_path) -> tuple[str, int]:
+    """Start ``python -m katib_tpu_torch db-manager --port 0 --db <journal>``
+    in a fresh interpreter, report and read back through a remote store,
+    stop it with SIGTERM; returns its first line and its exit code."""
+    from katib_tpu_torch.native.dbmanager import RemoteObservationStore
+
+    journal = str(tmp_path / "obs.journal")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "katib_tpu_torch", "db-manager", "--port", "0", "--db", journal],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    try:
+        line = proc.stdout.readline().strip()
+        assert line.startswith("katib-tpu db-manager: 127.0.0.1:"), line + proc.stdout.read()
+        store = RemoteObservationStore("127.0.0.1", int(line.split()[2].split(":")[1]))
+        store.report_point("t", "loss", 0.25, step=1)
+        assert [(m.value, m.step) for m in store.get("t", "loss")] == [(0.25, 1)]
+        store.close()
+        proc.send_signal(signal.SIGTERM)
+        return line, proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+@pytest.mark.parametrize("verb", UNPORTED_VERBS + ("prewarm", "cache", "suggest-server",
+                                                   "db-manager"))
 def test_unported_verbs_raise(verb, tmp_path, capsys, fresh_compile_state):
+    if verb == "db-manager":  # ported: a journaled round trip, SIGTERM exits 0
+        line, rc = db_manager_round_trip(tmp_path)
+        assert line.endswith(f"(journal: {tmp_path / 'obs.journal'})") and rc == 0
+        assert os.path.getsize(tmp_path / "obs.journal") > 0
+        return
     if verb == "suggest-server":  # ported: it serves /healthz, on the CPU as asked
         line, status, reply = serve_healthz("--device", "cpu")
         assert line.startswith("katib-tpu suggestion service: http://127.0.0.1:")

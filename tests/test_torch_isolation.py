@@ -268,6 +268,77 @@ def test_suggestion_service_and_composer_child_run_with_jax_and_katib_tpu_blocke
     assert out.stdout.strip().endswith("ok")
 
 
+def test_native_runtime_and_db_manager_child_run_with_jax_and_katib_tpu_blocked(tmp_path):
+    """The native runtime built from a tree that holds ``katib_tpu_torch``
+    and nothing of the JAX package (so its build reads no file under
+    ``katib_tpu/``), every compiler argument inside that tree; then the
+    native store, the C++ parser behind ``parse_text_lines_fast``, a loader
+    epoch, and a ``db-manager`` child (JAX and the JAX package blocked in it
+    through a ``sitecustomize``) serving a remote store, with JAX and the
+    JAX package unimportable in this process too."""
+    import shutil
+
+    tree = tmp_path / "tree"
+    shutil.copytree(PACKAGE, tree / "katib_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    blocker = tmp_path / "blocker"
+    blocker.mkdir()
+    (blocker / "sitecustomize.py").write_text(
+        f"import sys\nfor name in {BANNED!r}:\n    sys.modules[name] = None\n")
+    script = textwrap.dedent(f"""
+        import sys
+        for name in {BANNED!r}:
+            assert sys.modules.get(name, 0) is None, name
+        import os, subprocess, tempfile
+        import numpy as np
+        argvs = []
+        real_popen = subprocess.Popen
+        def recording(cmd, *a, **k):
+            argvs.append(list(map(str, cmd)))
+            return real_popen(cmd, *a, **k)
+        subprocess.Popen = recording
+        from katib_tpu_torch.native import build
+        assert not build.BUILD_DIR.exists(), build.BUILD_DIR
+        assert build.build() == {{"libkatibnative.so": True, "katib-db-manager": True}}
+        compiles = [a for a in argvs if a[0].endswith("g++")]
+        assert len(compiles) == 2, argvs
+        for arg in (x for a in compiles for x in a[1:]):
+            assert not arg.startswith("/") or arg.startswith({str(tree)!r}), arg
+        from katib_tpu_torch.native import NativeBatchLoader, NativeObservationStore
+        from katib_tpu_torch.runner.metrics import parse_text_lines_fast, text_parser
+        store = NativeObservationStore()
+        store.report_point("t", "loss", 0.5)
+        assert [m.value for m in store.get("t")] == [0.5]
+        assert text_parser() == "native"
+        assert [m.value for m in parse_text_lines_fast(["loss=0.25"], ["loss"])] == [0.25]
+        x = np.arange(48, dtype=np.float32).reshape(12, 2, 2)
+        with NativeBatchLoader(x, np.arange(12, dtype=np.int32), batch=4, seed=1,
+                               cache_path=os.path.join(tempfile.mkdtemp(), "d.bin")) as dl:
+            assert sorted(int(v) for _, y in dl.epoch() for v in y) == list(range(12))
+        child = real_popen([sys.executable, "-m", "katib_tpu_torch", "db-manager", "--port", "0"],
+                           stdout=subprocess.PIPE, text=True)
+        line = child.stdout.readline()
+        assert line.startswith("katib-tpu db-manager: 127.0.0.1:"), line
+        from katib_tpu_torch.core.config import KatibConfig
+        remote = KatibConfig.from_dict({{"store": {{"backend": "remote", "host": "127.0.0.1",
+            "port": int(line.split()[2].split(":")[1])}}}}).store.make_store()
+        remote.report_point("t", "acc", 0.75, step=2)
+        assert [(m.value, m.step) for m in remote.get("t", "acc")] == [(0.75, 2)]
+        remote.close()
+        child.terminate()
+        assert child.wait(timeout=30) == 0
+        leaked = sorted(n for n in sys.modules if n.split(".")[0] in {BANNED!r} and sys.modules[n])
+        assert not leaked, leaked
+        print("ok")
+    """)
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=tree, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": f"{blocker}{os.pathsep}{tree}", "OMP_NUM_THREADS": "1"},
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_cuda_is_refused_where_there_is_none(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for asked in (None, "cuda", "cuda:0", torch.device("cuda")):

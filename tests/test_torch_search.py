@@ -38,6 +38,7 @@ from katib_tpu_torch.models import data as tdata
 from katib_tpu_torch.nas.darts import service as tservice
 from katib_tpu_torch.nas.darts.architect import DartsHyper, init_search_state
 from katib_tpu_torch.nas.darts.model import DartsNetwork, extract_genotype
+from katib_tpu_torch.nas.darts.ops import DEFAULT_PRIMITIVES
 from katib_tpu_torch.nas.darts.search import darts_trial, search_epochs
 from katib_tpu_torch.runner.context import TrialContext
 
@@ -185,8 +186,17 @@ def test_darts_trial_stops_when_report_says_so(tmp_path):
 
 @pytest.mark.parametrize("setting", [{"fused": "true"}])
 def test_unported_settings_raise(tmp_path, setting):
-    with pytest.raises(NotImplementedError, match="fused"):
-        darts_trial(_ctx(tmp_path, {**SMALL, **setting}))
+    """Ported since the fused plan landed: ``fused`` runs the trial on the
+    fused mixed ops (all 8 primitives, so the four conv primitives fuse),
+    and its snapshot records the plan."""
+    params = {"algorithm-settings": json.dumps({**SMALL, **setting}),
+              "search-space": json.dumps(list(DEFAULT_PRIMITIVES)), "num-layers": "3"}
+    ctx = TrialContext(params, checkpoint_dir=str(tmp_path / "trial"), device="cpu")
+    darts_trial(ctx)
+    assert [step for step, _ in ctx.reports] == [0, 1]
+    assert all(np.isfinite(m["loss"]) for _, m in ctx.reports)
+    with open(tmp_path / "trial" / "search" / "search_meta.json") as f:
+        assert json.load(f)["fused"] is True
 
 
 def test_trial_mesh_raises(tmp_path):

@@ -171,9 +171,21 @@ def test_config_builds_the_memory_and_sqlite_stores(tmp_path):
 
 @pytest.mark.parametrize("backend", ["native", "remote"])
 def test_config_refuses_the_stores_the_port_lacks(backend):
-    cfg = KatibConfig.from_dict({"store": {"backend": backend}})
-    with pytest.raises(NotImplementedError, match=backend):
-        cfg.store.make_store()
+    """Ported since the native runtime landed: ``native`` builds the C++
+    store (or raises), ``remote`` a db-manager client of ``host:port``."""
+    from katib_tpu_torch.native.dbmanager import RemoteObservationStore
+    from katib_tpu_torch.native.store import NativeObservationStore
+
+    cfg = KatibConfig.from_dict({"store": {"backend": backend, "host": "127.0.0.2",
+                                           "port": 6790}})
+    store = cfg.store.make_store()
+    if backend == "native":
+        assert isinstance(store, NativeObservationStore)
+        store.report_point("t", "loss", 0.5)
+        assert [m.value for m in store.get("t")] == [0.5]
+    else:
+        assert isinstance(store, RemoteObservationStore)
+        assert (store.host, store.port) == ("127.0.0.2", 6790)
 
 
 def test_config_loads_as_in_the_jax_package(tmp_path):

@@ -183,6 +183,10 @@ def test_host_gathered_batches_give_the_same_steps():
     ({"KATIB_DEVICE_DATA": "0", "KATIB_STEP_LOOP": "0"}, {}, (False, 8, False)),
     ({}, {"device_data": False}, (False, 8, False)),
     ({"KATIB_NATIVE_LOADER": "1"}, {"device_data": True}, (True, 8, True)),
+    # native prefetch turns the device-data default off; the default step
+    # loop then quietly steps eagerly, on the C++ loaders
+    ({"KATIB_NATIVE_LOADER": "1"}, {}, (False, 8, False)),
+    ({}, {"native_prefetch": True}, (False, 8, False)),
     ({}, {"steps": 0}, (False, 0, True)),
 ])
 def test_settings_resolve_as_in_jax(monkeypatch, env, kwargs, want):
@@ -201,8 +205,10 @@ def test_settings_resolve_as_in_jax(monkeypatch, env, kwargs, want):
     ({}, {"step_loop": True, "steps": 0}, StepLoopUnavailable, "smaller than one batch"),
     ({}, {"step_loop_window": 0}, ValueError, "positive"),
     ({"KATIB_STEP_LOOP_WINDOW": "-2"}, {}, ValueError, "positive"),
-    ({}, {"native_prefetch": True}, NotImplementedError, "C\\+\\+ batch loader"),
-    ({"KATIB_NATIVE_LOADER": "1"}, {}, NotImplementedError, "C\\+\\+ batch loader"),
+    ({}, {"native_prefetch": True, "step_loop": True}, StepLoopUnavailable,
+     "native prefetch was requested"),
+    ({"KATIB_NATIVE_LOADER": "1", "KATIB_STEP_LOOP": "1"}, {}, StepLoopUnavailable,
+     "native prefetch was requested"),
 ])
 def test_settings_that_cannot_engage_raise(monkeypatch, env, kwargs, error, match):
     for name, value in env.items():
@@ -212,6 +218,25 @@ def test_settings_that_cannot_engage_raise(monkeypatch, env, kwargs, error, matc
     args.update(kwargs)
     with pytest.raises(error, match=match):
         resolve_step_loop(**args)
+
+
+@pytest.mark.parametrize("env,native_prefetch,device_data,want", [
+    (None, None, False, False),
+    ("1", None, False, True),
+    ("0", None, False, False),
+    ("", None, False, False),
+    # the JAX rule: any value but "" and "0" asks for the loaders
+    ("false", None, False, True),
+    ("1", False, False, False),
+    (None, True, False, True),
+    (None, True, True, False),  # moot with the splits on the device
+])
+def test_native_prefetch_engages_as_in_jax(monkeypatch, env, native_prefetch, device_data, want):
+    if env is None:
+        monkeypatch.delenv("KATIB_NATIVE_LOADER", raising=False)
+    else:
+        monkeypatch.setenv("KATIB_NATIVE_LOADER", env)
+    assert tsearch.resolve_native_prefetch(native_prefetch, device_data) is want
 
 
 def test_search_augment_env_engages_crop_and_flip(monkeypatch):
