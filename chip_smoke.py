@@ -160,11 +160,33 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    4-trial random copy of ``katib_tpu_torch/specs/hyperband-mnist.yaml``
    with ``store: remote`` and the same copy with ``store: native``; the
    daemon killed by SIGKILL, restarted on its journal, and ``metrics``
-   reading back every row.
+   reading back every row;
+28. ``mesh:`` the mesh path (``katib_tpu_torch/parallel/``): the route
+   (``torch.cuda.device_count()``; replicas sharing ``cuda:0`` on one card,
+   distinct cards where there are four; with two or more cards
+   ``dryrun_multigpu(2)`` on the distinct-card route, with one
+   ``dryrun_multigpu(4)`` on ``cuda:0`` and the CPU in turns, the same
+   route with host copies), then
+   ``dryrun_multigpu(4)`` on a grid named explicitly (the mixed-op kernel
+   launched in every replica); ``darts.yaml`` at the search width cut to
+   384 training images and one epoch (3 eager steps) through
+   ``Orchestrator.run`` with ``init.mesh_axes`` ``{data: 2}`` against the
+   same trial unsharded, every step's train loss within the stated bf16
+   tolerance, 190 mixed-op launches per replica-step; ``transformer_trial``
+   at the long-context width on ``{seq: 4}``, ring then Ulysses, 3 steps
+   each, against the unsharded trial, flash launches as predicted; one
+   small ring step's q/k/v gradients, kernels against the plain inner.
+   Its seconds were cut from the preflights of the resumed ``cli:`` run,
+   ``hyperband:`` and ``enas cli:`` (``cli:`` and ``blackbox:`` still gate
+   on the preflight).
 
 Every run of the async engine prints its ``async_stats`` (a CLI run prints
 them on its ``async engine:`` line) and fails the script if a loop
 restarted or the engine fell back to the synchronous loop.
+
+The ``kernels`` line gives each kernel's launches on the main path
+(``launches``) and on the mesh paths (``mesh_launches``: the sharded DARTS
+run; the ring and Ulysses runs).
 
 Its last three lines are the ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -781,8 +803,9 @@ ORCH_SETTINGS = {
 SUCCESS = ("Succeeded", "MaxTrialsReached", "GoalReached")
 
 
-def search_width_spec():
-    """``darts.yaml`` through the SDK entry with the search width set."""
+def search_width_spec(extra: dict | None = None):
+    """``darts.yaml`` through the SDK entry with the search width set (and
+    ``extra`` algorithm settings)."""
     import yaml
 
     from katib_tpu_torch.sdk.yaml_spec import experiment_spec_from_dict
@@ -790,9 +813,10 @@ def search_width_spec():
     with open(DARTS_YAML) as f:
         doc = yaml.safe_load(f)
     algo = doc["spec"]["algorithm"]
+    settings = {**ORCH_SETTINGS, **(extra or {})}
     algo["algorithmSettings"] = [s for s in algo["algorithmSettings"]
-                                 if s["name"] not in ORCH_SETTINGS]
-    algo["algorithmSettings"] += [{"name": k, "value": v} for k, v in ORCH_SETTINGS.items()]
+                                 if s["name"] not in settings]
+    algo["algorithmSettings"] += [{"name": k, "value": v} for k, v in settings.items()]
     doc["spec"]["nasConfig"]["graphConfig"]["numLayers"] = ORCH_LAYERS
     return experiment_spec_from_dict(doc)
 
@@ -996,7 +1020,9 @@ def phase_cli() -> None:
     # trial share the card, and the two walls overlap
     doctor_log = os.path.join(workdir, "doctor.log")
     doctor = _cli("doctor", log=doctor_log)
-    rc, out = _wait(_cli(*run, "--resume", log=log), log, 600)
+    # the preflight ran in the drained run: the resumed run skips it (cut for
+    # the mesh phase's seconds)
+    rc, out = _wait(_cli(*run, "--resume", "--no-preflight", log=log), log, 600)
     resume_wall = time.perf_counter() - t0
     status = read_status(workdir, name)
     lines = [ln for ln in out.splitlines() if ln.startswith(("experiment ", "optimal trial "))]
@@ -1221,8 +1247,10 @@ def hyperband_run(engine: bool) -> tuple[float, dict]:
     workdir = tempfile.mkdtemp(prefix="chip-smoke-hyperband-")
     name, log = "hyperband-mnist", os.path.join(workdir, "run.log")
     t0 = time.perf_counter()
-    rc, out = _wait(_cli("run", HYPERBAND_YAML, "--workdir", workdir, log=log,
-                         env={"KATIB_ASYNC_ORCH": "1" if engine else "0"}), log, 600)
+    # --no-preflight: the cli: and blackbox: runs gate on the preflight (cut
+    # for the mesh phase's seconds)
+    rc, out = _wait(_cli("run", HYPERBAND_YAML, "--workdir", workdir, "--no-preflight",
+                         log=log, env={"KATIB_ASYNC_ORCH": "1" if engine else "0"}), log, 600)
     wall = time.perf_counter() - t0
     check(rc == 0, f"the Hyperband run exited {rc}:\n{out[-3000:]}")
     status = read_status(workdir, name)
@@ -1834,7 +1862,10 @@ def phase_enas_cli() -> None:
     workdir = tempfile.mkdtemp(prefix="chip-smoke-enas-cli-")
     name, log = "enas-example", os.path.join(workdir, "run.log")
     t0 = time.perf_counter()
-    rc, out = _wait(_cli("run", ENAS_YAML, "--workdir", workdir, log=log), log, 600)
+    # --no-preflight: cut for the mesh phase's seconds (cli: and blackbox:
+    # gate on the preflight)
+    rc, out = _wait(_cli("run", ENAS_YAML, "--workdir", workdir, "--no-preflight", log=log),
+                    log, 600)
     wall = time.perf_counter() - t0
     check(rc == 0, f"the ENAS run exited {rc}:\n{out[-3000:]}")
     status = read_status(workdir, name)
@@ -3160,6 +3191,221 @@ def phase_native(torch, mixed_op) -> None:
     check(rc_stop == 0, f"native: db-manager exited {rc_stop} on SIGTERM")
 
 
+# the mesh path: a sharded step's train loss against the unsharded step's,
+# both eager in bf16 from the same seed and batches.  The replicas' batch norm
+# reduces its statistics in another order than cuDNN's; that difference
+# grows step by step (`python3 -m katib_tpu_torch.nas.darts.mesh_drift` on an
+# H100: in bf16 the sharded pair drifts as far as an unsharded run on
+# permuted rows, 1.8e-3 by step 3, 1.2e-2 by step 16; in float32 within 2.3x
+# of the same control; PERF.md, the mesh path).  This trial drifted 3.1e-3
+# over 3 steps, 2.3e-2 by step 6 and 4.9e-2 by step 16 on the same card, so
+# past a few steps bf16 noise reaches any bound that would still catch a
+# defect: 3 steps, 1e-2.
+MESH_LOSS_RTOL = 1e-2
+# the sharded DARTS trial's depth: one epoch of 3 steps (384 training
+# images at batch 64); its eager sharded steps take about 6.7 s each on one card
+MESH_DARTS = {"n_train": "384", "num_epochs": "1"}
+MESH_EVAL_RTOL = 2e-2
+MESH_LM_STEPS = 3
+# one ring step's q/k/v gradients, bf16 kernels against the ring over the
+# plain inner: the largest error within 2e-2 of the largest gradient
+MESH_GRAD_RTOL = 2e-2
+
+
+def _mesh_darts_run(torch, mixed_op, spec, orch_kw: dict, label: str, gpus=None) -> dict:
+    """One ``Orchestrator.run`` of the search-width spec, each bilevel step
+    recorded (train loss, wall to the step's completion on the card).
+    ``gpus``: the devices a config mesh takes in place of the visible GPUs
+    (a list that repeats ``cuda:0`` on one card)."""
+    from katib_tpu_torch.nas.darts import search as dsearch
+    from katib_tpu_torch.parallel import mesh as pmesh
+    from katib_tpu_torch.orchestrator import Orchestrator
+    from katib_tpu_torch.orchestrator.fsck import fsck_experiment
+    from katib_tpu_torch.store.base import MemoryObservationStore
+
+    losses, walls = [], []
+    real = dsearch.make_search_step
+
+    def recording(loss_fn, hyper, mesh=None):
+        step = real(loss_fn, hyper, mesh)
+
+        def run(state, train, val):
+            t0 = time.perf_counter()
+            state, metrics = step(state, train, val)
+            torch.cuda.current_stream().synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(metrics["train_loss"])
+            return state, metrics
+
+        return run
+
+    workdir = tempfile.mkdtemp(prefix=f"chip-smoke-mesh-{label}-")
+    orch = Orchestrator(workdir=workdir, device="cuda", store=MemoryObservationStore(), **orch_kw)
+    real_gpus = pmesh.visible_gpus
+    dsearch.make_search_step = recording
+    if gpus is not None:
+        pmesh.visible_gpus = lambda: [torch.device(d) for d in gpus]
+    mixed_op.launches = 0
+    try:
+        t0 = time.perf_counter()
+        exp = orch.run(spec)
+        wall = time.perf_counter() - t0
+    finally:
+        dsearch.make_search_step = real
+        pmesh.visible_gpus = real_gpus
+    launches = mixed_op.launches
+    (trial,) = exp.trials.values()
+    report = fsck_experiment(os.path.join(workdir, spec.name), repair=False)
+    check(exp.condition.value in SUCCESS and trial.condition.value == "Succeeded",
+          f"mesh: {label} run {exp.condition.value}: {exp.message} / {trial.message}")
+    check(report.ok(), f"mesh: {label} fsck {report.lines()}")
+    return {"losses": [float(x) for x in losses], "walls": walls, "launches": launches,
+            "wall": wall, "accuracy": exp.optimal.objective_value, "params": trial.params()}
+
+
+def phase_mesh(torch, mixed_op, fa) -> dict[str, int]:
+    """The mesh path on the card: the route, ``dryrun_multigpu(4)``, the
+    search-width ``darts_trial`` on ``{data: 2}`` through ``Orchestrator.run``
+    against the same trial unsharded, ``transformer_trial`` at the
+    long-context width on ``{seq: 4}`` (ring, then Ulysses) against the
+    unsharded trial, and one small ring step's gradients against the ring
+    over the plain inner.  Returns the kernels' launches on the mesh paths
+    (the sharded DARTS run; the ring and Ulysses runs)."""
+    from katib_tpu_torch.core.config import KatibConfig
+    from katib_tpu_torch.entry import dryrun_multigpu
+    from katib_tpu_torch.models import transformer_trial
+    from katib_tpu_torch.nas.darts.model import mixed_op_launches_per_forward
+    from katib_tpu_torch.ops.flash_attention import reference_attention_with_lse
+    from katib_tpu_torch.parallel.mesh import make_mesh
+    from katib_tpu_torch.parallel.ring_attention import make_sequence_parallel_attention
+    from katib_tpu_torch.runner.context import TrialContext
+
+    smi = smi_line()
+    count = torch.cuda.device_count()
+    shared = count < 4
+    grid = ["cuda:0"] * 4 if shared else [f"cuda:{i}" for i in range(4)]
+    pair = ["cuda:0", "cuda:0"] if count < 2 else ["cuda:0", "cuda:1"]
+    where = ("replicas share cuda:0 (one card): no transfer between cards is made, and no "
+             "time below is a multi-GPU number" if shared else
+             "replicas sit on distinct cards (peer copies between them)")
+    print(f"mesh: route: torch.cuda.device_count()={count}; {where} [{smi}]", flush=True)
+    if count >= 2:
+        t0 = time.perf_counter()
+        out = dryrun_multigpu(2, devices=["cuda:0", "cuda:1"])
+        print(f"mesh: the distinct-card route ran: dryrun_multigpu(2) on cuda:0, cuda:1 "
+              f"({out['route']}) passed in {time.perf_counter() - t0:.2f}s: {out}", flush=True)
+    else:
+        print("mesh: the distinct-card route did not run: one GPU is visible; nothing is "
+              "claimed for transfers between cards", flush=True)
+        # the same route between distinct devices, with the CPU as the other
+        # device: host copies, not peer copies between cards
+        t0 = time.perf_counter()
+        out = dryrun_multigpu(4, devices=["cuda:0", "cpu", "cuda:0", "cpu"])
+        print(f"mesh: the distinct-device route ran between cuda:0 and the CPU "
+              f"({out['route']}, replicas on the CPU run the plain versions): "
+              f"dryrun_multigpu(4) passed in {time.perf_counter() - t0:.2f}s: {out}",
+              flush=True)
+
+    # 1. the gate, on a grid named explicitly
+    t0 = time.perf_counter()
+    out = dryrun_multigpu(4, devices=grid)
+    per_replica = out["darts"]["launches_per_replica"]
+    print(f"mesh: dryrun_multigpu(4) on {grid} passed in {time.perf_counter() - t0:.2f}s "
+          f"[{smi}]: {out}", flush=True)
+    check(min(per_replica) > 0, f"a replica launched no mixed-op kernel: {per_replica}")
+
+    # 2. the search-width DARTS trial on {data: 2}, against the same trial
+    # unsharded (eager steps on both sides: the mesh path has no capture)
+    t_part = time.perf_counter()
+    layers = ORCH_LAYERS
+    s = {**ORCH_SETTINGS, **MESH_DARTS}
+    epochs, steps = int(s["num_epochs"]), (int(s["n_train"]) // 2) // int(s["batch_size"])
+    config = KatibConfig.from_dict({"init": {"mesh_axes": {"data": 2}}})
+    sharded = _mesh_darts_run(torch, mixed_op, search_width_spec(MESH_DARTS),
+                              {"config": config}, "data2", gpus=pair)
+    plain = _mesh_darts_run(torch, mixed_op,
+                            search_width_spec({**MESH_DARTS, "step_loop": "false"}), {}, "plain")
+    nodes = int(json.loads(sharded["params"]["algorithm-settings"])["num_nodes"])
+    per_forward = mixed_op_launches_per_forward(layers, nodes)
+    replicas = 2
+    predicted = replicas * (epochs * steps * 5 + epochs) * per_forward
+    per_step = (sharded["launches"] - replicas * epochs * per_forward) / (replicas * epochs * steps)
+    errs = [abs(a - b) / abs(b) for a, b in zip(sharded["losses"], plain["losses"])]
+    median = {k: statistics.median(r["walls"][1:]) for k, r in (("data2", sharded),
+                                                                ("plain", plain))}
+    print(f"mesh: darts_trial at the search width ({layers} layers, batch "
+          f"{s['batch_size']}, {s['n_train']} images, {epochs} epochs of {steps} eager steps) "
+          f"on {{data: 2}} over {pair} and unsharded, through Orchestrator.run [{smi}]", flush=True)
+    print(f"mesh: train_loss data2={[round(x, 5) for x in sharded['losses']]}", flush=True)
+    print(f"mesh: train_loss plain={[round(x, 5) for x in plain['losses']]}", flush=True)
+    print(f"mesh: step_s data2 first={sharded['walls'][0]:.4f} median_rest={median['data2']:.4f}; "
+          f"plain first={plain['walls'][0]:.4f} median_rest={median['plain']:.4f} "
+          f"({'replicas sharing one card' if pair[0] == pair[1] else 'two cards'}); "
+          f"max rel loss diff={max(errs):.3e} (tolerance {MESH_LOSS_RTOL}); "
+          f"accuracy data2={sharded['accuracy']} plain={plain['accuracy']}", flush=True)
+    print(f"mesh: mixed_op launches data2={sharded['launches']} predicted={predicted}; per "
+          f"replica-step={per_step:g} predicted={5 * per_forward}; plain={plain['launches']}",
+          flush=True)
+    check(len(sharded["losses"]) == len(plain["losses"]) == epochs * steps,
+          f"mesh: steps {len(sharded['losses'])} / {len(plain['losses'])}")
+    check(max(errs) <= MESH_LOSS_RTOL, f"mesh: sharded train loss off by {max(errs):.3e}")
+    check(sharded["launches"] == predicted,
+          f"mesh: mixed-op launched {sharded['launches']}, the path predicts {predicted}")
+    check(per_step == 5 * per_forward, f"mesh: {per_step} launches per replica-step")
+    print(f"mesh: the two DARTS runs took {time.perf_counter() - t_part:.2f}s "
+          f"(sharded {sharded['wall']:.2f}s, unsharded {plain['wall']:.2f}s)", flush=True)
+    t_part = time.perf_counter()
+
+    # 3. the long-context LM on {seq: 4}, ring then Ulysses, against unsharded
+    params = {**long_context()[0], "steps": MESH_LM_STEPS}
+    layers_lm, lm_steps = params["n_layers"], params["steps"]
+    evals = sum(1 for i in range(lm_steps) if i % 10 == 0 or i == lm_steps - 1)
+    base = TrialContext({k: str(v) for k, v in params.items()}, device="cuda", step_times=[])
+    transformer_trial(base)
+    want = [m["eval_loss"] for _, m in base.reports]
+    lm_mesh = make_mesh({"seq": 4}, devices=grid)
+    flash = {"fwd": 0, "dq": 0, "dkv": 0}
+    for strategy, chunks in (("ring", 4 * 5 // 2), ("ulysses", 4)):
+        ctx = TrialContext({**{k: str(v) for k, v in params.items()}, "attn": strategy},
+                           device="cuda", mesh=lm_mesh, step_times=[])
+        fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+        transformer_trial(ctx)
+        got_launches = {"fwd": fa.fwd_launches, "dq": fa.dq_launches, "dkv": fa.dkv_launches}
+        pred = {"fwd": layers_lm * (lm_steps + evals) * chunks,
+                "dq": layers_lm * lm_steps * chunks, "dkv": layers_lm * lm_steps * chunks}
+        got = [m["eval_loss"] for _, m in ctx.reports]
+        errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+        print(f"mesh: transformer_trial {strategy} on {{seq: 4}} over {grid}: eval_loss {got} "
+              f"vs unsharded {want} (max rel {max(errs):.3e}, tolerance {MESH_EVAL_RTOL}); "
+              f"step_s {[round(t, 4) for t in ctx.step_times]} vs unsharded "
+              f"{[round(t, 4) for t in base.step_times]} [{smi}]", flush=True)
+        print(f"mesh: {strategy} flash launches={got_launches} predicted={pred}", flush=True)
+        check(len(got) == len(want) == evals, f"mesh: {strategy} reports {ctx.reports}")
+        check(max(errs) <= MESH_EVAL_RTOL, f"mesh: {strategy} eval loss off by {max(errs):.3e}")
+        check(got_launches == pred, f"mesh: {strategy} flash launched {got_launches}, "
+                                    f"predicted {pred}")
+        for k in flash:
+            flash[k] += got_launches[k]
+
+    print(f"mesh: the three LM runs took {time.perf_counter() - t_part:.2f}s", flush=True)
+    # 4. one small ring step's gradients: the kernels against the plain inner
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(1, 2, 256, 64, generator=gen, device="cuda", dtype=torch.bfloat16)
+               .requires_grad_(True) for _ in range(3))
+    ct = torch.randn(1, 2, 256, 64, generator=gen, device="cuda")
+    grads = []
+    for inner in (None, lambda a, b, c, causal: reference_attention_with_lse(a, b, c, causal)):
+        ring = make_sequence_parallel_attention(lm_mesh, inner=inner)
+        grads.append(torch.autograd.grad((ring(q, k, v).float() * ct).sum(), (q, k, v)))
+    errs = [float((g.float() - r.float()).abs().max() / r.float().abs().max())
+            for g, r in zip(*grads)]
+    print(f"mesh: ring step on {{seq: 4}} [1, 2, 256, 64] bf16, dq/dk/dv kernels vs the ring "
+          f"over the plain inner: max err / max |grad| = {[f'{e:.3e}' for e in errs]} "
+          f"(tolerance {MESH_GRAD_RTOL})", flush=True)
+    check(max(errs) <= MESH_GRAD_RTOL, f"mesh: ring gradients off by {errs}")
+    return {"mixed_op": sharded["launches"], **flash}
+
+
 def main() -> int:
     import torch
 
@@ -3224,6 +3470,7 @@ def main() -> int:
     timed(phase_remote, torch)
     timed(phase_fused, torch, mixed_op)
     timed(phase_native, torch, mixed_op)
+    mesh_launches = timed(phase_mesh, torch, mixed_op, fa)
 
     kernels = [{
         "name": "mixed_op_sum",
@@ -3231,6 +3478,7 @@ def main() -> int:
         "source": "katib_tpu_torch/ops/csrc/mixed_op.cu",
         "replaces": "katib_tpu/ops/mixed_op.py:71",
         "launches": launches,
+        "mesh_launches": mesh_launches["mixed_op"],
         "max_abs_err": max_err,
         **timing,
     }]
@@ -3241,6 +3489,7 @@ def main() -> int:
             "source": "katib_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": f"katib_tpu/ops/flash_attention.py:{line}",
             "launches": flash_launches[name],
+            "mesh_launches": mesh_launches[name],
             "max_abs_err": flash_err[name],
             **flash_timing[name],
         })

@@ -918,9 +918,8 @@ def cmd_chaos(args: argparse.Namespace) -> int:
     if args.wedge_device:
         raise NotImplementedError(
             "chaos --wedge-device needs a trial-axis mesh over two or more "
-            "devices (katib_tpu/parallel/mesh.py) and sharded cohorts; the "
-            "port runs each trial on one GPU, and multi-GPU meshes are not "
-            "ported yet"
+            "devices and sharded cohorts with elastic degradation, not ported "
+            "yet (ROADMAP item 9b)"
         )
     given = [f for f in SINGLE_RUN_FLAGS if getattr(args, _dest(f)) is not None]
     if args.soak is not None:
@@ -1780,7 +1779,8 @@ def main(argv: list[str] | None = None) -> int:
         action="append",
         type=int,
         metavar="N",
-        help="needs a multi-GPU trial-axis mesh; not ported yet (raises)",
+        help="needs a trial-axis mesh with elastic degradation; not ported yet "
+        "(raises, ROADMAP item 9b)",
     )
     p.add_argument(
         "--soak",

@@ -40,7 +40,8 @@ def bucketed_cohort_size(k: int, mesh=None) -> int:
     device, so a mesh raises."""
     if mesh is not None:
         raise NotImplementedError(
-            "a cohort over a trial-axis mesh (katib_tpu/parallel/mesh.py), not ported yet"
+            "a cohort over a trial-axis mesh (katib_tpu/parallel/mesh.py), not ported yet "
+            "(ROADMAP item 9b)"
         )
     return bucket_size(k)
 

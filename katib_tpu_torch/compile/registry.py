@@ -55,6 +55,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Mapping, Sequence
 
 from katib_tpu_torch.analysis import guarded_by, make_lock
+from katib_tpu_torch.parallel.mesh import Mesh, trial_axis_size
 from katib_tpu_torch.utils import observability as obs
 
 _REGISTRY_FILENAME = "shape_registry.jsonl"
@@ -85,14 +86,21 @@ def _program_name(fn: Callable | None) -> str:
 
 
 def mesh_signature(mesh: Any) -> str:
-    """The mesh part of a signature: ``""`` without a mesh.  The port runs
-    each trial on one device, so a mesh raises."""
+    """The mesh part of a signature, the JAX registry's key: ``""`` without a
+    mesh, else the axis layout and the platform (``data=2,model=2:cpu``; a
+    CUDA device is JAX's ``gpu``).  A ``trial`` axis > 1 (a sharded cohort)
+    and anything that is not a port mesh raise ``NotImplementedError``: the
+    trial axis is ROADMAP item 9b."""
     if mesh is None:
         return ""
-    raise NotImplementedError(
-        "a compile signature over a mesh (katib_tpu/parallel/mesh.py): the port "
-        "runs each trial on one device"
-    )
+    if not isinstance(mesh, Mesh) or trial_axis_size(mesh) > 1:
+        raise NotImplementedError(
+            f"a compile signature over the mesh {mesh!r}: a trial-axis mesh (a sharded "
+            "cohort) is not ported yet (ROADMAP item 9b)"
+        )
+    axes = ",".join(f"{n}={s}" for n, s in mesh.shape.items())
+    platform = {"cuda": "gpu"}.get(mesh.home.type, mesh.home.type)
+    return f"{axes}:{platform}"
 
 
 def _structural(value: Any) -> bool:

@@ -1,8 +1,8 @@
 """Typed framework configuration — the KatibConfig equivalent (port of
 ``katib_tpu/core/config.py``: every store backend is built; ``native``
 builds the C++ runtime or raises where the JAX package falls back to a
-memory store; any mesh axes raise ``NotImplementedError`` until the port
-has them).
+memory store; mesh axes resolve as in the JAX package, and the
+orchestrator builds each trial's mesh from them).
 
 The reference loads a single ``KatibConfig`` object (apiVersion
 ``config.kubeflow.org/v1beta1``) with an ``init`` section of controller flags
@@ -329,12 +329,6 @@ class KatibConfig:
             axes = dict(algo_cfg.mesh_axes)
         else:
             axes = dict(self.init.mesh_axes)
-        if axes:
-            raise NotImplementedError(
-                f"mesh axes {axes} for {algorithm!r}: the port runs each trial "
-                "on one device; multi-GPU meshes (katib_tpu/parallel/mesh.py) "
-                "are not ported yet"
-            )
         return axes
 
     def make_orchestrator(self, **overrides):

@@ -42,7 +42,7 @@ from katib_tpu_torch.compile.prewarm import attach_prewarm_fn
 from katib_tpu_torch.device import resolve_device
 from katib_tpu_torch.models.augmentation import KEY_OFFSET
 from katib_tpu_torch.models.data import Dataset, load_mnist
-from katib_tpu_torch.nas.darts.step_loop import WARMUP_STEPS, _capture_stream
+from katib_tpu_torch.nas.darts.step_loop import WARMUP_STEPS, _capture_stream, cyclic_gc_paused
 from katib_tpu_torch.ops.depthwise import lecun_normal_
 from katib_tpu_torch.parallel.train import (
     TrainState,
@@ -429,7 +429,8 @@ class EpochLoop:
             torch.cuda.synchronize()
             del copies
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            with cyclic_gc_paused(), torch.cuda.graph(graph, stream=side,
+                                                      capture_error_mode="thread_local"):
                 self._step(self.bufs)
             torch.cuda.synchronize()
             self.capture_s = time.perf_counter() - t0
@@ -513,7 +514,8 @@ def train_classifier(
     parameters as host copies after the last epoch, also when ``report``
     stopped the run.  ``mesh`` raises ``NotImplementedError``."""
     if mesh is not None:
-        raise NotImplementedError("train_classifier's mesh is not ported yet")
+        raise NotImplementedError(
+            "train_classifier on a mesh is not ported yet (ROADMAP item 9b)")
     dev = resolve_device(device)
     model.to(dev)
     params = {k: v.detach() for k, v in model.named_parameters()}
@@ -744,7 +746,7 @@ def mnist_prewarm(shared: dict, k: int, mesh=None, device=None) -> float:
     capture rule of ``compile/prewarm.py``).  Nothing built here is handed
     to a trial.  A ``mesh`` raises."""
     if mesh is not None:
-        raise NotImplementedError("mnist_prewarm's mesh is not ported yet")
+        raise NotImplementedError("mnist_prewarm on a mesh is not ported yet (ROADMAP item 9b)")
     dev = resolve_device(device)
     p = dict(shared)
     model = _model(p)

@@ -15,10 +15,19 @@ the qkv projection) because the CUDA kernels take contiguous inputs.
 
 The training task is the JAX package's synthetic first-order Markov
 language-modelling problem, made by the same numpy draws.
+
+On a mesh (``parallel/mesh.py``) the attention is sequence-parallel when the
+mesh has a ``seq`` axis (``parallel/ring_attention.py``, ring or Ulysses),
+and ``train_lm`` runs one replica of the model per grid entry on its data
+chunk of the tokens, the parameters broadcast from their home copy and the
+loss the mean over the replicas, so the gradient is that of the global
+batch (``parallel/collectives.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import time
 from typing import Callable
 
@@ -30,6 +39,9 @@ from torch import nn
 from katib_tpu_torch.device import resolve_device
 from katib_tpu_torch.models.layers import Dense, Embed, LayerNorm
 from katib_tpu_torch.ops.flash_attention import flash_attention, reference_attention
+from katib_tpu_torch.parallel import collectives
+from katib_tpu_torch.parallel.mesh import DATA_AXIS, piece, shard_batch
+from katib_tpu_torch.parallel.ring_attention import make_sequence_parallel_attention
 from katib_tpu_torch.parallel.train import (
     adamw_with_schedule,
     clip_by_global_norm,
@@ -47,13 +59,29 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
     """Inverted dropout (flax ``nn.Dropout``): keep each element with
     probability ``1 - rate`` and scale the kept ones by ``1 / (1 - rate)``.
     The draws come from ``generator`` (on ``x``'s device); they cannot match
-    ``jax.random``'s bits."""
+    ``jax.random``'s bits.  Inside a replica of a mesh the mask is drawn once
+    for the global batch (at a rendezvous of the replicas, on the
+    generator's device) and each replica takes its data chunk's rows, so a
+    sharded run draws what the unsharded run draws."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    replica = collectives.current_replica()
+    if replica is None:
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    else:
+        mesh = replica.mesh
+        n = mesh.axis_size(DATA_AXIS)
+
+        def draw(_):
+            full = torch.rand((x.shape[0] * n, *x.shape[1:]), generator=generator,
+                              device=generator.device if generator is not None else x.device)
+            rows = full.chunk(n, dim=0)
+            return [rows[mesh.coord(r, DATA_AXIS)].to(mesh.entries[r]) for r in range(mesh.size)]
+
+        mask = collectives.exchange(None, draw) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -128,14 +156,12 @@ def _dense_causal_attention(q, k, v):
 
 
 def make_attention_fn(mesh=None, strategy: str = "ring"):
-    """Attention for a trial on one device: the flash kernels on a CUDA
-    tensor, the plain version on a CPU one.  A mesh asks for ring/Ulysses
-    sequence parallelism, which is not ported yet."""
+    """Attention for a trial: on one device the flash kernels on a CUDA
+    tensor and the plain version on a CPU one; on a mesh, sequence-parallel
+    ``strategy`` (``ring`` or ``ulysses``) over its ``seq`` axis, over the
+    same kernels (a mesh without one attends on each replica alone)."""
     if mesh is not None:
-        raise NotImplementedError(
-            f"a mesh asks for {strategy!r} sequence parallelism (ring/Ulysses attention, "
-            "parallel/ring_attention.py), not ported yet"
-        )
+        return make_sequence_parallel_attention(mesh, strategy=strategy, causal=True)
 
     def attention(q, k, v):
         if q.device.type == "cuda":
@@ -188,22 +214,29 @@ def make_train_step(
     warmup_frac: float = 0.1,
     grad_clip: float = 1.0,
     seed: int = 0,
+    loss_fn: Callable | None = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """``step(tokens) -> loss``: one update of ``model`` (on its device) on a
     ``[B, S]`` token batch, as the JAX ``train_lm``'s ``step_fn``: next-token
     loss, global-norm clipping at ``grad_clip``, then ``optax.adamw`` with
     weight decay 0.01 under the warmup-cosine schedule over ``steps``.
     Dropout, when the model has it, draws from a generator seeded
-    ``seed + 1`` on the model's device."""
+    ``seed + 1`` on the model's device.  ``loss_fn(tokens, deterministic,
+    generator)`` replaces the model's own next-token loss (a
+    :func:`mesh_lm_loss`, for tokens on a mesh's data axis)."""
     params = list(model.parameters())
     sched = warmup_cosine_decay(0.0, lr, max(1, int(steps * warmup_frac)), steps)
     opt, lr_sched = adamw_with_schedule(params, sched, weight_decay=0.01)
     use_dropout = model.dropout > 0.0
     gen = (torch.Generator(device=params[0].device).manual_seed(seed + 1)
            if use_dropout else None)
+    if loss_fn is None:
+        def loss_fn(tokens, deterministic, generator):
+            return lm_loss(model(tokens, deterministic=deterministic, generator=generator),
+                           tokens)
 
-    def step(tokens: torch.Tensor) -> torch.Tensor:
-        loss = lm_loss(model(tokens, deterministic=not use_dropout, generator=gen), tokens)
+    def step(tokens) -> torch.Tensor:
+        loss = loss_fn(tokens, not use_dropout, gen)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         clipped, _ = clip_by_global_norm({i: p.grad for i, p in enumerate(params)}, grad_clip)
@@ -214,6 +247,31 @@ def make_train_step(
         return loss.detach()
 
     return step
+
+
+def mesh_lm_loss(model: TransformerLM, mesh) -> Callable:
+    """``loss(tokens, deterministic=True, generator=None)`` of ``model`` over
+    ``mesh`` for tokens on its data axis: the parameters are broadcast from
+    the model's own (the home copy), each replica runs a copy of the model
+    on its chunk (``functional_call`` rebinds a module's parameters while it
+    runs, so each replica has its own), and the replicas' mean losses meet
+    at home as their mean."""
+    replicas = [model] + [copy.deepcopy(model) for _ in range(1, mesh.size)]
+
+    def loss(tokens, deterministic: bool = True, generator=None) -> torch.Tensor:
+        params = dict(model.named_parameters())
+        ps = collectives.broadcast(params, mesh)
+
+        def one(r):
+            t = piece(tokens, r)
+            logits = torch.func.functional_call(replicas[r], ps[r], (t,), {
+                "deterministic": deterministic, "generator": generator})
+            return lm_loss(logits, t)
+
+        losses = mesh.run(one)
+        return collectives.reduce_to_home([x / mesh.size for x in losses], mesh)
+
+    return loss
 
 
 def train_lm(
@@ -240,30 +298,44 @@ def train_lm(
     and the batch indices are the JAX package's draws from
     ``np.random.default_rng(seed)``.  Runs on ``device`` (``cuda`` unless the
     caller names another); ``step_times``, when given, receives each step's
-    wall seconds, measured to the device's completion of the step."""
-    if mesh is not None:
-        raise NotImplementedError("train_lm on a mesh (sequence/data parallel) is not ported yet")
-    dev = resolve_device(device)
+    wall seconds, measured to the device's completion of the step.
+
+    With a ``mesh`` the model trains on the mesh's devices (``device`` is
+    its home device): the parameters stay on the home device, each batch and
+    the held-out batch are placed on the data axis, and each step's loss is
+    that of the global batch (:func:`mesh_lm_loss`)."""
+    dev = resolve_device(device) if mesh is None else mesh.home
     rng = np.random.default_rng(seed)
     n_eval = max(batch_size, len(data) // 10)
     train, heldout = data[:-n_eval], data[-n_eval:]
     model.to(dev)
+    sharded_loss = mesh_lm_loss(model, mesh) if mesh is not None else None
     step = make_train_step(model, lr=lr, steps=steps, warmup_frac=warmup_frac,
-                           grad_clip=grad_clip, seed=seed)
+                           grad_clip=grad_clip, seed=seed, loss_fn=sharded_loss)
+    # a mesh's replicas run on its leased streams, and so does the caller's
+    # part of each step (the optimizer), ordered behind them
+    on_mesh = mesh.on_streams if mesh is not None else contextlib.nullcontext
+
+    def place(tokens: np.ndarray):
+        t = torch.from_numpy(np.ascontiguousarray(tokens)).to(dev, torch.long)
+        return t if mesh is None else shard_batch(t, mesh)
 
     def eval_loss_now() -> float:
-        with torch.no_grad():
+        with torch.no_grad(), on_mesh():
+            if sharded_loss is not None:
+                return float(sharded_loss(eval_tokens))
             return float(lm_loss(model(eval_tokens), eval_tokens))
 
-    eval_tokens = torch.from_numpy(heldout[:batch_size]).to(dev, torch.long)
+    eval_tokens = place(heldout[:batch_size])
     eval_loss: float | None = None
     for s in range(steps):
         idx = rng.integers(0, len(train), size=batch_size)
         t_step = time.perf_counter()
-        loss = step(torch.from_numpy(train[idx]).to(dev, torch.long))
+        with on_mesh():
+            loss = step(place(train[idx]))
         if step_times is not None:
             if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+                torch.cuda.current_stream(dev).synchronize()
             step_times.append(time.perf_counter() - t_step)
         eval_loss = None  # stale after this step's update
         if report is not None and (s % report_every == 0 or s == steps - 1):
@@ -281,16 +353,18 @@ def train_lm(
 def transformer_trial(ctx) -> None:
     """White-box trial: tunable long-context LM reporting train/eval loss.
 
-    Runs on ``ctx.device`` (``cuda`` unless it names the CPU); a
-    ``ctx.mesh`` raises (sequence parallelism is not ported yet).  Weights
-    are drawn from a ``torch.Generator`` seeded with 0."""
+    Runs on ``ctx.device`` (``cuda`` unless it names the CPU), or on
+    ``ctx.mesh`` when the trial has one: sequence-parallel attention
+    (``attn``: ring or ulysses) over its ``seq`` axis, the batch over its
+    ``data`` axis.  Weights are drawn from a ``torch.Generator`` seeded
+    with 0."""
     p = ctx.params
     vocab = int(p.get("vocab_size", 256))
     seq_len = int(p.get("seq_len", 512))
     mesh = getattr(ctx, "mesh", None)
     strategy = str(p.get("attn", "ring"))
     attn_fn = make_attention_fn(mesh, strategy=strategy)
-    dev = resolve_device(getattr(ctx, "device", None))
+    dev = resolve_device(getattr(ctx, "device", None)) if mesh is None else mesh.home
 
     model = TransformerLM(
         vocab_size=vocab,
@@ -316,6 +390,7 @@ def transformer_trial(ctx) -> None:
         steps=int(p.get("steps", 60)),
         batch_size=int(p.get("batch_size", 16)),
         warmup_frac=float(p.get("warmup_frac", 0.1)),
+        mesh=mesh,
         report=report,
         device=dev,
         step_times=getattr(ctx, "step_times", None),

@@ -21,6 +21,15 @@ The step is one function that runs eagerly or inside a CUDA-graph capture
 state's device, the cosine lr and Adam's bias corrections are computed
 there in float32 (as optax does under ``jit``), and nothing in the step
 reads a value back to the host.
+
+On a mesh (``parallel/mesh.py``) the step is the same function of the
+global-batch loss (:func:`mesh_loss`): the state lives as one home copy,
+every loss evaluation broadcasts the weights and alphas to the grid's
+replicas, each replica computes its batch chunk's loss (batch norm over the
+global batch), and the losses meet at home; autograd carries every gradient
+back through the broadcast, so each is that of the global-batch loss, as
+``jax.grad`` gives it under GSPMD.  The optimizer steps run once, at home,
+and the metrics come back once.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from katib_tpu_torch.nas.darts.model import Alphas
+from katib_tpu_torch.parallel import collectives
+from katib_tpu_torch.parallel.mesh import home_value, on_data_axis, piece
 from katib_tpu_torch.parallel.train import clip_by_global_norm, global_norm
 
 LossFn = Callable[[dict, Alphas, tuple], torch.Tensor]
@@ -125,12 +136,43 @@ def _axpy(x: dict, y: dict, alpha) -> dict:
     return dict(zip(x, torch._foreach_add(list(x.values()), torch._foreach_mul(list(y.values()), alpha))))
 
 
+def mesh_loss(loss_fn: LossFn, mesh) -> LossFn:
+    """The global-batch loss of ``loss_fn`` over ``mesh``:
+    ``loss(weights, alphas, sharded_batch)`` broadcasts the weights and
+    alphas from their home copy to every replica, runs ``loss_fn`` on each
+    replica's batch chunk on the replica's thread, and returns the mean of
+    the replicas' losses on the home device (chunks are equal, so it is the
+    mean over the global batch; replicas along a non-data axis hold the
+    same chunk and count alike).  ``loss_fn`` must be safe to call from the
+    replicas' threads at once."""
+
+    def loss(weights: dict, alphas: Alphas, batch) -> torch.Tensor:
+        batch = on_data_axis(batch, mesh)
+        ws, als = collectives.broadcast(weights, mesh), collectives.broadcast(alphas, mesh)
+        losses = mesh.run(lambda r: loss_fn(ws[r], Alphas(*als[r]), piece(batch, r)))
+        return collectives.reduce_to_home([x / mesh.size for x in losses], mesh)
+
+    return loss
+
+
 def make_search_step(loss_fn: LossFn, hyper: DartsHyper, mesh=None) -> Callable:
     """Build ``search_step(state, train_batch, val_batch) -> (state, metrics)``.
 
-    ``loss_fn(weights, alphas, batch) -> scalar`` is the supernet loss."""
+    ``loss_fn(weights, alphas, batch) -> scalar`` is the supernet loss.  With
+    a ``mesh`` the step takes the batches on the mesh's data axis
+    (``shard_batch``; plain tensors are placed there), the state on the
+    mesh's home device (a :func:`~katib_tpu_torch.parallel.mesh.replicate`-d
+    state is read from its home copy), calls ``loss_fn`` once per replica
+    per pass (:func:`mesh_loss`), and runs on the mesh's leased streams."""
     if mesh is not None:
-        raise NotImplementedError("the mesh path (sharded search step) is not ported yet")
+        step = make_search_step(mesh_loss(loss_fn, mesh), hyper)
+
+        def sharded_step(state: SearchState, train_batch, val_batch):
+            with mesh.on_streams():
+                return step(home_value(state), on_data_axis(train_batch, mesh),
+                            on_data_axis(val_batch, mesh))
+
+        return sharded_step
 
     def alpha_grad_unrolled(state: SearchState, lr, train_batch, val_batch):
         w, a = state.weights, state.alphas

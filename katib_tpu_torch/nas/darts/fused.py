@@ -41,9 +41,8 @@ scatter or ``index_add``, so the weight gradient is a plain slice and sum,
 and nothing reads a host value (the step captures in a CUDA graph).  The
 fusion is an evaluation-plan change, not a model change.
 
-``safe=True`` (the shift-MAC form of the JAX package, which only serves a
-mesh with a model axis) raises ``NotImplementedError``: the mesh path is
-ROADMAP item 9.
+``safe=True`` (the JAX package's setting for a mesh with a model axis)
+raises ``NotImplementedError``: the fused plan on a mesh is ROADMAP item 9b.
 """
 
 from __future__ import annotations
@@ -168,8 +167,8 @@ class FusedSepDil(nn.Module):
         super().__init__()
         if safe:
             raise NotImplementedError(
-                "the shift-MAC form of the fused plan (safe, for meshes with a model axis) "
-                "needs the mesh path, which the port does not have yet (ROADMAP item 9)"
+                "the fused plan with safe=True (a mesh with a model axis) is not ported "
+                "yet: the fused plan on a mesh is ROADMAP item 9b"
             )
         self.dtype = dtype
         self.stage_a = _MaskedDepthwise(

@@ -5,7 +5,8 @@ Activations are NCHW; compute runs in ``dtype`` (bfloat16 by default) with
 float32 normalization statistics.  Batch normalization is stateless
 training-mode BN without affine parameters, as in the JAX package: DARTS
 search never consumes running statistics, so the supernet stays a pure
-function of its weights and alphas.
+function of its weights and alphas.  On a mesh its statistics are those of
+the global batch, as under the JAX package's partitioner (:func:`batch_norm`).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from torch import nn
 from katib_tpu_torch.nas.darts.fused import FUSED_PRIMITIVES, FusedSepDil
 from katib_tpu_torch.ops.depthwise import Conv, DepthwiseConv, PointwiseConv, pad_same
 from katib_tpu_torch.ops.mixed_op import mixed_op_sum
+from katib_tpu_torch.parallel import collectives
+from katib_tpu_torch.parallel.mesh import DATA_AXIS
 
 DEFAULT_PRIMITIVES = (
     "none",
@@ -35,8 +38,118 @@ DEFAULT_PRIMITIVES = (
 def batch_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Training-mode BN over (N, H, W), no affine, stateless: f32 statistics
     with the population variance, returned in ``x``'s dtype (one fused
-    operator forward and backward)."""
-    return F.batch_norm(x, None, None, training=True, eps=eps)
+    operator forward and backward).
+
+    Inside a replica of a mesh whose data axis splits the batch, the
+    statistics are those of the global batch, as the JAX package's
+    ``jnp.mean`` over a batch sharded on ``data`` gives them: at a
+    rendezvous of the replicas (``parallel/collectives.py::exchange``) the
+    per-channel float32 means and variances of their chunks are combined
+    over ``data`` (:class:`_GlobalStats`, one autograd node over every
+    replica's chunk), and each replica normalizes its own (:class:`_Normalize`).
+    Autograd carries the backward: each replica's gradient of the
+    statistics meets the others' in the combining node, which hands every
+    chunk its part."""
+    replica = collectives.current_replica()
+    if replica is None or replica.mesh.axis_size(DATA_AXIS) == 1:
+        return F.batch_norm(x, None, None, training=True, eps=eps)
+    mesh = replica.mesh
+    mean, invstd = collectives.exchange(x, lambda xs: _global_stats(xs, mesh, eps))
+    return _Normalize.apply(x, mean, invstd)
+
+
+_CHANNEL = (1, -1, 1, 1)
+_DIMS = (0, 2, 3)
+
+
+def _global_stats(xs: list, mesh, eps: float) -> list:
+    """``(mean, invstd)`` of each entry's data group, on the entry's device."""
+    out: list = [None] * mesh.size
+    for group in mesh.groups(DATA_AXIS):
+        stats = _GlobalStats.apply(eps, *(xs[i] for i in group))
+        for k, i in enumerate(group):
+            out[i] = (stats[2 * k], stats[2 * k + 1])
+    return out
+
+
+class _GlobalStats(torch.autograd.Function):
+    """The global ``(mean, invstd)`` of the chunks ``xs`` (one data group),
+    returned once per chunk on its device.  Backward: from the summed
+    cotangents ``G_mean``, ``G_invstd``, each chunk's part
+    ``G_mean / N - G_invstd * invstd^3 * (x - mean) / N``.  On CUDA the
+    statistics are ``batch_norm_stats`` per chunk and one
+    ``batch_norm_gather_stats_with_counts`` (SyncBatchNorm's kernels); on
+    the CPU the same combination in float32 operations."""
+
+    @staticmethod
+    def forward(ctx, eps, *xs):
+        home = xs[0].device
+        counts = [x.numel() // x.shape[1] for x in xs]
+        if all(x.is_cuda for x in xs):
+            stats = [torch.batch_norm_stats(x, eps) for x in xs]
+            mean, invstd = torch.batch_norm_gather_stats_with_counts(
+                xs[0], torch.stack([m.to(home) for m, _ in stats]),
+                torch.stack([v.to(home) for _, v in stats]), None, None, 0.0, eps,
+                # in the input's dtype, as the kernel takes them: the chunks
+                # are equal, so no rounding can weigh one above another
+                torch.tensor(counts, dtype=xs[0].dtype, device=home))
+        else:
+            total = sum(counts)
+            mean = ex2 = 0.0
+            for x, n in zip(xs, counts):
+                var, m = (t.to(home) for t in torch.var_mean(x.float(), dim=_DIMS, correction=0))
+                mean = mean + m * (n / total)
+                ex2 = ex2 + (var + m * m) * (n / total)
+            invstd = torch.rsqrt(torch.clamp(ex2 - mean * mean, min=0.0) + eps)
+        ctx.save_for_backward(mean, invstd, *xs)
+        ctx.total = sum(counts)
+        return tuple(t.to(x.device) for x in xs for t in (mean, invstd))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mean, invstd, *xs = ctx.saved_tensors
+        home = mean.device
+        g_mean = sum(g.to(home) for g in grads[0::2])
+        g_invstd = sum(g.to(home) for g in grads[1::2])
+        c1 = -g_invstd * invstd.pow(3) / ctx.total
+        c0 = g_mean / ctx.total - c1 * mean
+        dxs = []
+        for x in xs:
+            a, b = c1.to(x.device), c0.to(x.device)
+            if x.is_cuda:  # a * x + b in one kernel, in x's dtype
+                dxs.append(torch.batch_norm_elemt(x, a, b, torch.zeros_like(a),
+                                                  torch.ones_like(a), 0.0))
+            else:
+                dxs.append((a.view(_CHANNEL) * x.float() + b.view(_CHANNEL)).to(x.dtype))
+        return (None, *dxs)
+
+
+class _Normalize(torch.autograd.Function):
+    """``(x - mean) * invstd`` per channel, in ``x``'s dtype.  Backward:
+    ``x``'s direct part ``dy * invstd``, and the statistics' cotangents
+    ``-invstd * sum(dy)`` and ``sum(dy * (x - mean))``."""
+
+    @staticmethod
+    def forward(ctx, x, mean, invstd):
+        ctx.save_for_backward(x, mean, invstd)
+        if x.is_cuda:
+            return torch.batch_norm_elemt(x, None, None, mean, invstd, 0.0)
+        return ((x.float() - mean.view(_CHANNEL)) * invstd.view(_CHANNEL)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, invstd = ctx.saved_tensors
+        dy = dy.contiguous()
+        if x.is_cuda:
+            sum_dy, sum_dy_xmu, _, _ = torch.batch_norm_backward_reduce(
+                dy, x, mean, invstd, None, True, False, False)
+            dx = torch.batch_norm_elemt(dy, None, None, torch.zeros_like(mean), invstd, 0.0)
+        else:
+            dy32 = dy.float()
+            sum_dy = dy32.sum(dim=_DIMS)
+            sum_dy_xmu = (dy32 * (x.float() - mean.view(_CHANNEL))).sum(dim=_DIMS)
+            dx = (dy32 * invstd.view(_CHANNEL)).to(x.dtype)
+        return dx, -invstd * sum_dy, sum_dy_xmu
 
 
 class ReluConvBn(nn.Module):

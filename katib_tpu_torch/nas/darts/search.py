@@ -26,6 +26,16 @@ environment variable, then default):
 ``fused=True`` (the trial setting ``fused``) runs the fused mixed-op plan
 (``fused.py``); a snapshot of the other plan raises instead of restoring.
 
+On a ``mesh`` (``parallel/mesh.py``; the trial's ``ctx.mesh``) each step is
+the sharded bilevel step (``architect.py::make_search_step``) run eagerly:
+the splits stay on the mesh's home device, each batch is gathered there,
+augmented, and placed on the data axis.  The network is the one of a single
+device: its depthwise convolutions keep the native form on every mesh
+(``ops/depthwise.py``).  What the mesh path does not have yet raises ``NotImplementedError`` naming ROADMAP
+item 9b: capturing the sharded step (an explicit step loop), remat's
+recompute (a recomputed batch norm cannot rejoin the replicas' all-reduce,
+so a mesh keeps activations), and the fused plan.
+
 With a checkpoint dir the state is saved after every epoch and a restarted
 search resumes at the newest snapshot that verifies, its history, best
 accuracy and elapsed time continued (``utils/checkpoint.py``).
@@ -42,6 +52,7 @@ captured the step's graph also carries ``graph_capture_s`` in its span.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -72,7 +83,9 @@ from katib_tpu_torch.nas.darts.model import (
 )
 from katib_tpu_torch.nas.darts.ops import DEFAULT_PRIMITIVES
 from katib_tpu_torch.nas.darts.step_loop import METRICS, StepLoop
-from katib_tpu_torch.parallel.train import accuracy, cross_entropy_loss
+from katib_tpu_torch.parallel.collectives import replica_index
+from katib_tpu_torch.parallel.mesh import shard_batch
+from katib_tpu_torch.parallel.train import accuracy, cross_entropy_loss, make_eval_step
 from katib_tpu_torch.utils import observability as obs
 from katib_tpu_torch.utils import tracing
 from katib_tpu_torch.utils.booleans import parse_bool
@@ -165,6 +178,7 @@ def search_epochs(
     timings: dict | None = None,
     loaders: tuple | None = None,
     split: tuple | None = None,
+    mesh=None,
 ) -> tuple[SearchState, list[dict]]:
     """The epoch loop from ``state``: returns the final state and the
     history, one row per epoch (after ``resumed.history``, when resuming).
@@ -187,21 +201,34 @@ def search_epochs(
     per epoch, in lockstep; ``timings`` then receives ``loader_wait_s``,
     the seconds spent waiting for their batches.  ``split``: the
     :func:`split_train` of ``dataset`` and ``seed``, when the caller has
-    it already."""
+    it already.  ``mesh``: eager sharded steps and a sharded evaluation
+    (``device`` is then the mesh's home device)."""
+    # functional_call rebinds a module's parameters while it runs, so each
+    # replica of a mesh calls its own copy of the network
+    nets = [net] + [copy.deepcopy(net) for _ in range(1, mesh.size if mesh is not None else 1)]
 
     def loss_fn(w, a, batch):
         x, y = batch
-        return cross_entropy_loss(torch.func.functional_call(net, w, (x, a)), y)
+        return cross_entropy_loss(torch.func.functional_call(nets[replica_index()], w, (x, a)), y)
+
+    def metric_fn(params, batch):
+        (w, a), (x, y) = params, batch
+        logits = torch.func.functional_call(nets[replica_index()], w, (x, a))
+        return {"accuracy": accuracy(logits, y), "loss": cross_entropy_loss(logits, y)}
 
     resumed = resumed or Resumed()
-    search_step = make_search_step(loss_fn, hyper)
+    search_step = make_search_step(loss_fn, hyper, mesh)
+    evaluate = make_eval_step(metric_fn, mesh)
     aug_key = seed + KEY_OFFSET
     (x_w, y_w), (x_a, y_a) = split if split is not None else split_train(dataset, seed)
     splits = tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
                    for t in (x_w, y_w, x_a, y_a)) if device_data else None
     ne = min(len(dataset.x_test), EVAL_IMAGES)
+    if mesh is not None:  # the eval batch must split over the data axis
+        ne -= ne % mesh.axis_size("data")
     x_eval = torch.from_numpy(dataset.x_test[:ne]).to(device)
     y_eval = torch.from_numpy(dataset.y_test[:ne]).to(device)
+    eval_batch = (x_eval, y_eval) if mesh is None else shard_batch((x_eval, y_eval), mesh)
     steps = len(x_w) // batch_size
     loop = None
     if step_loop:
@@ -261,12 +288,14 @@ def search_epochs(
                     )
                 if augment_fn is not None:
                     train = (augment_fn(aug_key, state.step, train[0]), train[1])
+                if mesh is not None:
+                    train, val = shard_batch(train, mesh), shard_batch(val, mesh)
                 state, metrics = search_step(state, train, val)
                 # metrics stay on the device until the epoch ends: one transfer
                 step_metrics.append(metrics)
                 if step_times is not None:
                     if device.type == "cuda":
-                        torch.cuda.synchronize(device)
+                        torch.cuda.current_stream(device).synchronize()
                     step_times.append(time.perf_counter() - t_step)
             t_mark = _trace("step-dispatch", t_mark)
             step_metrics = [
@@ -276,10 +305,8 @@ def search_epochs(
             ]
             train_loss = sum(m["train_loss"] for m in step_metrics) / max(steps, 1)
             t_mark = _trace("loss-fetch", t_mark)
-        with torch.no_grad():
-            logits = torch.func.functional_call(net, state.weights, (x_eval, state.alphas))
-            val_acc = float(accuracy(logits, y_eval))
-            val_loss = float(cross_entropy_loss(logits, y_eval))
+        evaluated = evaluate((state.weights, state.alphas), eval_batch)
+        val_acc, val_loss = float(evaluated["accuracy"]), float(evaluated["loss"])
         t_mark = _trace("eval", t_mark)
         best_acc = max(best_acc, val_acc)
         # per-epoch telemetry, as the JAX search publishes it: step time,
@@ -424,6 +451,33 @@ def native_loaders(split, *, batch_size: int, seed: int, start_epoch: int):
         shutil.rmtree(cache_dir, ignore_errors=True)
 
 
+def check_mesh_settings(step_loop: bool | None, remat: bool | None,
+                        remat_policy: str | None, fused: bool) -> tuple[bool, bool]:
+    """``(step_loop, remat)`` of a search on a mesh: eager steps and no
+    remat.  Raises ``NotImplementedError`` naming ROADMAP item 9b for what
+    the mesh path does not have: an explicit step loop (``step_loop`` or
+    ``KATIB_STEP_LOOP``; capturing the sharded step), ``remat`` or a
+    ``remat_policy`` (a cell recomputed in the backward pass cannot rejoin
+    the replicas' batch-norm all-reduce), and the fused plan (its batch
+    norm is single-device)."""
+    env_sl = os.environ.get("KATIB_STEP_LOOP")
+    if step_loop is True or (step_loop is None and env_sl is not None and parse_bool(env_sl)):
+        raise NotImplementedError(
+            "an explicit step loop on a mesh asks to capture the sharded step as CUDA "
+            "graphs, not ported yet (ROADMAP item 9b); the mesh path steps eagerly"
+        )
+    if remat or remat_policy is not None:
+        raise NotImplementedError(
+            "remat on a mesh recomputes cells whose batch norm all-reduces over the "
+            "replicas, not ported yet (ROADMAP item 9b); the mesh path keeps activations"
+        )
+    if fused:
+        raise NotImplementedError(
+            "the fused mixed-op plan on a mesh is not ported yet (ROADMAP item 9b)"
+        )
+    return False, False
+
+
 def check_scan_unroll(scan_unroll: int | None) -> None:
     """The JAX search unrolls its ``lax.scan`` step loop ``scan_unroll``
     steps per XLA while-loop iteration (parameter, else
@@ -454,7 +508,7 @@ def run_darts_search(
     report=None,
     native_prefetch: bool | None = None,
     checkpoint_dir: str | None = None,
-    remat: bool = True,
+    remat: bool | None = None,
     remat_policy: str | None = None,
     device_data: bool | None = None,
     step_loop: bool | None = None,
@@ -466,6 +520,7 @@ def run_darts_search(
     timings: dict | None = None,
     scan_unroll: int | None = None,
     fused: bool = False,
+    mesh=None,
 ) -> dict[str, Any]:
     """Run the bilevel architecture search; returns genotype + final metrics.
 
@@ -478,9 +533,16 @@ def run_darts_search(
     (else ``KATIB_SEARCH_AUG``) picks ``augment_fn`` = :func:`~katib_tpu_torch.models.augmentation.random_crop_flip`.
     ``checkpoint_dir``: snapshot every epoch and resume from it.
     ``step_times`` and ``timings``: see :func:`search_epochs`.
-    ``scan_unroll`` (else ``KATIB_SCAN_UNROLL``): see :func:`check_scan_unroll`."""
+    ``scan_unroll`` (else ``KATIB_SCAN_UNROLL``): see :func:`check_scan_unroll`.
+    ``remat`` (default on) recomputes each cell in the backward pass.
+    ``mesh``: the sharded search on the mesh's devices (see the module doc;
+    :func:`check_mesh_settings` names what raises there)."""
     check_scan_unroll(scan_unroll)
-    dev = resolve_device(device)
+    if mesh is not None:
+        step_loop, remat = check_mesh_settings(step_loop, remat, remat_policy, fused)
+    elif remat is None:
+        remat = True
+    dev = resolve_device(device) if mesh is None else mesh.home
     net = DartsNetwork(
         primitives=tuple(primitives),
         init_channels=init_channels,
@@ -543,7 +605,7 @@ def run_darts_search(
             seed=seed, device=dev, report=report, step_times=step_times, step_loop=step_loop,
             window=window, device_data=device_data, augment_fn=augment_fn,
             checkpointer=checkpointer, resumed=resumed, timings=timings, loaders=loaders,
-            split=split,
+            split=split, mesh=mesh,
         )
     alphas = Alphas(*(a.cpu() for a in state.alphas))
     return {
@@ -560,7 +622,8 @@ def darts_trial(ctx) -> None:
     Consumes the three parameters the DARTS suggester emits:
     ``algorithm-settings`` (JSON dict), ``search-space`` (JSON list of
     primitives), ``num-layers``.  Runs on ``ctx.device`` (``cuda`` unless
-    it names the CPU), snapshots the search under
+    it names the CPU), or sharded on ``ctx.mesh`` when the trial has one
+    (``run_darts_search``'s ``mesh``), snapshots the search under
     ``<checkpoint_dir>/search`` and resumes from it, and with
     ``augment_epochs`` > 0 trains the genotype found and reports its
     ``augment_accuracy`` at step ``num_epochs + augment_epochs`` (skipped
@@ -568,8 +631,6 @@ def darts_trial(ctx) -> None:
     settings = json.loads(ctx.params.get("algorithm-settings", "{}"))
     primitives = tuple(json.loads(ctx.params.get("search-space", "null")) or DEFAULT_PRIMITIVES)
     num_layers = int(ctx.params.get("num-layers", 8))
-    if ctx.mesh is not None:
-        raise NotImplementedError("a trial mesh asks for the sharded search step, not ported yet")
 
     n_train = settings.get("n_train")
     n_test = settings.get("n_test")
@@ -621,7 +682,8 @@ def darts_trial(ctx) -> None:
         fused=parse_bool(settings.get("fused")),
         step_loop=parse_bool(settings["step_loop"]) if "step_loop" in settings else None,
         step_loop_window=int(raw_window) if raw_window is not None else None,
-        remat=parse_bool(settings.get("remat"), default=True),
+        # on by default, off on a mesh (run_darts_search)
+        remat=parse_bool(settings["remat"]) if "remat" in settings else None,
         remat_policy=(
             str(settings["remat_policy"])
             if settings.get("remat_policy") not in (None, "")
@@ -636,6 +698,7 @@ def darts_trial(ctx) -> None:
         device=ctx.device,
         step_times=ctx.step_times,
         timings=ctx.timings,
+        mesh=ctx.mesh,
     )
     out_dir = ctx.ensure_checkpoint_dir()
     with open(os.path.join(out_dir, "genotype.json"), "w") as f:

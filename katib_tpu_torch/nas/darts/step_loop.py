@@ -36,6 +36,8 @@ launches are real and stay counted.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 import time
 from typing import Callable
@@ -88,6 +90,34 @@ def lease_stream(device: torch.device) -> _Lease:
         free = _free_streams.setdefault(index, [])
         _capture_locks.setdefault(index, threading.Lock())
         return _Lease(free, free.pop() if free else torch.cuda.Stream(index))
+
+
+_gc_lock = threading.Lock()
+_gc_holds = 0
+_gc_was_enabled = False
+
+
+@contextlib.contextmanager
+def cyclic_gc_paused():
+    """Hold Python's cyclic garbage collector off inside (for a graph
+    capture).  A collection that ran inside a capture could free an older
+    graph held in a reference cycle, and a graph's reset is refused while
+    the thread captures (``operation not permitted when stream is
+    capturing``), which invalidates the capture.  Nested and concurrent
+    holds restore the collector once the last ends."""
+    global _gc_holds, _gc_was_enabled
+    with _gc_lock:
+        if _gc_holds == 0:
+            _gc_was_enabled = gc.isenabled()
+            gc.disable()
+        _gc_holds += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_holds -= 1
+            if _gc_holds == 0 and _gc_was_enabled:
+                gc.enable()
 
 
 def _capture_stream(device: torch.device) -> tuple[torch.cuda.Stream, threading.Lock]:
@@ -189,8 +219,8 @@ class StepLoop:
             graph = torch.cuda.CUDAGraph()
             # the capture enqueues nothing on the device: its launches are
             # tallied, and counted on each replay
-            with mixed_op.recording_launches() as recorded, torch.cuda.graph(
-                    graph, stream=side, capture_error_mode="thread_local"):
+            with cyclic_gc_paused(), mixed_op.recording_launches() as recorded, \
+                    torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
                 self._step(self.bufs)
             self.launches_per_replay = recorded[0]
             torch.cuda.synchronize()

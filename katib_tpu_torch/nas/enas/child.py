@@ -78,13 +78,8 @@ class _Op(nn.Module):
     its ``DepthwiseConv_0``."""
 
     def __init__(self, name_: str, in_channels: int, channels: int,
-                 dtype: torch.dtype = torch.bfloat16, safe_conv: bool = False):
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if safe_conv:
-            raise NotImplementedError(
-                "the shift-MAC depthwise form (safe_conv, for meshes with a model axis) "
-                "needs the mesh path, which the port does not have yet"
-            )
         self.name_, self.dtype = name_, dtype
         n = name_
         if n.startswith("convolution"):
@@ -116,7 +111,10 @@ class _Op(nn.Module):
 class EnasChild(nn.Module):
     """CNN instantiated from a controller arc: a 3x3 stem conv, one
     :class:`_Op` per layer over the concatenation of the running output and
-    its skip inputs, a mean over the image and a float32 Dense head."""
+    its skip inputs, a mean over the image and a float32 Dense head.
+    ``safe_conv`` is the JAX package's setting for a mesh with a model axis;
+    it changes nothing here, as the port's depthwise convolution has one
+    form (``ops/depthwise.py``)."""
 
     def __init__(self, arc_ops: tuple, arc_skips: tuple,
                  operations: Sequence[str] = DEFAULT_OPERATIONS, channels: int = 32,
@@ -131,7 +129,7 @@ class EnasChild(nn.Module):
         for layer, op_idx in enumerate(self.arc_ops):
             width = channels * (1 + sum(1 for s in self.arc_skips[layer] if s))
             name = self.operations[op_idx]
-            op = _Op(name, width, channels, dtype, safe_conv)
+            op = _Op(name, width, channels, dtype)
             # op-qualified module name: weight-sharing pools key parameters
             # by name, and e.g. avg/max pooling have identically-shaped 1x1
             # projections, so the op name keeps each op's weights separate

@@ -3,9 +3,12 @@
 
 Parameters keep the JAX package's layouts, so weights carry across as they
 are: :class:`DepthwiseConv` a ``(K, K, 1, C)`` kernel, :class:`PointwiseConv`
-a ``(C, F)`` kernel.  Activations are NCHW.  Only the native (``safe=False``)
-form is ported: the shift-MAC form works around an XLA SPMD partitioner bug
-on meshes with a model axis, and the mesh path is not ported yet.
+a ``(C, F)`` kernel.  Activations are NCHW.  The depthwise convolution has
+one form, the native grouped convolution.  The JAX package's shift-MAC form
+(``safe=True``) works around XLA's SPMD partitioner, which miscompiles the
+grouped form's filter gradient on meshes with a model axis; each replica of
+a mesh in the port runs its convolution locally, so the port has no such
+partitioner and a ``safe``/``safe_conv`` setting runs the native form.
 """
 
 from __future__ import annotations

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -30,10 +31,12 @@ HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since import or the last reset; the CPU path does not count
+# (replicas of a mesh launch from threads of their own: counted under a lock)
 fwd_launches = 0
 dq_launches = 0
 dkv_launches = 0
 _lib = None
+_lock = threading.Lock()
 
 
 def _block_sizes(seq_q: int, seq_k: int, block_q: int, block_k: int) -> tuple[int, int]:
@@ -173,6 +176,12 @@ def _backward_check(q: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared (first use builds)."""
     global _lib
+    with _lock:
+        return _lib if _lib is not None else _load()
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
     if _lib is None:
         from katib_tpu_torch.ops import _build
 
@@ -211,7 +220,8 @@ def launch_fwd(q, k, v, causal: bool, scale: float):
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _call("katib_flash_fwd", (q, k, v, o, lse), q, k.shape[2], scale, causal)
-    fwd_launches += 1
+    with _lock:
+        fwd_launches += 1
     return o, lse
 
 
@@ -222,7 +232,8 @@ def launch_dq(q, k, v, do, lse, dmd, causal: bool, scale: float):
     _backward_check(q, do, lse, dmd)
     dq = torch.empty_like(q)
     _call("katib_flash_dq", (q, k, v, do, lse, dmd, dq), q, k.shape[2], scale, causal)
-    dq_launches += 1
+    with _lock:
+        dq_launches += 1
     return dq
 
 
@@ -233,7 +244,8 @@ def launch_dkv(q, k, v, do, lse, dmd, causal: bool, scale: float):
     _backward_check(q, do, lse, dmd)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call("katib_flash_dkv", (q, k, v, do, lse, dmd, dk, dv), q, k.shape[2], scale, causal)
-    dkv_launches += 1
+    with _lock:
+        dkv_launches += 1
     return dk, dv
 
 

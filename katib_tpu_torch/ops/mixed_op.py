@@ -38,6 +38,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the launches the capture recorded on each replay (nas/darts/step_loop.py)
 launches = 0
 _lib = None
+_lib_lock = threading.Lock()  # replicas of a mesh may make the first call at once
 _count_lock = threading.Lock()
 # per thread: the tally of a graph capture in progress on that thread
 _recording = threading.local()
@@ -46,14 +47,32 @@ _recording = threading.local()
 def count_launches(n: int = 1) -> None:
     """Add ``n`` launches to :data:`launches` (thread-safe).  A launch made
     by a thread inside :func:`recording_launches` is recorded into that
-    thread's graph, not run, so it goes to the capture's tally instead."""
+    thread's graph, not run, so it goes to the capture's tally instead.
+    Inside :func:`tallying` the thread's tally counts it too."""
     global launches
     tally = getattr(_recording, "tally", None)
     if tally is not None:
         tally[0] += n
         return
+    own = getattr(_recording, "own", None)
+    if own is not None:
+        own[0] += n
     with _count_lock:
         launches += n
+
+
+@contextlib.contextmanager
+def tallying():
+    """Also tally, in the yielded one-element list, the launches this thread
+    counts inside (a replica of a mesh run counts its own this way);
+    :data:`launches` counts them as usual."""
+    prev = getattr(_recording, "own", None)
+    own = [0]
+    _recording.own = own
+    try:
+        yield own
+    finally:
+        _recording.own = prev
 
 
 @contextlib.contextmanager
@@ -122,6 +141,12 @@ def _check(weights: torch.Tensor, stacked: torch.Tensor) -> None:
 
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared (first use builds)."""
+    global _lib
+    with _lib_lock:
+        return _lib if _lib is not None else _load()
+
+
+def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         from katib_tpu_torch.ops import _build

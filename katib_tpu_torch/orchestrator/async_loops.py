@@ -66,7 +66,8 @@ the mesh critical path is untouched.
 Port of ``katib_tpu/orchestrator/async_loops.py``.  The loops are host
 code: no loop thread touches the device, only the pool threads running
 trials and cohorts (``runner/cohort.py``) do.  A trial mesh
-(``parallel/mesh.py``) raises here; cohort packing engages for a train_fn
+(``parallel/mesh.py``) reaches every trial; a ``trial`` axis > 1 raises
+here (ROADMAP item 9b); cohort packing engages for a train_fn
 with a cohort twin and a width above one.
 """
 
@@ -87,6 +88,7 @@ from katib_tpu_torch.core.types import (
     Trial,
     TrialCondition,
 )
+from katib_tpu_torch.parallel.mesh import trial_axis_size
 from katib_tpu_torch.runner.cohort import cohort_fn_of
 from katib_tpu_torch.suggest.base import call_suggester
 from katib_tpu_torch.utils import observability as obs
@@ -235,10 +237,11 @@ class AsyncLoops:
         spec = self.spec
         trial_devices = 1
         if mesh is not None:
-            raise NotImplementedError(
-                "a trial mesh under the async engine needs the trial axis of "
-                "katib_tpu/parallel/mesh.py, not ported yet"
-            )
+            if trial_axis_size(mesh) > 1:
+                raise NotImplementedError(
+                    f"a trial axis of size {trial_axis_size(mesh)} under the async engine "
+                    "shards cohorts over the mesh, not ported yet (ROADMAP item 9b)"
+                )
         self.width = max(spec.cohort_width, trial_devices)
         self._use_cohorts = self.width > 1 and cohort_fn_of(spec.train_fn) is not None
         self._default_key = spec.cohort_key or (

@@ -24,11 +24,15 @@ Port of ``katib_tpu/orchestrator/orchestrator.py``: the async engine
 which runs every experiment unless ``asyncOrch: false`` or
 ``KATIB_ASYNC_ORCH=0`` selects the synchronous loop, and the synchronous
 loop, settlement, drain, retries, the journal and the cleanup.  Trials run
-on ``device`` (``cuda`` unless the caller names the CPU).  What the port
-does not have yet raises ``NotImplementedError`` when a run asks for it
-(:meth:`Orchestrator._refuse_unported`): a mesh, a slice allocator and the
-profiler.  Vectorized cohorts (``runner/cohort.py``) run on the trial
-device, grouped by both loops.  A run wires the compile cache
+on ``device`` (``cuda`` unless the caller names the CPU), or on a trial
+mesh (``parallel/mesh.py``): the orchestrator's ``mesh``, else one built
+from the config's ``mesh_axes`` (:meth:`Orchestrator._resolve_mesh`), else
+a sub-mesh leased per trial from a ``slice_allocator``
+(``parallel/distributed.py``).  What the port does not have yet raises
+``NotImplementedError`` when a run asks for it: the profiler
+(:meth:`Orchestrator._refuse_unported`) and a ``trial`` mesh axis
+(:meth:`Orchestrator._validate_mesh`).  Vectorized cohorts
+(``runner/cohort.py``) run on the trial device, grouped by both loops.  A run wires the compile cache
 (``compileCache`` / ``KATIB_COMPILE_CACHE``) and the shared artifact tier
 (``artifactDir`` / ``KATIB_ARTIFACT_DIR``), and with ``prewarm`` on (the
 default) a background worker warms up each upcoming group's program on the
@@ -39,6 +43,7 @@ orchestrator's device through the train_fn's prewarm twin
 from __future__ import annotations
 
 import concurrent.futures as cf
+import math
 import os
 import secrets
 import shutil
@@ -47,6 +52,7 @@ import traceback
 
 from katib_tpu_torch.core.types import (
     COHORT_KEY_LABEL,
+    DEVICES_LABEL,
     Experiment,
     ExperimentCondition,
     ExperimentSpec,
@@ -58,6 +64,7 @@ from katib_tpu_torch.core.types import (
 from katib_tpu_torch.core.validation import validate_experiment
 from katib_tpu_torch.device import resolve_device
 from katib_tpu_torch.earlystop.rules import make_early_stopper
+from katib_tpu_torch.parallel.mesh import make_mesh, trial_axis_size
 from katib_tpu_torch.runner.cohort import cohort_fn_of, run_cohort
 from katib_tpu_torch.runner.trial_runner import (
     TrialResult,
@@ -380,6 +387,7 @@ class Orchestrator:
         # and the status journal before surfacing
         try:
             mesh = self._resolve_mesh(spec)
+            self._validate_mesh(spec, mesh)
         except Exception:
             exp.condition = ExperimentCondition.FAILED
             exp.message = "mesh config error:\n" + traceback.format_exc(limit=5)
@@ -795,11 +803,6 @@ class Orchestrator:
         """Raise ``NotImplementedError`` for whatever the run asks of the
         JAX orchestrator that the port does not have yet, before anything
         is journaled: nothing is ignored."""
-        if self.slice_allocator is not None:
-            raise NotImplementedError(
-                "a slice allocator (katib_tpu/parallel/distributed.py) needs "
-                "multi-GPU meshes, not ported yet"
-            )
         if self.config is not None and self.config.init.enable_profiler:
             raise NotImplementedError(
                 "init.enable_profiler asks for per-trial profiles "
@@ -808,16 +811,44 @@ class Orchestrator:
             )
 
     def _resolve_mesh(self, spec: ExperimentSpec):
-        """Explicit mesh wins; otherwise the config registry decides.  The
-        port runs each trial on one device, so any mesh raises."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "an orchestrator mesh (katib_tpu/parallel/mesh.py): the port "
-                "runs each trial on one device"
+        """Explicit mesh wins; otherwise the config registry decides:
+        per-algorithm ``runtime.algorithms.<name>.mesh_axes`` over the
+        ``init.mesh_axes`` default, over the first ``prod(axes)`` distinct
+        visible GPUs (``make_mesh``, raising when there are fewer), or CPU
+        entries for a CPU orchestrator.  A grid that repeats a card is an
+        explicit ``mesh``."""
+        if self.mesh is not None or self.config is None:
+            return self.mesh
+        axes = self.config.mesh_axes_for(spec.algorithm.name)
+        if not axes:
+            return None
+        if self.device.type == "cpu":
+            return make_mesh(axes, devices=[self.device] * math.prod(axes.values()))
+        return make_mesh(axes)
+
+    #: trial label naming how many devices its lease should span (elastic
+    #: allocator only, which is not ported yet)
+    DEVICES_LABEL = DEVICES_LABEL
+
+    def _validate_mesh(self, spec: ExperimentSpec, mesh) -> None:
+        """Mesh/spec cross-checks only the orchestrator can make: a ``trial``
+        axis shards vmap-batched cohort members, which only white-box
+        train_fn trials can become (``ValueError``, as in JAX), and sharded
+        cohorts are not ported yet (``NotImplementedError``)."""
+        if mesh is None:
+            return
+        if trial_axis_size(mesh) > 1 and spec.train_fn is None:
+            raise ValueError(
+                "mesh carries a trial axis of size "
+                f"{trial_axis_size(mesh)}, but the experiment runs black-box "
+                "command trials — the trial axis shards white-box cohort "
+                "members only (drop the axis or use a train_fn)"
             )
-        if self.config is not None:
-            self.config.mesh_axes_for(spec.algorithm.name)  # raises for axes
-        return None
+        if trial_axis_size(mesh) > 1:
+            raise NotImplementedError(
+                f"a trial axis of size {trial_axis_size(mesh)} shards cohorts over the "
+                "mesh, not ported yet (ROADMAP item 9b)"
+            )
 
     #: implicit cohort key stamped when a trial-axis mesh is configured but
     #: neither the proposals nor the spec name one (read by the async
@@ -835,9 +866,8 @@ class Orchestrator:
         must share a program), falling back to the spec-wide
         ``cohort_key``; keyless proposals stay singletons.  The key is
         stamped back into the proposal labels so the journal and status
-        show which cohort a trial rode in.  The port has no trial-axis
-        mesh (:meth:`_resolve_mesh` raises for one), so the width is the
-        spec's."""
+        show which cohort a trial rode in.  A trial-axis mesh raises
+        (:meth:`_validate_mesh`), so the width is the spec's."""
         width = spec.cohort_width
         if width <= 1 or cohort_fn_of(spec.train_fn) is None:
             return [[p] for p in proposals]
@@ -959,9 +989,38 @@ class Orchestrator:
         # bracket the whole attempt in a "trial" span.
         with tracing.use_tracer(self._tracer):
             with tracing.span("trial", trial=trial.name) as sp:
-                result = self._execute_with_retry(exp, trial, mesh)
+                result = self._execute_inner(exp, trial, mesh)
                 sp.set(condition=result.condition.value)
                 return result
+
+    def _execute_inner(self, exp: Experiment, trial: Trial, mesh):
+        """A trial on ``mesh``, or, with a slice allocator and no mesh, on a
+        sub-mesh leased for the trial's attempts and released after them
+        (a trial carrying the devices label warns: the allocator is fixed-
+        size, as the JAX package warns)."""
+        if self.slice_allocator is None or mesh is not None:
+            return self._execute_with_retry(exp, trial, mesh)
+        try:
+            if trial.spec.labels.get(self.DEVICES_LABEL) is not None:
+                if not getattr(self, "_warned_devices_label", False):
+                    self._warned_devices_label = True
+                    import warnings
+
+                    warnings.warn(
+                        f"trials carry the {self.DEVICES_LABEL} label but "
+                        "the orchestrator's allocator is fixed-size; the "
+                        "elastic allocator is not ported yet (ROADMAP item 9b)",
+                        RuntimeWarning,
+                        stacklevel=2,
+                    )
+            with self.slice_allocator.slice_mesh() as trial_mesh:
+                return self._execute_with_retry(exp, trial, trial_mesh)
+        except Exception as e:
+            return TrialResult(
+                TrialCondition.FAILED,
+                traceback.format_exc(limit=20),
+                failure_kind=faults.classify_exception(e),
+            )
 
     def _execute_with_retry(self, exp: Experiment, trial: Trial, mesh):
         """Bounded re-execution of one trial slot; both retry families share

@@ -10,7 +10,19 @@ import threading
 from typing import Any, Callable, NamedTuple
 
 import torch
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_flatten, tree_map
+
+from katib_tpu_torch.parallel import collectives
+from katib_tpu_torch.parallel.mesh import (
+    TRIAL_AXIS,
+    Sharded,
+    home_value,
+    on_data_axis,
+    piece,
+    shard_members,
+    trial_axis_size,
+    trial_sharding,
+)
 
 
 class TrainState(NamedTuple):
@@ -46,14 +58,31 @@ def make_train_step(loss_fn: Callable[[dict, Any], torch.Tensor], tx) -> Callabl
     return step
 
 
-def make_eval_step(metric_fn: Callable[[dict, Any], dict]) -> Callable:
-    """``evaluate(params, batch) -> metrics`` without autograd."""
+def make_eval_step(metric_fn: Callable[[dict, Any], dict], mesh=None) -> Callable:
+    """``evaluate(params, batch) -> metrics`` without autograd.
 
-    def evaluate(params: dict, batch) -> dict:
-        with torch.no_grad():
-            return metric_fn(params, batch)
+    With a ``mesh`` (``katib_tpu/parallel/train.py:214``) the batch lies on
+    the mesh's data axis (plain tensors are placed there), the parameters
+    are broadcast from their home copy, ``metric_fn`` runs once per replica
+    on its chunk, and each metric comes back once, on the home device, as
+    the mean over the replicas: ``metric_fn`` returns batch means, and the
+    chunks are equal, so that is the mean over the global batch."""
+    if mesh is None:
+        def evaluate(params: dict, batch) -> dict:
+            with torch.no_grad():
+                return metric_fn(params, batch)
 
-    return evaluate
+        return evaluate
+
+    def evaluate_sharded(params: dict, batch) -> dict:
+        batch = on_data_axis(batch, mesh)
+        with torch.no_grad(), mesh.on_streams():
+            ps = collectives.broadcast(home_value(params), mesh)
+            outs = mesh.run(lambda r: metric_fn(ps[r], piece(batch, r)))
+            return {k: collectives.reduce_to_home([o[k] / mesh.size for o in outs], mesh)
+                    for k in outs[0]}
+
+    return evaluate_sharded
 
 
 # -- vectorized trial cohorts -------------------------------------------------
@@ -93,7 +122,8 @@ class _BuildCounter:
 cohort_build_counter = _BuildCounter()
 
 
-def make_cohort_train_step(loss_fn: Callable[[dict, Any], torch.Tensor], tx) -> Callable:
+def make_cohort_train_step(loss_fn: Callable[[dict, Any], torch.Tensor], tx,
+                           mesh=None) -> Callable:
     """``step(states, batch) -> (states, {"loss": [K]})`` over a whole cohort
     (``katib_tpu/parallel/train.py:125``).
 
@@ -108,7 +138,15 @@ def make_cohort_train_step(loss_fn: Callable[[dict, Any], torch.Tensor], tx) -> 
 
     Divergence is contained per member: a row whose loss is non-finite
     keeps its previous state (``torch.where`` on the device, no host
-    read), so one blown-up member never poisons the rest."""
+    read), so one blown-up member never poisons the rest.
+
+    With a ``mesh`` whose ``trial`` axis has size T > 1, the states lie split
+    over ``trial`` (``parallel/mesh.py::shard_members``; K a multiple of T,
+    plain states are split on entry) and the step returns them so: each
+    replica steps the K/T members of its trial coordinate, with the batch
+    broadcast to it and no collective between members, and the ``[K]``
+    metrics are gathered on the home device in member order.  A mesh
+    without a trial axis (or of size 1) steps as no mesh does."""
     cohort_build_counter.bump()
     losses_of = torch.func.vmap(loss_fn, in_dims=(0, None))
 
@@ -125,7 +163,24 @@ def make_cohort_train_step(loss_fn: Callable[[dict, Any], torch.Tensor], tx) -> 
         kept = tree_map(lambda n, o: torch.where(member_view(ok, n), n, o), new, states)
         return kept, {"loss": loss}
 
-    return step
+    if mesh is None or trial_axis_size(mesh) <= 1:
+        return step
+
+    placement = trial_sharding(mesh)
+    rows = [g[0] for g in zip(*mesh.groups(TRIAL_AXIS))]  # one entry per trial coordinate
+
+    def sharded_step(states, batch):
+        if not isinstance(tree_flatten(states)[0][0], Sharded):
+            states = shard_members(states, mesh)
+        with mesh.on_streams():
+            batches = collectives.broadcast(batch, mesh)
+            outs = mesh.run(lambda r: step(piece(states, r), batches[r]))
+            new = tree_map(lambda *ps: Sharded(ps, placement), *[o[0] for o in outs])
+            metrics = {k: torch.cat([outs[r][1][k].to(mesh.home) for r in rows])
+                       for k in outs[0][1]}
+        return new, metrics
+
+    return sharded_step
 
 
 def make_cohort_eval_step(metric_fn: Callable[[dict, Any], dict]) -> Callable:

@@ -32,7 +32,8 @@ registry on the padded-K cohort signature (``compile/registry.py``), as a
 singleton's is.  Left out of the JAX runner: cost publication and the
 artifact fetch of a step program (the port's step has no serialized form),
 and the elastic degradation of a trial-sharded mesh (ROADMAP Queue 1 item
-9; a cohort runs on one device, and a mesh raises).
+9b; a cohort runs on one device: a vectorized cohort over a mesh raises, and
+``run_cohort`` given a mesh runs its members one by one on it).
 """
 
 from __future__ import annotations
@@ -106,7 +107,8 @@ class CohortContext:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "a cohort over a trial-axis mesh (katib_tpu/parallel/mesh.py), not ported yet"
+                "a cohort over a trial-axis mesh (katib_tpu/parallel/mesh.py), not ported yet "
+                "(ROADMAP item 9b)"
             )
         self.members = list(members)
         self.params_list = [t.params() for t in self.members]
@@ -339,7 +341,8 @@ def run_cohort(
     ``cuda``); returns a per-trial-name result map.  Never raises: a
     cohort-path failure falls back to serial per-member execution, and
     member failures are isolated results.  A ``mesh`` runs the members
-    serially, where ``run_trial`` fails each for it."""
+    serially, each through ``run_trial`` on it (a vectorized cohort over a
+    mesh is ROADMAP item 9b)."""
     results: dict[str, TrialResult] = {}
     if not trials:
         return results

@@ -12,8 +12,8 @@ function ``train_fn(ctx)`` and ``TrialContext`` is its whole contract:
 - ``ctx.should_stop()``    — cooperative early-stopping check
 - ``ctx.checkpoint_dir``   — per-trial checkpoint directory
 - ``ctx.device``           — the device the trial runs on (``None`` = ``cuda``)
-- ``ctx.mesh``             — the device mesh; ``None`` is one device, the
-                             only layout the port runs yet
+- ``ctx.mesh``             — the device mesh (``parallel/mesh.py``); ``None``
+                             is one device
 
 The port keeps its own call form: ``params`` is the first positional
 argument, so a trial can be driven by hand (``TrialContext({...},

@@ -23,8 +23,9 @@ jobs on experiment completion, ``experiment_controller.go:362-403``).
 Each white-box trial's first step is classified warm or cold against the
 shape registry (``compile/registry.py``; warm means this process warmed the
 signature before), and :func:`init_compile_cache` wires the directory the
-registry and the local artifact tier persist to.  A trial mesh raises, and
-the JAX runner's live roofline (``costmodel``) is not ported.
+registry and the local artifact tier persist to.  A trial mesh reaches the
+train_fn as ``ctx.mesh`` (``parallel/mesh.py``); the JAX runner's live
+roofline (``costmodel``) is not ported.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import traceback
 
 from katib_tpu_torch.core.types import MetricsCollectorKind, Trial, TrialCondition
 from katib_tpu_torch.earlystop.rules import RuleEvaluator
+from katib_tpu_torch.parallel.mesh import Mesh, serial_mesh
 from katib_tpu_torch.runner.context import TrialContext, TrialEarlyStopped
 from katib_tpu_torch.runner.metrics import parse_json_lines, parse_text_lines_fast
 from katib_tpu_torch.store.base import ObservationStore
@@ -133,23 +135,24 @@ def run_trial(
     ``watchdog`` (``utils.watchdog.Watchdog``) arms hang detection when the
     trial carries ``progress_deadline_seconds``; ``drain_event`` is the
     orchestrator's checkpoint-and-exit request (preemption SIGTERM) — both
-    observable to the train_fn through its context.  A ``mesh`` raises:
-    the port runs each trial on one device."""
+    observable to the train_fn through its context.  A ``mesh`` reaches
+    the train_fn as ``ctx.mesh`` (a trial-axis-only mesh partitions cohort
+    members, not tensors, so a singleton trial drops it: ``serial_mesh``);
+    a black-box trial ignores it, as in the JAX package."""
     evaluator = RuleEvaluator(trial.spec.early_stopping_rules, objective)
     try:
         if injector is not None:
             injector.on_trial_attempt(trial)
             injector.apply_metrics_delay(trial, stop_event)
         if mesh is not None:
-            raise NotImplementedError(
-                "a trial mesh (katib_tpu/parallel/mesh.py): the port runs each "
-                "trial on one device"
-            )
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"a trial mesh is a parallel.mesh.Mesh, got {mesh!r}")
+            mesh = serial_mesh(mesh)
         if trial.spec.train_fn is not None:
             return _run_whitebox(
                 trial, store, evaluator, objective, stop_event,
                 injector=injector, watchdog=watchdog, drain_event=drain_event,
-                device=device,
+                device=device, mesh=mesh,
             )
         if trial.spec.command:
             return _run_blackbox(
@@ -192,6 +195,7 @@ def _run_whitebox(
     watchdog=None,
     drain_event: threading.Event | None = None,
     device=None,
+    mesh=None,
 ) -> TrialResult:
     hang_event = threading.Event()
     compile_hang_event = threading.Event()
@@ -226,7 +230,7 @@ def _run_whitebox(
     # process had warmed the program before
     from katib_tpu_torch.compile import registry as compile_registry
 
-    first_step_sig = compile_registry.trial_signature(trial.spec.train_fn, trial)
+    first_step_sig = compile_registry.trial_signature(trial.spec.train_fn, trial, mesh)
     started_holder = [get_clock().perf_counter()]
     first_step: dict = {}
 
@@ -252,6 +256,7 @@ def _run_whitebox(
         trial.params(),
         checkpoint_dir=trial.checkpoint_dir,
         device=device,
+        mesh=mesh,
         trial_name=trial.name,
         store=store,
         evaluator=evaluator,

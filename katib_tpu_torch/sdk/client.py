@@ -10,8 +10,9 @@ client drives the in-process orchestrator directly — same surface, no
 cluster.
 
 Trials run on ``device``: ``cuda`` unless the caller names the CPU.  A
-``mesh`` raises ``NotImplementedError``: the port runs each trial on one
-GPU, and multi-GPU meshes are not ported yet.
+``mesh`` (``parallel/mesh.py``) reaches the orchestrator, and each trial
+gets it as ``ctx.mesh``; a ``trial`` axis > 1 raises ``NotImplementedError``
+(ROADMAP item 9b).
 """
 
 from __future__ import annotations
@@ -34,14 +35,6 @@ from katib_tpu_torch.core.types import (
 from katib_tpu_torch.orchestrator.orchestrator import Orchestrator
 from katib_tpu_torch.sdk.search import make_parameters
 from katib_tpu_torch.store.base import ObservationStore
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the SDK's mesh= needs multi-GPU trial meshes, which the port "
-            "does not have yet; each trial runs on one device"
-        )
 
 
 def _wrap_objective(objective: Callable, metric_name: str) -> Callable:
@@ -150,13 +143,13 @@ class KatibClient:
         mesh=None,
         device=None,
     ):
-        _refuse_mesh(mesh)
         self._orchestrators: dict[str, Orchestrator] = {}
         self._experiments: dict[str, Experiment] = {}
         self._threads: dict[str, threading.Thread] = {}
         self._errors: dict[str, BaseException] = {}
         self._store = store
         self._workdir = workdir
+        self._mesh = mesh
         self._device = device
         self._lock = threading.Lock()
 
@@ -170,7 +163,8 @@ class KatibClient:
                 spec.name
             ].condition.is_terminal():
                 raise ValueError(f"experiment {spec.name!r} already running")
-            orch = Orchestrator(store=self._store, workdir=self._workdir, device=self._device)
+            orch = Orchestrator(store=self._store, workdir=self._workdir, mesh=self._mesh,
+                                device=self._device)
             exp = Experiment(spec=spec)
             self._orchestrators[spec.name] = orch
             self._experiments[spec.name] = exp
@@ -267,7 +261,6 @@ def tune(
 ) -> Experiment:
     """One-call tuning without instantiating a client — the module-level
     convenience the reference exposes as ``KatibClient().tune(...)``."""
-    _refuse_mesh(mesh)
     spec = make_experiment_spec(name, search_space, objective=objective, **kwargs)
-    orch = Orchestrator(store=store, workdir=workdir, device=device)
+    orch = Orchestrator(store=store, workdir=workdir, mesh=mesh, device=device)
     return orch.run(spec)

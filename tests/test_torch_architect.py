@@ -140,6 +140,34 @@ def test_search_step_matches_jax(setup, unrolled):
                                        err_msg=f"step {step} alpha_grad")
 
 
-def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tarch.make_search_step(lambda w, a, b: None, tarch.DartsHyper(), mesh=object())
+def test_mesh_is_not_ported(setup):
+    """Ported since: on a {data: 2} mesh of CPU entries (3 images per
+    replica) the sharded step is the step of the global batch, so it follows
+    the JAX package's single-device steps as the port's own steps do (rtol
+    1e-4; alpha gradient rtol 1e-3 / atol 1e-6)."""
+    import copy
+
+    from katib_tpu_torch.parallel.collectives import replica_index
+    from katib_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"data": 2}, devices=["cpu"] * 2)
+    net = DartsNetwork(**CFG, remat=False, dtype=torch.float32)
+    nets = [net, copy.deepcopy(net)]  # one per replica: functional_call rebinds parameters
+
+    def loss_fn(w, a, batch):
+        logits = torch.func.functional_call(nets[replica_index()], w, (batch[0], a))
+        return cross_entropy_loss(logits, batch[1])
+
+    hyper = tarch.DartsHyper(total_steps=10, debug_alpha_grad=True)
+    step = tarch.make_search_step(loss_fn, hyper, mesh)
+    state = tarch.init_search_state(
+        state_dict_from_flax(setup["params"], net), alphas_from_jax(setup["alphas"]), hyper)
+    want = _jax_run(setup, True)
+    for i, (train, val) in enumerate(setup["batches"]):
+        state, g = step(state, tuple(map(torch.from_numpy, train)),
+                        tuple(map(torch.from_numpy, val)))
+        for name in ("train_loss", "val_loss", "grad_norm", "w_lr"):
+            np.testing.assert_allclose(float(g[name]), float(want[i][name]), rtol=1e-4,
+                                       err_msg=f"step {i} {name}")
+        for ga, wa in zip(g["alpha_grad"], want[i]["alpha_grad"]):
+            np.testing.assert_allclose(ga.numpy(), np.asarray(wa), rtol=1e-3, atol=1e-6)

@@ -319,8 +319,22 @@ def test_child_refuses_unknown_ops_and_the_safe_conv():
         with pytest.raises(ValueError):
             jchild.child_from_arc(jctl.arc_from_json([[0]], 1), operations=(bad,)).init(
                 jax.random.PRNGKey(0), jnp.zeros((1, 4, 4, 3)))
-    with pytest.raises(NotImplementedError, match="safe_conv"):
-        tchild.child_from_arc(tctl.arc_from_json([[2]], 1), safe_conv=True)
+    # safe_conv is accepted and keeps the native depthwise form: the same
+    # parameters and, in float32, the flax child's shift-MAC output (1e-5)
+    rows = [[2], [3, 1]]
+    jnet = jchild.child_from_arc(jctl.arc_from_json(rows, 2), channels=8, num_classes=4,
+                                 safe_conv=True).clone(dtype=jnp.float32)
+    tnet = tchild.child_from_arc(tctl.arc_from_json(rows, 2), channels=8, num_classes=4,
+                                 dtype=torch.float32, safe_conv=True)
+    native = tchild.child_from_arc(tctl.arc_from_json(rows, 2), channels=8, num_classes=4,
+                                   dtype=torch.float32)
+    assert [k for k, _ in tnet.named_parameters()] == [k for k, _ in native.named_parameters()]
+    x, _ = _child_inputs()
+    params = jax.device_get(jax.jit(jnet.init)(jax.random.PRNGKey(0), jnp.asarray(x)))
+    tnet.load_state_dict(enas_state_dict_from_flax(params, tnet))
+    got = tnet(torch.from_numpy(x)).detach()
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax.jit(jnet.apply)(params, jnp.asarray(x))),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_conversion_refuses_a_tree_of_another_arc():

@@ -213,6 +213,60 @@ def test_port_imports_and_steps_with_jax_and_katib_tpu_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_mesh_path_runs_with_jax_and_katib_tpu_blocked():
+    """The mesh path's modules (``parallel/{mesh,collectives,distributed,
+    ring_attention}.py``, ``entry.py``) import, and one sharded DARTS step on
+    a ``{data: 2, model: 2}`` grid of CPU entries and one ring-attention
+    step (forward and backward) on ``{seq: 4}`` run, with JAX and the JAX
+    package unimportable."""
+    script = textwrap.dedent(f"""
+        import sys
+        for name in {BANNED!r}:
+            sys.modules[name] = None
+        import copy
+        import torch
+        import katib_tpu_torch.entry
+        import katib_tpu_torch.parallel.distributed
+        from katib_tpu_torch.nas.darts.architect import DartsHyper, init_search_state, make_search_step
+        from katib_tpu_torch.nas.darts.model import DartsNetwork, init_alphas
+        from katib_tpu_torch.ops.flash_attention import reference_attention
+        from katib_tpu_torch.parallel.collectives import replica_index
+        from katib_tpu_torch.parallel.mesh import make_mesh, shard_batch
+        from katib_tpu_torch.parallel.ring_attention import make_sequence_parallel_attention
+        from katib_tpu_torch.parallel.train import cross_entropy_loss
+        mesh = make_mesh({{"data": 2, "model": 2}}, devices=["cpu"] * 4)
+        net = DartsNetwork(primitives=("skip_connection", "separable_convolution_3x3"),
+                           init_channels=2, num_layers=2, n_nodes=1, num_classes=3,
+                           dtype=torch.float32, remat=False)
+        gen = torch.Generator().manual_seed(0)
+        net.reset_parameters(gen)
+        nets = [net] + [copy.deepcopy(net) for _ in range(3)]
+        loss = lambda w, a, b: cross_entropy_loss(
+            torch.func.functional_call(nets[replica_index()], w, (b[0], a)), b[1])
+        hyper = DartsHyper(total_steps=1)
+        state = init_search_state(dict(net.named_parameters()), init_alphas(1, 2, gen), hyper)
+        batch = shard_batch((torch.randn(4, 8, 8, 3, generator=gen), torch.tensor([0, 2, 1, 0])),
+                            mesh)
+        state, metrics = make_search_step(loss, hyper, mesh)(state, batch, batch)
+        assert state.step == 1 and bool(torch.isfinite(metrics["train_loss"]))
+        ring = make_sequence_parallel_attention(make_mesh({{"seq": 4}}, devices=["cpu"] * 4))
+        q, k, v = (torch.randn(1, 2, 32, 8, generator=gen, requires_grad=True) for _ in range(3))
+        out = ring(q, k, v)
+        out.sum().backward()
+        assert torch.allclose(out, reference_attention(q, k, v), atol=1e-5)
+        assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+        leaked = sorted(n for n in sys.modules if n.split(".")[0] in {BANNED!r} and sys.modules[n])
+        assert not leaked, leaked
+        print("ok")
+    """)
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"},
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_suggestion_service_and_composer_child_run_with_jax_and_katib_tpu_blocked(tmp_path):
     """The suggestion service, ``remote`` against it (tpe, and the shipped
     ENAS spec's first round), and the composer's ``suggest-server`` child

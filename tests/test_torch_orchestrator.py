@@ -32,6 +32,8 @@ from katib_tpu_torch.compile.prewarm import _PREWARM_ATTR as PREWARM_ATTR
 from katib_tpu_torch.orchestrator.orchestrator import Orchestrator
 from katib_tpu_torch.orchestrator.resume import experiment_from_dict as t_from_dict
 from katib_tpu_torch.orchestrator.status import read_status as t_read_status
+from katib_tpu_torch.parallel.distributed import SliceAllocator
+from katib_tpu_torch.parallel.mesh import make_mesh
 from katib_tpu_torch.runner.cohort import COHORT_ATTR
 from katib_tpu_torch.runner.trial_runner import run_trial
 from katib_tpu_torch.store.base import MemoryObservationStore
@@ -292,9 +294,15 @@ def _with_attr(attr):
 
 
 REFUSALS = {
-    "orchestrator-mesh": dict(match="mesh", orch_kw={"mesh": object()}),
-    "config-mesh": dict(match="mesh", orch_kw={
+    # meshes and slice leases are ported: an orchestrator mesh, the config's
+    # mesh axes (over CPU entries on a CPU orchestrator) and a fixed slice
+    # allocator run; a trial axis (sharded cohorts) still raises
+    "orchestrator-mesh": dict(match=None, orch_kw={
+        "mesh": make_mesh({"data": 2}, devices=["cpu"] * 2)}),
+    "config-mesh": dict(match=None, orch_kw={
         "config": KatibConfig.from_dict({"init": {"mesh_axes": {"data": 2}}})}),
+    "trial-axis-mesh": dict(match="trial axis .* mesh", orch_kw={
+        "mesh": make_mesh({"trial": 2}, devices=["cpu"] * 2)}),
     # vectorized cohorts are ported: a declared twin and a width run (the
     # keyless proposals stay singletons, as in the JAX package)
     "cohort": dict(match=None, cohort_width=2, train_fn=_with_attr(COHORT_ATTR)),
@@ -311,7 +319,8 @@ REFUSALS = {
                            command=[sys.executable, "-c", "print('accuracy=0.5')"],
                            metrics_collector=ttypes.MetricsCollectorSpec(
                                kind=ttypes.MetricsCollectorKind.STDOUT)),
-    "slice-allocator": dict(match="slice allocator", orch_kw={"slice_allocator": object()}),
+    "slice-allocator": dict(match=None, orch_kw={
+        "slice_allocator": SliceAllocator(1, devices=["cpu"] * 2)}),
     "profiler": dict(match="profile", orch_kw={
         "config": KatibConfig.from_dict({"init": {"enable_profiler": True}})}),
     # the remote suggester is ported: what it refuses is the JAX package's
@@ -334,11 +343,14 @@ def _lifted(case, kw, tmp_path, monkeypatch):
 
     for key, value in kw.pop("env", {}).items():
         monkeypatch.setenv(key, here(value))
+    orch_kw = kw.pop("orch_kw", {})
     spec = grid_spec("torch", "lifted", max_trial_count=2,
                      **{k: here(v) for k, v in kw.items()})
-    orch = Orchestrator(workdir=str(tmp_path / "runs"), device="cpu")
+    orch = Orchestrator(workdir=str(tmp_path / "runs"), device="cpu", **orch_kw)
     exp = orch.run(spec)
     assert exp.succeeded_count == 2, exp.message
+    if case == "slice-allocator":  # every lease went back
+        assert orch.slice_allocator.available() == orch.slice_allocator.n_slices == 2
     if case == "prewarm":
         # the worker took the group's signature (the twin, or a trial that
         # got there first, warmed it) and nothing failed

@@ -257,12 +257,31 @@ def test_a_command_spec_matches_the_jax_sdks():
 
 @pytest.mark.parametrize("entry", ["tune", "client"])
 def test_a_mesh_raises_naming_multi_gpu(entry, tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        if entry == "tune":
-            tune(lambda p: p["x"], {"x": (0.0, 1.0)}, workdir=str(tmp_path), device="cpu",
-                 mesh=object(), max_trial_count=1)
-        else:
-            KatibClient(workdir=str(tmp_path), device="cpu", mesh=object())
+    """The SDK's ``mesh=`` reaches every trial as ``ctx.mesh`` (multi-GPU
+    meshes are ported); a trial axis > 1 (sharded cohorts) raises naming
+    ROADMAP item 9b, as the orchestrator does."""
+    from katib_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"data": 2}, devices=["cpu"] * 2)
+    seen = []
+
+    def objective(params, ctx):
+        seen.append(ctx.mesh)
+        return params["x"]
+
+    kw = dict(max_trial_count=2, parallel_trial_count=1)
+    if entry == "tune":
+        exp = tune(objective, {"x": (0.0, 1.0)}, workdir=str(tmp_path), device="cpu",
+                   mesh=mesh, **kw)
+    else:
+        client = KatibClient(workdir=str(tmp_path), device="cpu", mesh=mesh)
+        exp = client.tune("sdk-mesh", objective, {"x": (0.0, 1.0)}, **kw)
+    assert exp.condition is ExperimentCondition.MAX_TRIALS_REACHED
+    assert seen == [mesh, mesh]
+    trial_mesh = make_mesh({"trial": 2}, devices=["cpu"] * 2)
+    with pytest.raises(NotImplementedError, match="9b"):
+        tune(lambda p: p["x"], {"x": (0.0, 1.0)}, workdir=str(tmp_path / "t"), device="cpu",
+             mesh=trial_mesh, max_trial_count=1, name="sdk-trial-mesh")
 
 
 def test_tune_runs_on_cuda_unless_told_otherwise(tmp_path, monkeypatch):

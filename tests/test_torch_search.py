@@ -200,8 +200,17 @@ def test_unported_settings_raise(tmp_path, setting):
 
 
 def test_trial_mesh_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        darts_trial(_ctx(tmp_path, SMALL, mesh=object()))
+    """A trial mesh runs the sharded search (``test_torch_sharded_search.py``
+    holds it to the JAX package's); only what the mesh path lacks raises."""
+    from katib_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"data": 2}, devices=["cpu"] * 2)
+    ctx = _ctx(tmp_path, SMALL, mesh=mesh)
+    darts_trial(ctx)
+    assert [step for step, _ in ctx.reports] == [0, 1]
+    assert all(np.isfinite(m["loss"]) for _, m in ctx.reports)
+    with pytest.raises(NotImplementedError, match="9b"):
+        darts_trial(_ctx(tmp_path / "loop", {**SMALL, "step_loop": "true"}, mesh=mesh))
 
 
 @pytest.mark.parametrize("spec", ["darts.yaml", "darts-paper-protocol.yaml"])

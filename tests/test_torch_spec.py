@@ -203,14 +203,20 @@ def test_config_loads_as_in_the_jax_package(tmp_path):
 
 
 def test_config_refuses_mesh_axes():
-    cfg = KatibConfig.from_dict({"init": {"mesh_axes": {"data": 2}}})
-    with pytest.raises(NotImplementedError, match="mesh"):
-        cfg.mesh_axes_for("darts")
-    per_algo = KatibConfig.from_dict(
-        {"runtime": {"algorithms": {"grid": {"mesh_axes": {"data": 4}}}}})
+    """Mesh axes resolve as in the JAX config (the port has meshes now):
+    the per-algorithm axes over the ``init`` default."""
+    docs = [{"init": {"mesh_axes": {"data": 2}}},
+            {"runtime": {"algorithms": {"grid": {"mesh_axes": {"data": 4}}}}},
+            {"init": {"mesh_axes": {"data": 2, "seq": 2}},
+             "runtime": {"algorithms": {"darts": {"mesh_axes": {"data": 2, "model": 2}}}}}]
+    for doc in docs:
+        got, want = KatibConfig.from_dict(doc), JKatibConfig.from_dict(doc)
+        for algorithm in ("darts", "grid", "random"):
+            assert got.mesh_axes_for(algorithm) == want.mesh_axes_for(algorithm)
+    assert KatibConfig.from_dict(docs[0]).mesh_axes_for("darts") == {"data": 2}
+    per_algo = KatibConfig.from_dict(docs[1])
     assert per_algo.mesh_axes_for("random") == {}
-    with pytest.raises(NotImplementedError, match="mesh"):
-        per_algo.mesh_axes_for("grid")
+    assert per_algo.mesh_axes_for("grid") == {"data": 4}
 
 
 def test_registry_holds_the_ported_suggesters():

@@ -379,3 +379,40 @@ def test_each_thread_captures_on_a_stream_of_its_own(monkeypatch):
     late.join()
     assert len(made) == 3 and any(got["late"][0][0] is s for s in made)
     assert len(step_loop._free_streams[0]) == 3
+
+
+def test_captures_hold_the_cyclic_collector_off():
+    """A graph capture runs inside ``cyclic_gc_paused``: nested and
+    concurrent holds keep the collector off until the last one ends, and the
+    collector's earlier state comes back."""
+    import gc
+    import threading
+
+    from katib_tpu_torch.nas.darts.step_loop import cyclic_gc_paused
+
+    assert gc.isenabled()
+    inside, release = threading.Event(), threading.Event()
+
+    def other():
+        with cyclic_gc_paused():
+            inside.set()
+            release.wait(5)
+
+    t = threading.Thread(target=other)
+    with cyclic_gc_paused():
+        t.start()
+        inside.wait(5)
+        with cyclic_gc_paused():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    assert not gc.isenabled()  # the other thread still holds it
+    release.set()
+    t.join(5)
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with cyclic_gc_paused():
+            pass
+        assert not gc.isenabled()  # off before, off after
+    finally:
+        gc.enable()

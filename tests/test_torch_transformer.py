@@ -212,10 +212,21 @@ def test_trial_context_has_the_jax_contexts_mesh():
 
 
 def test_mesh_asks_for_sequence_parallelism_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ring/Ulysses"):
-        make_attention_fn(mesh=object())
-    with pytest.raises(NotImplementedError, match="ring/Ulysses"):
-        transformer_trial(TrialContext(TRIAL, device="cpu", mesh=object()))
+    """Ported since: a mesh asks for ring (or Ulysses) sequence parallelism,
+    which equals the plain attention (1e-5), and the trial runs on it
+    (``test_torch_ring_attention.py`` holds both to the JAX package's)."""
+    from katib_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"seq": 2}, devices=["cpu"] * 2)
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 2, 16, 8, generator=g) for _ in range(3))
+    for strategy in ("ring", "ulysses"):
+        torch.testing.assert_close(make_attention_fn(mesh, strategy)(q, k, v),
+                                   make_attention_fn()(q, k, v), rtol=0, atol=1e-5)
+    ctx = TrialContext(TRIAL, device="cpu", mesh=mesh)
+    transformer_trial(ctx)
+    assert [s for s, _ in ctx.reports] == [0, 2]
+    assert all(np.isfinite(v) for _, m in ctx.reports for v in m.values())
 
 
 # -- weights carried across ---------------------------------------------------
