@@ -35,13 +35,17 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 8. drive the CLI: ``python -m katib_tpu_torch run examples/nas/darts.yaml``
    as shipped, in a fresh interpreter, under the async engine, SIGTERM once
    the trial is journaled running (the drain lands at epoch 0's report;
-   exit 75), then ``--resume`` to its end, ``fsck`` clean and each epoch
-   reported once; ``python -m katib_tpu_torch doctor`` beside the resumed
+   exit 75), then ``--resume`` to its end, ``fsck`` clean (the verb in
+   this interpreter since PR 21) and each epoch reported once; ``python -m
+   katib_tpu_torch doctor`` beside the resumed
    run (the native runtime built);
 9. drive the second main path: ``transformer_trial`` at the long-context
    width (vocab 256, d_model 512, 8 heads, 4 layers, seq 4096, batch 4,
-   bf16) for 10 steps, with the three flash-attention launch counts set to
-   0 just before and read just after;
+   bf16) for 10 steps of its captured train step, with the three
+   flash-attention launch counts set to 0 just before and read just after;
+   then the train step replayed from its CUDA graph against the same step
+   run eagerly from the same weights (4 steps, losses and parameters bit
+   for bit, 12 flash launches per replay), each profiled;
 10. hold the HP-tuning trial's classifier epoch replayed from its captured
    step graph against the same epoch stepped eagerly, from the same weights
    (``SmallCNN`` with 32 channels in bf16, batch 64, 8,192 synthetic MNIST
@@ -83,9 +87,12 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``ControllerConfig()``'s defaults with 50 REINFORCE steps a round;
    children of 32 channels on 8,192 synthetic CIFAR-10 images, batch 128,
    3 epochs; two rounds of 4 trials, 4 at a time): each child's capture,
-   epochs, images/s and accuracy, the controller's trainings, one REINFORCE
-   step and one arc's sampling timed and profiled, a child's captured epoch
-   profiled, peak memory;
+   epochs, images/s and accuracy, the controller's trainings; the
+   controller's captured REINFORCE step and sampler replayed against an
+   eager twin from the same state and generator (a round of 50 steps and 8
+   arcs, bit for bit), one replayed and one eager REINFORCE step profiled,
+   one arc's sampling timed; a child's captured epoch profiled, peak
+   memory;
 19. ``enas cli:`` ``python -m katib_tpu_torch run examples/nas/enas.yaml`` as
    shipped: 12 trials ``Succeeded`` in rounds 0, 1 and 2 of 4, the
    controller trained between rounds, ``fsck`` clean;
@@ -151,9 +158,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    its mixed-op launches per replay; its replayed step's wall, images/s,
    capture seconds and peak memory beside the unfused step's; then a copy
    of ``examples/nas/darts.yaml`` with ``fused: true`` at the search width
-   (512 images, 1 epoch, its operations widened to the 7 primitives a
+   (256 images, 1 epoch, its operations widened to the 7 primitives a
    spec can name) through ``Orchestrator.run``: ``Succeeded``, ``fsck``
-   clean, launches as predicted;
+   clean, launches as predicted (2 timed epochs, not 3, and 256 images,
+   not 512, since PR 21, for the ``profile:`` phase's seconds);
 27. ``native:`` ``darts_trial`` with ``KATIB_NATIVE_LOADER=1`` at the search
    width on 3 eager steps fed by the C++ loaders (the loader's wait per
    batch beside each step's wall); ``python -m katib_tpu_torch db-manager
@@ -195,7 +203,19 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    were cut from ``orchestrator:`` (512 images in its 2 epochs, not
    1,024), the ``fused:`` trial (512 images, not 1,024) and its own DARTS
    trial (1 epoch).  Every path that counts its step adds the
-   count's launches to its launch prediction (``counted_launches``).
+   count's launches to its launch prediction (``counted_launches``);
+30. ``profile:`` ``python -m katib_tpu_torch profile
+   examples/hp-tuning/cohort-prewarm.yaml`` on the card (the prewarm twin
+   traced into a Chrome trace); ``darts.yaml`` at the search width (128
+   images, one epoch of one step) as two search trials at once through
+   ``Orchestrator.run`` with ``init.enable_profiler``: one traced, the
+   other not, the trace's mixed-op kernels per graph launch (190, one
+   replay of the captured step), the card's busy share over the traced
+   trial, both trials' walls; ``profile --list`` of the workdir;
+31. ``ui:`` ``python -m katib_tpu_torch ui --port 0`` on loopback over that
+   workdir (``/api/experiments``, the trials, ``/api/status``, the page),
+   then ``start_ui`` in this process, whose ``/api/status`` serves the
+   capture of phase 30.
 
 Every run of the async engine prints its ``async_stats`` (a CLI run prints
 them on its ``async engine:`` line) and fails the script if a loop
@@ -217,6 +237,7 @@ import atexit
 import concurrent.futures
 import contextlib
 import functools
+import io
 import json
 import math
 import os
@@ -224,6 +245,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -1083,7 +1105,14 @@ def phase_cli() -> None:
     check(any(ln.startswith(f"optimal trial {trial}: accuracy=") for ln in lines),
           "the CLI printed the optimal accuracy")
 
-    rc, out = _wait(_cli("fsck", os.path.join(workdir, name), log=log), log, 120)
+    # the fsck verb in this interpreter (a fresh one before PR 21, cut for the
+    # profile phase's seconds)
+    from katib_tpu_torch.cli import main as cli_main
+
+    fscked = io.StringIO()
+    with contextlib.redirect_stdout(fscked):
+        rc = cli_main(["fsck", os.path.join(workdir, name)])
+    out = fscked.getvalue()
     print(f"cli: fsck exit {rc}: {out.strip().splitlines()[-1]}", flush=True)
     check(rc == 0 and "result: consistent" in out, f"fsck:\n{out}")
 
@@ -1099,6 +1128,7 @@ def phase_transformer(torch, fa, kernel_ms: float) -> dict[str, int]:
     launches.  ``kernel_ms``: one forward + dq + dk/dv at its attention
     shape, to set beside the step time."""
     from katib_tpu_torch.models import transformer_trial
+    from katib_tpu_torch.nas.darts.step_loop import WARMUP_STEPS
     from katib_tpu_torch.runner.context import TrialContext
 
     params = {**long_context()[0], "steps": TRANSFORMER_STEPS}
@@ -1112,9 +1142,13 @@ def phase_transformer(torch, fa, kernel_ms: float) -> dict[str, int]:
     wall = time.perf_counter() - t0
     launches = {"fwd": fa.fwd_launches, "dq": fa.dq_launches, "dkv": fa.dkv_launches}
 
-    # train_lm evaluates after step 0 and every 10th step, and after the last
+    # train_lm evaluates after step 0 and every 10th step, and after the last;
+    # its step is captured: the warm-up step's launches are real, then each
+    # replay counts the capture's
     evals = sum(1 for s in range(steps) if s % 10 == 0 or s == steps - 1)
-    predicted = {"fwd": layers * (steps + evals), "dq": layers * steps, "dkv": layers * steps}
+    stepped = steps + WARMUP_STEPS
+    predicted = {"fwd": layers * (stepped + evals), "dq": layers * stepped,
+                 "dkv": layers * stepped}
     times = ctx.step_times
     median = statistics.median(times[1:])
     width = ", ".join(f"{k} {v}" for k, v in params.items())
@@ -1136,7 +1170,73 @@ def phase_transformer(torch, fa, kernel_ms: float) -> dict[str, int]:
     first, last = ctx.reports[0][1]["eval_loss"], ctx.reports[-1][1]["eval_loss"]
     check(last < first, f"eval_loss did not fall: {first} -> {last}")
     check(launches == predicted, f"flash kernels launched {launches}, the path predicts {predicted}")
+    lm_replay_vs_eager(torch, fa, params)
     return launches
+
+
+LM_STEPS_COMPARED = 4  # replayed steps held against eager steps, the first captures
+PROFILED = 6  # steps a profile runs after its warm-up step: 3 timed, 3 traced
+
+
+def lm_replay_vs_eager(torch, fa, params: dict) -> None:
+    """The long-context LM's train step captured and replayed against the
+    same step run eagerly on the card, from the same weights on the same
+    batches: every loss and parameter bit-equal, 12 flash launches per
+    replay; each step's wall, and a profile of each."""
+    from katib_tpu_torch.models.transformer import (
+        LMTrainStep, TransformerLM, make_attention_fn, markov_dataset)
+    from katib_tpu_torch.profiling import profile_step
+
+    c, n = params, LM_STEPS_COMPARED
+    data = torch.from_numpy(markov_dataset(c["vocab_size"], c["batch_size"] * (n + 1 + PROFILED),
+                                           c["seq_len"], seed=3)).long().cuda()
+    batches = data.split(c["batch_size"])
+    runs = {}
+    for capture in (False, True):
+        model = TransformerLM(vocab_size=c["vocab_size"], d_model=c["d_model"],
+                              n_heads=c["n_heads"], n_layers=c["n_layers"],
+                              max_seq_len=c["seq_len"], attn_fn=make_attention_fn())
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.cuda()
+        step = LMTrainStep(model, lr=3e-3, steps=n + 20, capture=capture)
+        losses, walls = [], []
+        for b in batches[:n]:
+            t0 = time.perf_counter()
+            losses.append(step(b))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+        print(f"transformer: profile of one {'replayed' if capture else 'eager'} LM train step:",
+              flush=True)
+        rest = iter(batches[n:])
+        prof = profile_step(lambda: step(next(rest)), steps=PROFILED // 2, warmup=1, top=5,
+                            kernel_names=("flash_fwd_kernel", "flash_dq_kernel",
+                                          "flash_dkv_kernel"))
+        runs[capture] = {"losses": torch.stack(losses).cpu(), "walls": walls, "prof": prof,
+                         "step": step, "launches": (fa.fwd_launches, fa.dq_launches,
+                                                    fa.dkv_launches),
+                         "params": [p.detach().cpu() for p in model.parameters()]}
+        del model, step
+    eager, graph = runs[False], runs[True]
+    bit_equal = torch.equal(graph["losses"], eager["losses"]) and all(
+        torch.equal(a, b) for a, b in zip(graph["params"], eager["params"]))
+    per_replay = graph["step"].launches_per_replay
+    layers = c["n_layers"]
+    for label, r in (("eager   ", eager), ("replayed", graph)):
+        print(f"transformer: {label} step walls {[round(t, 4) for t in r['walls']]}s; profiled "
+              f"{r['prof'].wall_s:.4f}s = {c['batch_size'] * c['seq_len'] / r['prof'].wall_s:.0f} "
+              f"tokens/s, device busy {r['prof'].busy:.1%}, {r['prof'].kernels:.0f} kernels, "
+              f"{r['prof'].host_ops:.0f} aten operator calls a step", flush=True)
+    print(f"transformer: replayed against eager over {n} steps: losses "
+          f"{[round(float(v), 6) for v in graph['losses']]} bit-equal {bit_equal}; capture "
+          f"{graph['step'].capture_s:.3f}s (warm-up included); flash launches per replay "
+          f"{per_replay}, in the {1 + PROFILED} profiled replays {graph['launches']}", flush=True)
+    check(bit_equal, "the replayed LM train step differs from the eager step")
+    check(per_replay == {"fwd": layers, "dq": layers, "dkv": layers},
+          f"flash launches per replay {per_replay}, the step predicts {layers} of each")
+    check(graph["launches"] == ((1 + PROFILED) * layers,) * 3,
+          f"profiled replays counted {graph['launches']}")
+    check(all(math.isfinite(float(v)) for v in graph["losses"]), "finite losses")
 
 
 def phase_small_reference(torch) -> None:
@@ -1784,13 +1884,13 @@ def phase_enas_width(torch) -> None:
     defaults (8 layers, the six default operations, hidden 64) with 50
     REINFORCE steps a round, children of 32 channels on 8,192 synthetic
     CIFAR-10 images (batch 128, 3 epochs), two rounds of 4 trials, 4 at a
-    time (``enas.yaml`` through the SDK entry with these settings); then a
-    REINFORCE step and one arc's sampling timed and profiled, and a child's
-    captured epoch profiled."""
+    time (``enas.yaml`` through the SDK entry with these settings); then the
+    controller's captured REINFORCE step and sampler held against an eager
+    twin (:func:`enas_replay_vs_eager`), and a child's captured epoch
+    profiled."""
     import yaml
 
     from katib_tpu_torch.nas.enas.child import DEFAULT_OPERATIONS
-    from katib_tpu_torch.nas.enas.controller import arc_to_json
     from katib_tpu_torch.orchestrator import Orchestrator
     from katib_tpu_torch.orchestrator import orchestrator as orch_mod
     from katib_tpu_torch.orchestrator.fsck import fsck_experiment
@@ -1858,31 +1958,7 @@ def phase_enas_width(torch) -> None:
     report = fsck_experiment(os.path.join(workdir, spec.name), repair=False)
     check(report.ok(), f"fsck: {report.lines()}")
 
-    # the controller's round, piece by piece: one arc's sampling (with its
-    # transfer to the host) and one REINFORCE step (a fresh sample and a train step)
-    saved_state, saved_steps = suggester.state, suggester.train_steps
-    suggester.train_steps = 1
-
-    def sample_one():
-        arc, _ = suggester._sample(suggester.state.params, suggester._gen)
-        return arc_to_json(arc)
-
-    sample_one()
-    sample_s = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        sample_one()
-        sample_s.append(time.perf_counter() - t0)
-    print("enas width: profile of one REINFORCE step (a fresh sample and a train step):",
-          flush=True)
-    prof = profile_step(lambda: suggester.train_controller(0.5), steps=5, warmup=2, top=5,
-                        kernel_names=())
-    suggester.state, suggester.train_steps = saved_state, saved_steps
-    print(f"enas width: one arc sampled and sent to the host in {statistics.median(sample_s):.5f}s "
-          f"(median of 20); one REINFORCE step {prof.wall_s:.5f}s, {prof.host_ops:.0f} aten "
-          f"operator calls and {prof.kernels:.0f} kernels, device busy {prof.busy:.1%}; "
-          f"50 steps predicted {50 * prof.wall_s:.3f}s against the trainings' "
-          f"{[round(r['dur'], 4) for r in trains]}s", flush=True)
+    enas_replay_vs_eager(torch, suggester, trains)
 
     first, rec = min(status["trials"].items(), key=lambda kv: kv[1]["start_time"])
     loop, idx = enas_child_loop(torch, json.loads(rec["assignments"]["architecture"]),
@@ -1895,6 +1971,79 @@ def phase_enas_width(torch) -> None:
     print(f"enas width: captured child epoch {prof.wall_s:.4f}s = "
           f"{loop.steps * int(ENAS_CHILD['batch_size']) / prof.wall_s:.0f} images/s, device "
           f"busy {prof.busy:.1%}", flush=True)
+
+
+ENAS_COMPARED_ARCS = 8  # arcs drawn by the captured sampler against eager draws
+
+
+def enas_replay_vs_eager(torch, suggester, trains: list) -> None:
+    """The suggester's captured REINFORCE step and sampler (captured during
+    the run) replayed against an eager twin started from the same state and
+    generator: a round's training of ``train_steps`` steps and
+    ``ENAS_COMPARED_ARCS`` samples, states and arcs bit-equal; then one
+    replayed and one eager REINFORCE step (a fresh sample and a train step)
+    profiled, and one arc's sampling with its transfer to the host."""
+    from katib_tpu_torch.nas.enas import service
+    from katib_tpu_torch.nas.enas.controller import arc_to_json
+    from katib_tpu_torch.profiling import profile_step
+
+    check(sorted(suggester._graphs) == ["reinforce", "sample"],
+          f"the suggester captured {sorted(suggester._graphs)}")
+    eager = service.EnasSuggester(suggester.spec, device="cuda")
+    eager.capture = False
+    torch.cuda.synchronize()
+    torch._foreach_copy_(service._leaves(eager.state), service._leaves(suggester.state))
+    eager._gen.set_state(suggester._gen.get_state())
+    runs = {}
+    for s in (suggester, eager):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.train_controller(0.5)
+        wall = time.perf_counter() - t0
+        arcs = []
+        for _ in range(ENAS_COMPARED_ARCS):
+            with s._own_stream():
+                s._run("sample", s._sample_into)
+                arcs.append(arc_to_json(s.arc))
+        runs[s.capture] = (wall, arcs, [t.cpu() for t in service._leaves(s.state)])
+    (g_wall, g_arcs, g_state), (e_wall, e_arcs, e_state) = runs[True], runs[False]
+    same = g_arcs == e_arcs and all(torch.equal(a, b) for a, b in zip(g_state, e_state))
+    print(f"enas width: a round's {suggester.train_steps} REINFORCE steps replayed in "
+          f"{g_wall:.4f}s against {e_wall:.4f}s eager; state and {ENAS_COMPARED_ARCS} sampled arcs "
+          f"bit-equal {same} ({len({json.dumps(a) for a in g_arcs})} distinct arcs)", flush=True)
+    check(same, "the replayed controller differs from the eager controller")
+
+    saved_steps = suggester.train_steps
+    profs = {}
+    for s in (suggester, eager):
+        s.train_steps = 1
+        kind = "replayed" if s.capture else "eager"
+        print(f"enas width: profile of one {kind} REINFORCE step (a fresh sample and a train "
+              "step):", flush=True)
+        profs[kind] = profile_step(lambda: s.train_controller(0.5), steps=5, warmup=2, top=5,
+                                   kernel_names=())
+
+        def sample_one():
+            with s._own_stream():
+                s._run("sample", s._sample_into)
+                return arc_to_json(s.arc)
+
+        sample_one()
+        sample_s = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            sample_one()
+            sample_s.append(time.perf_counter() - t0)
+        profs[kind + " sample"] = statistics.median(sample_s)
+    suggester.train_steps = saved_steps
+    for kind in ("replayed", "eager"):
+        prof = profs[kind]
+        print(f"enas width: {kind} REINFORCE step {prof.wall_s:.5f}s, {prof.host_ops:.0f} aten "
+              f"operator calls and {prof.kernels:.0f} kernels, device busy {prof.busy:.1%}; one "
+              f"arc sampled and sent to the host in {profs[kind + ' sample']:.5f}s (median of "
+              f"20); {saved_steps} steps predicted {saved_steps * prof.wall_s:.3f}s", flush=True)
+    print(f"enas width: the run's trainings took {[round(r['dur'], 4) for r in trains]}s",
+          flush=True)
 
 
 def phase_enas_cli() -> None:
@@ -2825,7 +2974,9 @@ def phase_remote(torch) -> None:
 # stride-2 edges at 32 channels on 32x32 (the reduction halves the size)
 FUSED_SHAPES = ((1, 16, 32), (2, 32, 32))
 FUSED_F32_ATOL = 1e-4  # float32 with TF32 off: rounding of two summation orders
-FUSED_STEPS, FUSED_EPOCHS = 2, 4  # epoch 0 against eager, epochs 1-3 timed
+# epoch 0 against eager, epochs 1-2 timed (3 timed epochs before PR 21, cut
+# for the profile phase's seconds)
+FUSED_STEPS, FUSED_EPOCHS = 2, 3
 # darts.yaml's operations widened to the four conv primitives the fused plan
 # needs, and the two pools (a spec cannot name "none": 7 primitives)
 FUSED_OPERATIONS = [
@@ -3018,7 +3169,8 @@ def phase_fused(torch, mixed_op) -> None:
     workdir = tempfile.mkdtemp(prefix="chip-smoke-fused-")
     with open(DARTS_YAML) as f:
         doc = yaml.safe_load(f)
-    settings = {**ORCH_SETTINGS, "num_epochs": "1", "fused": "true"}
+    # 256 images (2 steps; 512 before PR 21, cut for the profile phase's seconds)
+    settings = {**ORCH_SETTINGS, "num_epochs": "1", "n_train": "256", "fused": "true"}
     algo = doc["spec"]["algorithm"]
     algo["algorithmSettings"] = [x for x in algo["algorithmSettings"] if x["name"] not in settings]
     algo["algorithmSettings"] += [{"name": k, "value": v} for k, v in settings.items()]
@@ -3664,6 +3816,245 @@ def phase_mesh(torch, mixed_op, fa) -> dict[str, int]:
     return {"mixed_op": sharded["launches"], **flash}
 
 
+# -- the operations layer -----------------------------------------------------
+
+PROFILE_TRAIN = "128"  # images of each profiled darts.yaml trial: 1 step in its epoch
+
+
+def trace_reading(trace_dir: str, kernel: str) -> dict:
+    """What a capture's Chrome trace (``costmodel/profiler.py``) says of the
+    card: its kernels, the device busy share over the trace's span (the
+    union of the kernels' intervals on every stream, over the span from the
+    first event to the last), and ``kernel``'s launches, in all and per
+    CUDA graph launch (a graph's kernels carry its launch's correlation
+    id, an eager kernel its own)."""
+    import collections
+
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    timed = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    kernels = sorted((e for e in timed if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    start = min(e["ts"] for e in timed)
+    end = max(e["ts"] + e["dur"] for e in timed)
+    busy, reach = 0.0, start
+    for e in kernels:
+        lo, hi = max(e["ts"], reach), e["ts"] + e["dur"]
+        if hi > lo:
+            busy, reach = busy + hi - lo, hi
+    named = [e for e in kernels if kernel in e["name"]]
+    per_launch = collections.Counter(e.get("args", {}).get("correlation") for e in named)
+    return {"events": len(events), "span_s": (end - start) / 1e6, "kernels": len(kernels),
+            "busy": busy / max(end - start, 1e-9), "launches": len(named),
+            "per_graph_launch": collections.Counter(n for n in per_launch.values() if n > 1),
+            "graph_launches": sum(1 for e in timed if e.get("name") == "cudaGraphLaunch")}
+
+
+# the verbs the profile phase starts (the ui server, then the profile run),
+# killed at exit if still running
+SERVERS: list[subprocess.Popen] = []
+
+
+@atexit.register
+def stop_servers() -> None:
+    for proc in SERVERS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_profile(torch, mixed_op) -> tuple[str, str]:
+    """The profiler (``costmodel/profiler.py``): ``python -m katib_tpu_torch
+    profile examples/hp-tuning/cohort-prewarm.yaml`` on the card (the
+    prewarm twin traced); ``darts.yaml`` at the search width (128 images, one
+    epoch of one step) as two trials at once through ``Orchestrator.run`` with
+    ``init.enable_profiler``: one trial traced, the other not, the traced
+    trial's Chrome trace read for the mixed-op kernel (per replay of the
+    captured step) and the card's busy share, its wall beside the
+    unprofiled trial's; ``profile --list`` of the workdir.  Starts the
+    ``ui`` verb over the workdir for the ui phase; returns the workdir and
+    the verb's log."""
+    from katib_tpu_torch.cli import main as cli_main
+    from katib_tpu_torch.core.config import KatibConfig
+    from katib_tpu_torch.core.types import Experiment
+    from katib_tpu_torch.nas.darts.model import mixed_op_launches_per_forward
+    from katib_tpu_torch.nas.darts.service import DartsSuggester
+    from katib_tpu_torch.nas.darts.step_loop import WARMUP_STEPS
+    from katib_tpu_torch.orchestrator import Orchestrator
+    from katib_tpu_torch.orchestrator.fsck import fsck_experiment
+    from katib_tpu_torch.suggest.base import SearchExhausted
+
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-profile-")
+    # the ui verb for the ui: phase starts now, so its interpreter's start
+    # overlaps this phase
+    ui_log = os.path.join(workdir, "ui.log")
+    SERVERS.append(_cli("ui", "--workdir", workdir, "--port", "0", log=ui_log))
+    # the spec names a compile cache and an artifact dir under /tmp: here both
+    # live in the workdir (the variables win over the spec)
+    env = {"KATIB_COMPILE_CACHE": os.path.join(workdir, "cc"),
+           "KATIB_ARTIFACT_DIR": os.path.join(workdir, "art")}
+    # the profile verb in a fresh interpreter, beside the DARTS run below
+    log = os.path.join(workdir, "profile.log")
+    verb_t0 = time.perf_counter()
+    SERVERS.append(_cli("profile", COHORT_PREWARM_YAML, "--workdir", workdir, log=log, env=env))
+    verb: dict = {}
+
+    def verb_done():
+        verb["rc, out"] = _wait(SERVERS[-1], log, 300)
+        verb["wall"] = time.perf_counter() - verb_t0
+
+    waiter = threading.Thread(target=verb_done, daemon=True)
+    waiter.start()
+
+    class TwoSearches(DartsSuggester):
+        """The DARTS suggester's one search trial, proposed twice."""
+
+        def get_suggestions(self, experiment, count):
+            left = 2 - len(experiment.trials)
+            if left <= 0:
+                raise SearchExhausted("two searches proposed")
+            (proposal,) = DartsSuggester.get_suggestions(self, Experiment(spec=self.spec), 1)
+            return [proposal] * min(count, left)
+
+    spec = search_width_spec({"n_train": PROFILE_TRAIN, "num_epochs": "1"})
+    spec.name, spec.max_trial_count, spec.parallel_trial_count = "darts-profiled", 2, 2
+    orch = Orchestrator(workdir=workdir, device="cuda", suggester_fn=TwoSearches,
+                        config=KatibConfig.from_dict({"init": {"enable_profiler": True}}))
+    mixed_op.launches = 0
+    counted0 = counted_launches()
+    t0 = time.perf_counter()
+    exp = orch.run(spec)
+    torch.cuda.synchronize()
+    run_wall = time.perf_counter() - t0
+    launches, counted = mixed_op.launches, counted_launches() - counted0
+    trials = sorted(exp.trials.values(), key=lambda t: t.name)
+    traced = [t for t in trials if os.path.isdir(os.path.join(t.checkpoint_dir, "profile"))]
+    walls = {r["args"]["trial"]: r["dur"] for r in spans_of(workdir, spec.name, "trial")}
+    steps = (int(PROFILE_TRAIN) // 2) // int(ORCH_SETTINGS["batch_size"])
+    per_forward = mixed_op_launches_per_forward(ORCH_LAYERS, DARTS_NODES)
+    per_step = 5 * per_forward
+    # each trial: its warm-up step and steps (5 passes each), one evaluation
+    predicted = 2 * ((steps + WARMUP_STEPS) * 5 + 1) * per_forward + counted
+    check([t.condition.value for t in trials] == ["Succeeded"] * 2,
+          f"profiled trials {[(t.condition.value, t.message) for t in trials]}")
+    check(len(traced) == 1, f"{len(traced)} trials traced, not one of the two")
+    (mine,) = traced
+    (other,) = [t for t in trials if t is not mine]
+    reading = trace_reading(os.path.join(mine.checkpoint_dir, "profile"), "mixed_op")
+    report = fsck_experiment(os.path.join(workdir, spec.name), repair=False)
+    print(f"profile: darts.yaml at the search width ({ORCH_LAYERS} layers, {PROFILE_TRAIN} "
+          f"images, 1 epoch of {steps} steps) as two trials at once with "
+          f"init.enable_profiler through Orchestrator.run on cuda in {run_wall:.2f}s: experiment "
+          f"{exp.condition.value}; traced {mine.name}; mixed_op launches {launches} (predicted "
+          f"{predicted}, the cost count {counted}); spans {span_totals(workdir, spec.name)}; fsck "
+          f"{'consistent' if report.ok() else report.lines()}", flush=True)
+    print(f"profile: busy share {reading['busy']:.1%} of the traced trial's {reading['span_s']:.3f}s "
+          f"(the card's kernels of both trials, {reading['kernels']} in all); mixed-op kernels in "
+          f"the trace {reading['launches']}, per graph launch {dict(reading['per_graph_launch'])} "
+          f"(predicted {per_step} a replay of the captured step) over "
+          f"{reading['graph_launches']} graph launches; {reading['events']} trace events; "
+          f"trial wall profiled {walls[mine.name]:.3f}s against unprofiled "
+          f"{walls[other.name]:.3f}s", flush=True)
+    check(exp.condition.value in SUCCESS, f"experiment {exp.condition.value}: {exp.message}")
+    check(launches == predicted, f"mixed-op kernel launched {launches}, the path predicts {predicted}")
+    check(counted in (0, per_step), f"the cost count launched {counted}")
+    check(0 < reading["launches"] <= launches, f"the trace holds {reading['launches']} mixed-op "
+          f"kernels of {launches} launched")
+    check(set(reading["per_graph_launch"]) == {per_step},
+          f"mixed-op kernels per graph launch {dict(reading['per_graph_launch'])}, not {per_step}")
+    check(0.0 < reading["busy"] <= 1.0, f"busy share {reading['busy']}")
+    check(report.ok(), f"fsck: {report.lines()}")
+
+    waiter.join(timeout=300)
+    check("wall" in verb, "the profile verb did not end")
+    (rc, out), wall = verb["rc, out"], verb["wall"]
+    adhoc = os.path.join(workdir, "cohort-prewarm-example", "adhoc", "profile")
+    closing = [ln for ln in out.splitlines() if ln.startswith("profiler trace: ")]
+    check(rc == 0 and closing == [f"profiler trace: {os.path.join(adhoc, 'trace.json')} (a Chrome "
+                                  "trace: open it in Perfetto or chrome://tracing; listed by "
+                                  "`python -m katib_tpu_torch profile --list`)"],
+          f"profile cohort-prewarm.yaml exited {rc}:\n{out[-3000:]}")
+    twin = trace_reading(adhoc, "")
+    print(f"profile: `profile cohort-prewarm.yaml` on the card (beside the DARTS run) exit {rc} "
+          f"in {wall:.2f}s (a fresh interpreter): {closing[0]}; the trace holds "
+          f"{twin['events']} events, {twin['kernels']} kernels over {twin['span_s']:.3f}s, device "
+          f"busy {twin['busy']:.1%}", flush=True)
+    check(twin["kernels"] > 0, "the twin's trace holds no kernel")
+
+    listed = io.StringIO()
+    with contextlib.redirect_stdout(listed):
+        rc = cli_main(["profile", "--list", "--workdir", workdir])
+    rows = [ln.split() for ln in listed.getvalue().strip().splitlines()[1:]]
+    print(f"profile: `profile --list` exit {rc}: {[r[:3] for r in rows]}", flush=True)
+    check(rc == 0 and sorted(r[1] for r in rows) == sorted(["adhoc", mine.name]),
+          f"profile --list:\n{listed.getvalue()}")
+    return workdir, ui_log
+
+
+def phase_ui(torch, started: tuple[str, str]) -> None:
+    """The dashboard (``katib_tpu_torch/ui``) over the profile phase's
+    workdir: ``python -m katib_tpu_torch ui --port 0`` on loopback in a
+    fresh interpreter (started by the profile phase) serves
+    ``/api/experiments`` (the profiled experiment),
+    ``/api/experiment/<name>/trials``, ``/api/status`` and the page, and
+    exits 0 on SIGINT; the same server started in this process
+    (``start_ui``, as the verb starts it) serves the profile phase's capture
+    under ``/api/status`` (captures are registered in the process that
+    takes them)."""
+    import signal
+    import urllib.request
+
+    from katib_tpu_torch.costmodel import profiler
+    from katib_tpu_torch.ui import start_ui
+
+    def get(port: int, path: str):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+            return r.status, r.read()
+
+    workdir, log = started
+    proc = SERVERS[0]
+    t0 = time.perf_counter()
+    line = ""
+    try:
+        while proc.poll() is None and time.perf_counter() - t0 < 120 and not line:
+            with open(log) as f:
+                line = next((ln.strip() for ln in f if ln.startswith("katib-tpu dashboard: ")), "")
+            time.sleep(0.1)
+        check(line.startswith("katib-tpu dashboard: http://127.0.0.1:"), f"ui printed {line!r}")
+        waited = time.perf_counter() - t0
+        port = int(line.split(":")[3].split("/")[0])
+        status, body = get(port, "/api/experiments")
+        exps = {e["name"]: e for e in json.loads(body)}
+        _, rows = get(port, "/api/experiment/darts-profiled/trials")
+        _, verb_status = get(port, "/api/status")
+        _, page = get(port, "/")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(f"ui: `ui --port 0` on loopback (started with the profile phase, its address read "
+          f"{waited:.2f}s into this one): /api/experiments {status} "
+          f"{ {n: (e['condition'], e['counts'].get('succeeded')) for n, e in exps.items()} }; "
+          f"trials {len(json.loads(rows))}; its /api/status keys "
+          f"{sorted(json.loads(verb_status))}; page {len(page)} bytes; exit {rc} on SIGINT",
+          flush=True)
+    check(exps.get("darts-profiled", {}).get("counts", {}).get("succeeded") == 2,
+          f"/api/experiments: {exps}")
+    check(len(json.loads(rows)) == 2 and b"katib-tpu" in page and rc == 0, "the ui verb")
+
+    ui = start_ui(workdir, device="cuda")
+    try:
+        _, body = get(ui.port, "/api/status")
+        served = json.loads(body)["profiles"]
+    finally:
+        ui.stop()
+    mine = [p for p in profiler.list_profiles() if p["experiment"] == "darts-profiled"]
+    print(f"ui: start_ui's /api/status profiles {[(p['experiment'], p['trial']) for p in served]}",
+          flush=True)
+    check(len(mine) == 1 and mine[0] in served, f"/api/status profiles {served}")
+
+
 def main() -> int:
     import torch
 
@@ -3730,6 +4121,8 @@ def main() -> int:
     timed(phase_native, torch, mixed_op)
     mesh_launches = timed(phase_mesh, torch, mixed_op, fa)
     timed(phase_cost, torch)
+    profiled = timed(phase_profile, torch, mixed_op)
+    timed(phase_ui, torch, profiled)
 
     kernels = [{
         "name": "mixed_op_sum",

@@ -39,6 +39,17 @@ Port of ``katib_tpu/cli.py``.  The verbs the port has:
                               ``cpu``; default: this host's device); a YAML
                               with nothing costed runs its prewarm twins
                               first, on the card unless ``--device cpu``
+- ``profile <experiment.yaml>`` run the experiment's prewarm twin under
+                              ``torch.profiler`` (on the card unless
+                              ``--device cpu``) into a Chrome trace;
+                              ``--list`` inventories past captures
+                              (``enable_profiler`` trials, ``profile.capture``
+                              spans)
+- ``ui``                      the REST API + dashboard over a workdir, on
+                              loopback unless ``--host``; ``--token`` or
+                              ``KATIB_UI_TOKEN`` guard the writes,
+                              ``--cert-dir`` serves TLS; experiments it
+                              creates run on ``--device``
 - ``doctor``                  bounded device preflight + environment report
 - ``suggest-server``          suggestion-as-a-service daemon (``--token`` or
                               ``KATIB_SUGGEST_TOKEN``, ``--cert-dir`` for TLS);
@@ -46,8 +57,8 @@ Port of ``katib_tpu/cli.py``.  The verbs the port has:
 - ``db-manager``              native observation-log daemon (``--db`` = durable
                               journal); raises if the C++ runtime cannot build
 
-``conformance``, ``chaos`` and ``suggest-server`` take ``--device`` as
-``run`` does.  The JAX CLI's other verbs are listed in
+``conformance``, ``chaos``, ``suggest-server``, ``profile`` and ``ui``
+take ``--device`` as ``run`` does.  The JAX CLI's other verbs are listed in
 :data:`UNPORTED_VERBS`; each raises ``NotImplementedError`` naming it.
 This module imports no JAX, and no verb does: the crash scenario's child
 interpreter blocks the JAX modules.
@@ -63,12 +74,8 @@ import time
 
 from katib_tpu_torch.core.config import KatibConfig
 
-#: the JAX CLI's verbs the port does not have yet
-UNPORTED_VERBS = (
-    "profile", "ui", "sim", "lint",
-)
-#: the verbs of the operations layer (ROADMAP Queue 1 item 8c)
-OPERATIONS_VERBS = ("profile", "ui")
+#: the JAX CLI's verbs the port does not have yet (ROADMAP Queue 1 item 11)
+UNPORTED_VERBS = ("sim", "lint")
 
 
 def _fmt_age(start: float, end: float) -> str:
@@ -1551,6 +1558,74 @@ def cmd_cost(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_profile(args: argparse.Namespace) -> int:
+    """On-demand ``torch.profiler`` capture + the capture inventory.
+
+    ``--list`` discovers past captures under a workdir (per-trial
+    ``enable_profiler`` directories and ``profile.capture`` spans in the
+    trace journals).  With an experiment YAML it runs the experiment's
+    prewarm twin under the profiler, on the card unless ``--device cpu``:
+    a Chrome trace of the trial's step program, without scheduling a
+    trial.  Exit 2 for a spec whose train_fn has no twin, for neither
+    ``--list`` nor a YAML, or for a card that is not there."""
+    from katib_tpu_torch.costmodel import profiler as costprofiler
+
+    if args.list:
+        entries = costprofiler.scan_profiles(args.workdir)
+        if not entries:
+            print(f"no profiler captures under {args.workdir}")
+            return 0
+        rows = [
+            [
+                e.get("experiment") or "-",
+                e.get("trial") or "-",
+                e.get("source", "-"),
+                e.get("trace_dir", "?"),
+            ]
+            for e in entries
+        ]
+        print(_table(rows, ["experiment", "trial", "source", "trace_dir"]))
+        return 0
+    if not args.experiment:
+        print(
+            "error: pass an experiment YAML to capture, or --list to "
+            "inventory past captures",
+            file=sys.stderr,
+        )
+        return 2
+    from katib_tpu_torch.compile.prewarm import prewarm_fn_of
+    from katib_tpu_torch.device import resolve_device
+    from katib_tpu_torch.runner.trial_runner import init_compile_cache
+    from katib_tpu_torch.sdk.yaml_spec import load_experiment_yaml
+
+    spec = load_experiment_yaml(args.experiment)
+    fn = prewarm_fn_of(spec.train_fn) if spec.train_fn is not None else None
+    if fn is None:
+        print(
+            "error: the experiment's train_fn declares no prewarm twin to "
+            "profile (see katib_tpu_torch.compile.prewarm.attach_prewarm_fn)",
+            file=sys.stderr,
+        )
+        return 2
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    init_compile_cache(spec.compile_cache)
+    # default lands on the <workdir>/<experiment>/<trial>/profile layout
+    # enable_profiler trials use, so `profile --list` discovers it
+    out = args.out or os.path.join(args.workdir, spec.name, "adhoc", "profile")
+    with costprofiler.capture(out, trial="adhoc", experiment=spec.name, device=device):
+        fn(dict(_pinned_structural(spec)), 1, None, device)
+    print(
+        f"profiler trace: {os.path.join(out, costprofiler.TRACE_FILE)} (a Chrome trace: "
+        "open it in Perfetto or chrome://tracing; listed by `python -m "
+        "katib_tpu_torch profile --list`)"
+    )
+    return 0
+
+
 def cmd_suggest_server(args: argparse.Namespace) -> int:
     """Run the suggestion-as-a-service daemon (the reference's per-experiment
     algorithm Deployment entrypoint, ``cmd/suggestion/*/v1beta1/main.py``).
@@ -1616,6 +1691,35 @@ def _maybe_tls(args: argparse.Namespace):
     )
 
 
+def cmd_ui(args: argparse.Namespace) -> int:
+    """Serve the REST API + dashboard over ``--workdir`` and the config's
+    store until interrupted; experiments it creates run on ``--device``."""
+    from katib_tpu_torch.ui import start_ui
+
+    cfg = KatibConfig.load(args.config)
+    store = cfg.store.make_store()
+    token = args.token or os.environ.get("KATIB_UI_TOKEN") or None
+    ssl_context = _maybe_tls(args)
+    ui = start_ui(
+        args.workdir, store, port=args.port, host=args.host, token=token,
+        ssl_context=ssl_context, device=args.device,
+    )
+    scheme = "https" if ssl_context else "http"
+    print(
+        f"katib-tpu dashboard: {scheme}://{args.host}:{ui.port}/ "
+        f"(writes: {'bearer token' if token else 'open'})",
+        flush=True,
+    )
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        ui.stop()
+    return 0
+
+
 def cmd_db_manager(args: argparse.Namespace) -> int:
     """Run the native db-manager daemon standalone (the reference ships it as
     its own binary, ``cmd/db-manager/v1beta1/main.go:51``).  ``--db`` turns
@@ -1661,16 +1765,11 @@ def cmd_db_manager(args: argparse.Namespace) -> int:
 
 
 def _cmd_unported(args: argparse.Namespace) -> int:
-    if args.cmd in OPERATIONS_VERBS:
-        raise NotImplementedError(
-            f"verb {args.cmd!r} of katib_tpu/cli.py needs the operations layer "
-            "(katib_tpu/costmodel/profiler.py, katib_tpu/ui/), not ported yet "
-            "(ROADMAP Queue 1 item 8c)"
-        )
     raise NotImplementedError(
-        f"verb {args.cmd!r} of katib_tpu/cli.py is not ported yet; the port "
-        "has run, list, describe, metrics, export, logs, trace, conformance, "
-        "chaos, fsck, prewarm, cache, cost, doctor, suggest-server and db-manager"
+        f"verb {args.cmd!r} of katib_tpu/cli.py is not ported yet (ROADMAP Queue 1 "
+        "item 11); the port has run, list, describe, metrics, export, logs, trace, "
+        "conformance, chaos, fsck, prewarm, cache, cost, profile, doctor, "
+        "suggest-server, ui and db-manager"
     )
 
 
@@ -1970,6 +2069,53 @@ def main(argv: list[str] | None = None) -> int:
         help="prewarm-twin budget in seconds (YAML targets only)",
     )
     p.set_defaults(fn=cmd_cost)
+
+    p = sub.add_parser(
+        "profile",
+        help="on-demand torch.profiler capture (or --list past captures)",
+    )
+    p.add_argument(
+        "experiment",
+        nargs="?",
+        default=None,
+        help="experiment YAML whose prewarm twin to run under the profiler",
+    )
+    p.add_argument("--workdir", default="katib_runs")
+    p.add_argument(
+        "--out",
+        default=None,
+        help="trace output dir (default <workdir>/<experiment>/adhoc/profile)",
+    )
+    p.add_argument(
+        "--list",
+        action="store_true",
+        help="inventory captures under --workdir instead of capturing",
+    )
+    p.add_argument(
+        "--device",
+        default="cuda",
+        help="where the twin runs: cuda (default; exit 2 without a GPU) or cpu",
+    )
+    p.set_defaults(fn=cmd_profile)
+
+    p = sub.add_parser("ui", help="serve the REST API + dashboard")
+    p.add_argument("--workdir", default="katib_runs")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument(
+        "--token", default=None, help="bearer token for write endpoints (or KATIB_UI_TOKEN)"
+    )
+    p.add_argument(
+        "--cert-dir", default=None,
+        help="serve over TLS with a self-signed bundle rotated in this dir",
+    )
+    p.add_argument(
+        "--device",
+        default="cuda",
+        help="where experiments the ui creates run: cuda (default; raises without a GPU) "
+        "or cpu",
+    )
+    p.set_defaults(fn=cmd_ui)
 
     p = sub.add_parser("db-manager", help="run the native observation-log daemon")
     p.add_argument("--host", default="127.0.0.1")

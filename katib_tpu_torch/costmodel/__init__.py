@@ -21,11 +21,14 @@ Cost records persist at the compile-signature seam: the shape registry
 row in ``<cache>/torch/shape_registry.jsonl``, so ``python -m
 katib_tpu_torch cost`` prints the roofline table of a finished sweep.
 
+- :mod:`profiler`: on-demand ``torch.profiler`` captures into Chrome
+  traces and their registry (``enable_profiler`` trials, the ``profile``
+  verb, the dashboard's ``/api/status``).
+
 Not ported here: ``costmodel/aot.py``, a deviceless XLA compile for a TPU
 topology, has no counterpart (the port has no ahead-of-time program to
-compile); ``costmodel/profiler.py`` and the JAX extraction helpers
-(``cost_of_lowered``, ``cost_of_compiled``, ``extract_cost``), which the
-counter replaces.  The profiler waits for ROADMAP item 8c, beside ``ui``.
+compile), nor have the JAX extraction helpers (``cost_of_lowered``,
+``cost_of_compiled``, ``extract_cost``), which the counter replaces.
 """
 
 from __future__ import annotations

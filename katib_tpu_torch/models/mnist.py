@@ -48,8 +48,8 @@ from katib_tpu_torch.models.data import Dataset, load_mnist
 from katib_tpu_torch.nas.darts.step_loop import (
     WARMUP_STEPS,
     _capture_stream,
+    capture_step,
     count_copied_step,
-    cyclic_gc_paused,
 )
 from katib_tpu_torch.ops.depthwise import lecun_normal_
 from katib_tpu_torch.parallel.train import (
@@ -422,27 +422,10 @@ class EpochLoop:
         pos.add_(1)
 
     def _build_graph(self) -> None:
-        """Warm up on copies, then capture one step; ``capture_s`` is the
-        time under the capture lock (another trial's capture may make this
-        one wait for it first)."""
-        side, lock = _capture_stream(self.state.step.device)
-        with lock:
-            t0 = time.perf_counter()
-            copies = tuple(_clone(b) for b in self.bufs)
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(WARMUP_STEPS):
-                    self._step(copies)
-            torch.cuda.current_stream().wait_stream(side)
-            torch.cuda.synchronize()
-            del copies
-            graph = torch.cuda.CUDAGraph()
-            with cyclic_gc_paused(), torch.cuda.graph(graph, stream=side,
-                                                      capture_error_mode="thread_local"):
-                self._step(self.bufs)
-            torch.cuda.synchronize()
-            self.capture_s = time.perf_counter() - t0
-        self.graph = graph
+        """Capture one step (``step_loop.py::capture_step``); ``capture_s``
+        includes a wait for another trial's capture."""
+        self.graph, _, self.capture_s = capture_step(
+            self._step, self.bufs, lambda b: tuple(_clone(t) for t in b), self.state.step.device)
 
     def count_step(self):
         """Count one step (``costmodel/counter.py``) on copies of the buffers

@@ -7,8 +7,9 @@ the HP-tuning trial's classifier, spends its time on the GPU.
 Builds ``TransformerLM`` at the repo's long-context configuration
 (``LONG_CONTEXT``: vocab 256, d_model 512, 8 heads, 4 layers, seq 4096,
 batch 4, bf16) with random weights from a seed and prints the summary of
-``katib_tpu_torch.profiling.profile_step``, the flash-attention kernels'
-share among it, and tokens per second.
+``katib_tpu_torch.profiling.profile_step`` for its train step, replayed
+from its captured CUDA graph as the trial runs it, the flash-attention
+kernels' share among it, and tokens per second.
 
 ``--classifier`` profiles one epoch of ``train_classifier``'s device-data
 loop at the Hyperband sweep's cell (``CLASSIFIER``: ``SmallCNN`` with 32
@@ -82,8 +83,8 @@ def main() -> int:
     from katib_tpu_torch.models.transformer import (
         LONG_CONTEXT,
         TransformerLM,
+        LMTrainStep,
         make_attention_fn,
-        make_train_step,
         markov_dataset,
     )
     from katib_tpu_torch.profiling import profile_step
@@ -107,7 +108,7 @@ def main() -> int:
     model.reset_parameters(torch.Generator().manual_seed(0))
     model.to(dev)
     total = args.warmup + 2 * args.steps
-    train_step = make_train_step(model, lr=3e-3, steps=total)
+    train_step = LMTrainStep(model, lr=3e-3, steps=total)
     data = markov_dataset(c["vocab_size"], c["batch_size"] * total, c["seq_len"])
     batches = iter(torch.from_numpy(data).to(dev, torch.long).split(c["batch_size"]))
 

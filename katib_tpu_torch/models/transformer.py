@@ -38,12 +38,19 @@ from torch import nn
 
 from katib_tpu_torch.device import resolve_device
 from katib_tpu_torch.models.layers import Dense, Embed, LayerNorm
-from katib_tpu_torch.ops.flash_attention import flash_attention, reference_attention
+from katib_tpu_torch.ops.flash_attention import (
+    count_launches,
+    flash_attention,
+    recording_launches,
+    reference_attention,
+)
 from katib_tpu_torch.parallel import collectives
 from katib_tpu_torch.parallel.mesh import DATA_AXIS, piece, shard_batch
 from katib_tpu_torch.parallel.ring_attention import make_sequence_parallel_attention
 from katib_tpu_torch.parallel.train import (
-    adamw_with_schedule,
+    AdamWState,
+    adamw_init,
+    adamw_update_,
     clip_by_global_norm,
     warmup_cosine_decay,
 )
@@ -206,47 +213,101 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return nll.mean()
 
 
-def make_train_step(
-    model: TransformerLM,
-    *,
-    lr: float,
-    steps: int,
-    warmup_frac: float = 0.1,
-    grad_clip: float = 1.0,
-    seed: int = 0,
-    loss_fn: Callable | None = None,
-) -> Callable[[torch.Tensor], torch.Tensor]:
+class LMTrainStep:
     """``step(tokens) -> loss``: one update of ``model`` (on its device) on a
-    ``[B, S]`` token batch, as the JAX ``train_lm``'s ``step_fn``: next-token
-    loss, global-norm clipping at ``grad_clip``, then ``optax.adamw`` with
-    weight decay 0.01 under the warmup-cosine schedule over ``steps``.
+    ``[B, S]`` token batch, as the JAX ``train_lm``'s ``step_fn`` (which the
+    JAX package jits with its state donated): next-token loss, global-norm
+    clipping at ``grad_clip``, then ``optax.adamw`` with weight decay 0.01
+    under the warmup-cosine schedule over ``steps``.
+
+    The state lives in fixed tensors: the model's parameters, the AdamW
+    moments and a 0-d update count on the device, from which the step
+    computes its own learning rate, and a token buffer each call fills.  On
+    a CUDA device the step is warmed up on copies of every buffer, captured
+    once as a CUDA graph (``nas/darts/step_loop.py::capture_step``: the
+    thread's capture stream, the device's capture lock, the cyclic
+    collector held off) and replayed; on the CPU, or with
+    ``capture=False``, the same function runs eagerly on the same buffers.
     Dropout, when the model has it, draws from a generator seeded
-    ``seed + 1`` on the model's device.  ``loss_fn(tokens, deterministic,
-    generator)`` replaces the model's own next-token loss (a
-    :func:`mesh_lm_loss`, for tokens on a mesh's data axis)."""
-    params = list(model.parameters())
-    sched = warmup_cosine_decay(0.0, lr, max(1, int(steps * warmup_frac)), steps)
-    opt, lr_sched = adamw_with_schedule(params, sched, weight_decay=0.01)
-    use_dropout = model.dropout > 0.0
-    gen = (torch.Generator(device=params[0].device).manual_seed(seed + 1)
-           if use_dropout else None)
-    if loss_fn is None:
-        def loss_fn(tokens, deterministic, generator):
-            return lm_loss(model(tokens, deterministic=deterministic, generator=generator),
-                           tokens)
+    ``seed + 1`` on the model's device, registered with the graph so each
+    replay draws what an eager step would.  The flash kernels' launches in
+    the capture are tallied (``launches_per_replay``) and counted on each
+    replay.
 
-    def step(tokens) -> torch.Tensor:
-        loss = loss_fn(tokens, not use_dropout, gen)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        clipped, _ = clip_by_global_norm({i: p.grad for i, p in enumerate(params)}, grad_clip)
-        for p, g in zip(params, clipped.values()):
-            p.grad = g
-        opt.step()
-        lr_sched.step()
-        return loss.detach()
+    ``loss_fn(tokens, deterministic, generator)`` replaces the model's own
+    next-token loss (a :func:`mesh_lm_loss`, for tokens on a mesh's data
+    axis); that step reads the model's parameters itself and runs eagerly."""
 
-    return step
+    def __init__(self, model: TransformerLM, *, lr: float, steps: int, warmup_frac: float = 0.1,
+                 grad_clip: float = 1.0, seed: int = 0, loss_fn: Callable | None = None,
+                 capture: bool | None = None):
+        self.model, self.loss_fn, self.grad_clip = model, loss_fn, grad_clip
+        self.names = [n for n, _ in model.named_parameters()]
+        self.device = next(model.parameters()).device
+        self.capture = (self.device.type == "cuda" and loss_fn is None) if capture is None \
+            else capture
+        if self.capture and (self.device.type != "cuda" or loss_fn is not None):
+            raise ValueError("a captured LM step needs the model on a CUDA device and its own loss")
+        self.schedule = warmup_cosine_decay(0.0, lr, max(1, int(steps * warmup_frac)), steps)
+        self.gen = (torch.Generator(device=self.device).manual_seed(seed + 1)
+                    if model.dropout > 0.0 else None)
+        self.params = [p for _, p in model.named_parameters()]
+        self.opt = adamw_init(self.params)
+        self.loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.bufs: tuple | None = None  # (params, opt, tokens, loss): the graph's
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.launches_per_replay: dict[str, int] = {}
+        self.capture_s = 0.0
+
+    def _loss(self, params: list, tokens: torch.Tensor) -> torch.Tensor:
+        deterministic = self.gen is None
+        if self.loss_fn is not None:
+            return self.loss_fn(tokens, deterministic, self.gen)
+        logits = torch.func.functional_call(
+            self.model, dict(zip(self.names, params)), (tokens,),
+            {"deterministic": deterministic, "generator": self.gen})
+        return lm_loss(logits, tokens)
+
+    def _step(self, bufs) -> None:
+        """One update on ``bufs``, written back into them: the function that
+        is captured, and that runs eagerly off the graph."""
+        params, opt, tokens, loss_out = bufs
+        with torch.enable_grad():
+            loss = self._loss(params, tokens)
+            grads = torch.autograd.grad(loss, params)
+        clipped, _ = clip_by_global_norm(dict(enumerate(grads)), self.grad_clip)
+        lr = self.schedule(opt.count)  # optax reads the count before the update
+        adamw_update_(params, clipped.values(), opt, lr)
+        loss_out.copy_(loss.detach())
+
+    def _build_graph(self, tokens: torch.Tensor) -> None:
+        # imported here: the step loop's modules import the model layers
+        from katib_tpu_torch.nas.darts.step_loop import capture_step
+
+        def copy(bufs):
+            params, opt, tokens, loss = bufs
+            return ([p.detach().clone().requires_grad_() for p in params],
+                    AdamWState(opt.count.clone(), [t.clone() for t in opt.mu],
+                               [t.clone() for t in opt.nu]),
+                    tokens.clone(), loss.clone())
+
+        self.bufs = (self.params, self.opt, tokens.clone(), self.loss)
+        gens = (self.gen,) if self.gen is not None else ()
+        self.graph, self.launches_per_replay, self.capture_s = capture_step(
+            self._step, self.bufs, copy, self.device, generators=gens,
+            recording=recording_launches)
+
+    def __call__(self, tokens: torch.Tensor) -> torch.Tensor:
+        if not self.capture:
+            self._step((self.params, self.opt, tokens, self.loss))
+            return self.loss.clone()
+        if self.graph is None:
+            self._build_graph(tokens)
+        else:
+            self.bufs[2].copy_(tokens)
+        self.graph.replay()
+        count_launches(self.device, **self.launches_per_replay)
+        return self.loss.clone()
 
 
 def mesh_lm_loss(model: TransformerLM, mesh) -> Callable:
@@ -310,8 +371,8 @@ def train_lm(
     train, heldout = data[:-n_eval], data[-n_eval:]
     model.to(dev)
     sharded_loss = mesh_lm_loss(model, mesh) if mesh is not None else None
-    step = make_train_step(model, lr=lr, steps=steps, warmup_frac=warmup_frac,
-                           grad_clip=grad_clip, seed=seed, loss_fn=sharded_loss)
+    step = LMTrainStep(model, lr=lr, steps=steps, warmup_frac=warmup_frac,
+                       grad_clip=grad_clip, seed=seed, loss_fn=sharded_loss)
     # a mesh's replicas run on its leased streams, and so does the caller's
     # part of each step (the optimizer), ordered behind them
     on_mesh = mesh.on_streams if mesh is not None else contextlib.nullcontext

@@ -146,6 +146,71 @@ def _capture_stream(device: torch.device) -> tuple[torch.cuda.Stream, threading.
     return leases[index].stream, _capture_locks[index]
 
 
+def capture_lock(device: torch.device) -> threading.Lock:
+    """``device``'s capture lock (made on first use).  Warm-ups and captures
+    take turns under it, and so do a profiler's start and stop
+    (``costmodel/profiler.py``)."""
+    index = _device_index(torch.device(device))
+    with _streams_lock:
+        return _capture_locks.setdefault(index, threading.Lock())
+
+
+def capture_step(step: Callable, bufs, copy: Callable, device: torch.device, *,
+                 stream: torch.cuda.Stream | None = None, generators=(),
+                 recording: Callable | None = None):
+    """Capture ``step(bufs)`` as one CUDA graph, the capture rule of every
+    captured step of the port: holding ``device``'s capture lock
+    throughout, warm ``step`` up on ``copy(bufs)`` (so no step is applied
+    to ``bufs`` twice; the warm-up also builds and loads the kernel
+    libraries, creates the cuBLAS and cuDNN handles and starts the autograd
+    engine), then capture it on ``stream`` (default: this thread's capture
+    stream) with the cyclic collector held off.
+
+    The capture runs in ``thread_local`` mode: it forbids unsafe CUDA calls
+    (a device sync, an event query, a plain ``cudaMalloc``) on this thread
+    only.  Under the orchestrator other threads live beside the trial's;
+    another trial's sync or allocation in the default ``global`` mode would
+    invalidate this capture.  That is safe because no other thread issues
+    work to this thread's stream or waits on an event recorded in it, and
+    PyTorch's caching allocator sends only the capturing stream's
+    allocations to the graph's private pool.
+
+    Each generator of ``generators`` is put back after the warm-up and
+    registered with the graph, so a replay draws what an eager call from
+    the same generator state draws and advances it as far.
+    ``recording(stream)``, when given, is a context manager around the
+    capture whose value (the capture's tally of hand-written kernel
+    launches, which it enqueues nothing for) is returned.  Returns
+    ``(graph, tally, seconds)``, the seconds from the call on, a wait for
+    another thread's capture included."""
+    t0 = time.perf_counter()
+    if stream is None:
+        side, lock = _capture_stream(device)
+    else:
+        side, lock = stream, capture_lock(device)
+    with lock:
+        copies = copy(bufs)
+        saved = [g.get_state() for g in generators]
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                step(copies)
+        for g, state in zip(generators, saved):
+            g.set_state(state)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        del copies
+        graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            graph.register_generator_state(g)
+        record = recording(side) if recording is not None else contextlib.nullcontext()
+        with cyclic_gc_paused(), record as tally, \
+                torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            step(bufs)
+        torch.cuda.synchronize()
+    return graph, tally, time.perf_counter() - t0
+
+
 class StepLoop:
     """Bilevel steps of one search over device-resident splits.
 
@@ -205,41 +270,13 @@ class StepLoop:
         pos.add_(1)
 
     def _build_graph(self) -> None:
-        """Warm up on copies, then capture one step on this thread's capture
-        stream, holding the device's capture lock throughout.
-
-        The capture runs in ``thread_local`` mode: it forbids unsafe CUDA
-        calls (a device sync, an event query, a plain ``cudaMalloc``) on
-        this thread only.  Under the orchestrator other threads live
-        beside the trial's (the main loop, the watchdog, the status
-        writer); they make no CUDA calls, but a second trial of the same
-        process might, and in the default ``global`` mode its sync or
-        allocation would invalidate this capture.  That is safe here
-        because no other thread ever issues work to this thread's stream or
-        waits on an event recorded in it, and PyTorch's caching allocator
-        sends only the capturing stream's allocations to the graph's
-        private pool."""
-        t0 = time.perf_counter()
-        side, lock = _capture_stream(self.bufs[0].step.device)
-        with lock:
-            copies = (clone_state(self.bufs[0]), *(t.clone() for t in self.bufs[1:]))
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(WARMUP_STEPS):
-                    self._step(copies)
-            torch.cuda.current_stream().wait_stream(side)
-            torch.cuda.synchronize()
-            del copies
-            graph = torch.cuda.CUDAGraph()
-            # the capture enqueues nothing on the device: its launches are
-            # tallied, and counted on each replay
-            with cyclic_gc_paused(), mixed_op.recording_launches() as recorded, \
-                    torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-                self._step(self.bufs)
-            self.launches_per_replay = recorded[0]
-            torch.cuda.synchronize()
-        self.graph = graph
-        self.capture_s = time.perf_counter() - t0
+        """Capture one step (:func:`capture_step`); the capture's mixed-op
+        launches are tallied, and counted on each replay."""
+        self.graph, recorded, self.capture_s = capture_step(
+            self._step, self.bufs,
+            lambda b: (clone_state(b[0]), *(t.clone() for t in b[1:])),
+            self.bufs[0].step.device, recording=lambda _: mixed_op.recording_launches())
+        self.launches_per_replay = recorded[0]
 
     def count_step(self) -> counter.StepCount:
         """Count one bilevel step (:func:`count_copied_step`) on copies of

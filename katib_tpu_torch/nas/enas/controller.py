@@ -107,9 +107,11 @@ def _trace(params: ControllerParams, cfg: ControllerConfig, arc: Arc | None,
     c = torch.zeros((1, h_size), device=device)
     h = torch.zeros((1, h_size), device=device)
     inputs = params.g_emb
-    # filled on the device: a tensor built from a list would copy from the host
+    # filled on the device: a tensor built from a list, or a Python number
+    # assigned to an element, would copy from the host (which a CUDA graph
+    # capture refuses)
     skip_targets = torch.full((2,), cfg.skip_target, device=device)
-    skip_targets[0] = 1.0 - cfg.skip_target
+    skip_targets[0].fill_(1.0 - cfg.skip_target)
 
     ops: list = []
     skips: list = []

@@ -14,10 +14,22 @@ suggestion service's), handed through ``make_suggester(spec, device=...)``;
 a bare ``EnasSuggester(spec)`` resolves ``cuda`` and raises where there is
 none.  On a CUDA device every operation of the suggester runs on a stream
 it leases for its life (``nas/darts/step_loop.py::lease_stream``), and it
-waits on that stream only: the capture rule of ``compile/prewarm.py``.  A
-suggestion service shared by several experiments trains the controller
-while another experiment's trials capture CUDA graphs on the same card; a
-device-wide sync there could land inside their capture.
+waits on that stream only, outside its two captures, which hold the
+device's capture lock as every capture does: the capture rule of
+``compile/prewarm.py``.  A suggestion service shared by several
+experiments trains the controller while another experiment's trials
+capture CUDA graphs on the same card; a device-wide sync outside the lock
+could land inside their capture.
+
+The controller's state (parameters, Adam state, baseline, step), the arc
+and the reward live in fixed tensors.  On a CUDA device one REINFORCE step
+on a fresh sample, and one sample, are each warmed up on copies, captured
+once as a CUDA graph on the suggester's stream under the device's capture
+lock (``step_loop.py::capture_step``) and replayed, the sampler's
+generator registered with both graphs (the JAX package jits
+``train_step`` and ``sample``); on the CPU the same two functions run
+eagerly on the same buffers.  ``arc_to_json`` stays the one transfer to the
+host.
 
 ``state_dict()`` holds the round, the trained rounds and the controller's
 parameters, Adam state, baseline and step as CPU tensors, so a state
@@ -45,9 +57,10 @@ from katib_tpu_torch.core.types import (
 )
 from katib_tpu_torch.device import resolve_device
 from katib_tpu_torch.models.mnist import AdamState
-from katib_tpu_torch.nas.darts.step_loop import lease_stream
+from katib_tpu_torch.nas.darts.step_loop import capture_step, lease_stream
 from katib_tpu_torch.nas.enas.child import DEFAULT_OPERATIONS
 from katib_tpu_torch.nas.enas.controller import (
+    Arc,
     ControllerConfig,
     ControllerParams,
     ReinforceState,
@@ -105,6 +118,22 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.detach().to(device, copy=True)
+
+
+def _leaves(state: ReinforceState) -> list[torch.Tensor]:
+    """Every tensor of a controller state, in a fixed order."""
+    opt = state.opt_state
+    return [*state.params, *opt.hyperparams.values(), opt.count, *opt.mu.values(),
+            *opt.nu.values(), state.baseline, state.step]
+
+
+def _clone_state(state: ReinforceState) -> ReinforceState:
+    opt = state.opt_state
+    clone = lambda d: {k: v.clone() for k, v in d.items()}  # noqa: E731
+    return ReinforceState(ControllerParams(*(t.clone() for t in state.params)),
+                          AdamState(clone(opt.hyperparams), opt.count.clone(), clone(opt.mu),
+                                    clone(opt.nu)),
+                          state.baseline.clone(), state.step.clone())
 
 
 @register("enas")
@@ -170,7 +199,15 @@ class EnasSuggester(Suggester):
         # from a generator on the controller's device
         with self._own_stream():
             self.state = init(torch.Generator().manual_seed(self.seed()))
+            n = self.num_layers
+            self.arc = Arc(torch.zeros(n, dtype=torch.int64, device=self.device),
+                           torch.zeros(n, n, dtype=torch.int64, device=self.device))
+            self.reward = torch.zeros((), dtype=torch.float32, device=self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(self.seed(1))
+        # replay the captured steps on a card (False runs them eagerly there,
+        # the reference the smoke and the card tests hold the replays to)
+        self.capture = self.device.type == "cuda"
+        self._graphs: dict[str, torch.cuda.CUDAGraph] = {}
         self.round = 0
         self._trained_rounds: set[int] = set()
 
@@ -212,9 +249,10 @@ class EnasSuggester(Suggester):
             ctrl = _to(ctrl, self.device)
         state = ReinforceState(ControllerParams(**ctrl["params"]), AdamState(**ctrl["opt_state"]),
                                ctrl["baseline"], ctrl["step"])
+        with self._own_stream():  # into the fixed tensors a graph reads
+            torch._foreach_copy_(_leaves(self.state), _leaves(state))
         self.round = data["round"]
         self._trained_rounds = set(data["trained_rounds"])
-        self.state = state
 
     # -- main ---------------------------------------------------------------
 
@@ -239,15 +277,44 @@ class EnasSuggester(Suggester):
             return None
         return sign * float(np.mean(vals))
 
+    def _sample_into(self, bufs) -> None:
+        """Draw an arc from the generator into ``bufs``' arc."""
+        state, arc, _ = bufs
+        sampled, _ = self._sample(state.params, self._gen)
+        arc.ops.copy_(sampled.ops)
+        arc.skips.copy_(sampled.skips)
+
+    def _reinforce(self, bufs) -> None:
+        """One REINFORCE step on a fresh sample with ``bufs``' reward, its
+        new state written back into ``bufs``."""
+        self._sample_into(bufs)
+        state, arc, reward = bufs
+        new, _ = self._train_step(state, arc, reward)
+        torch._foreach_copy_(_leaves(state), _leaves(new))
+
+    def _run(self, name: str, fn) -> None:
+        """``fn`` on the fixed tensors: its graph's replay on a CUDA device
+        (captured at the first call), else ``fn`` itself."""
+        bufs = (self.state, self.arc, self.reward)
+        if not self.capture:
+            fn(bufs)
+            return
+        if name not in self._graphs:
+            stream = self._lease.stream if self._lease is not None else None
+            self._graphs[name], _, _ = capture_step(
+                fn, bufs, lambda b: (_clone_state(b[0]), Arc(b[1].ops.clone(), b[1].skips.clone()),
+                                     b[2].clone()),
+                self.device, stream=stream, generators=(self._gen,))
+        self._graphs[name].replay()
+
     def train_controller(self, reward: float) -> None:
         """``controller_train_steps`` REINFORCE steps, each on a fresh
         sample, with ``reward``; returns once the device has finished them
         (a wait on the suggester's own stream, never the whole device)."""
         with self._own_stream():
-            r = torch.full((), reward, dtype=torch.float32, device=self.device)
+            self.reward.fill_(reward)
             for _ in range(self.train_steps):
-                arc, _ = self._sample(self.state.params, self._gen)
-                self.state, _ = self._train_step(self.state, arc, r)
+                self._run("reinforce", self._reinforce)
         if self._lease is not None:
             self._lease.stream.synchronize()
 
@@ -281,8 +348,8 @@ class EnasSuggester(Suggester):
         for _ in range(count):
             # the arc's transfer to the host waits on the suggester's stream
             with self._own_stream():
-                arc, _ = self._sample(self.state.params, self._gen)
-                architecture = json.dumps(arc_to_json(arc))
+                self._run("sample", self._sample_into)
+                architecture = json.dumps(arc_to_json(self.arc))
             out.append(
                 TrialAssignmentSet(
                     assignments=[

@@ -24,6 +24,7 @@ delta term's aten calls are counted as they run.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import threading
@@ -37,12 +38,49 @@ HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since import or the last reset; the CPU path does not count
-# (replicas of a mesh launch from threads of their own: counted under a lock)
+# (replicas of a mesh launch from threads of their own: counted under a lock).
+# A captured CUDA graph launches without calling the wrappers: its owner adds
+# the launches the capture recorded on each replay (models/transformer.py)
 fwd_launches = 0
 dq_launches = 0
 dkv_launches = 0
 _lib = None
 _lock = threading.Lock()
+# capture stream handle -> the launches recorded into that stream's graph.
+# Keyed by stream, not by thread: a captured backward launches dq and dk/dv
+# from autograd's device thread, on the capturing stream
+_tallies: dict[int, dict[str, int]] = {}
+
+
+def count_launches(device: torch.device, fwd: int = 0, dq: int = 0, dkv: int = 0) -> None:
+    """Add launches to the counts (thread-safe).  A launch onto a stream
+    that :func:`recording_launches` records is captured, not run, so it goes
+    to that capture's tally instead."""
+    global fwd_launches, dq_launches, dkv_launches
+    with _lock:
+        tally = _tallies.get(torch.cuda.current_stream(device).cuda_stream) if _tallies else None
+        if tally is not None:
+            tally["fwd"] += fwd
+            tally["dq"] += dq
+            tally["dkv"] += dkv
+            return
+        fwd_launches += fwd
+        dq_launches += dq
+        dkv_launches += dkv
+
+
+@contextlib.contextmanager
+def recording_launches(stream: torch.cuda.Stream):
+    """Tally the launches captured on ``stream`` inside, without counting
+    them; yields the tally (``{"fwd": n, "dq": n, "dkv": n}``)."""
+    tally = {"fwd": 0, "dq": 0, "dkv": 0}
+    with _lock:
+        _tallies[stream.cuda_stream] = tally
+    try:
+        yield tally
+    finally:
+        with _lock:
+            del _tallies[stream.cuda_stream]
 
 
 def _block_sizes(seq_q: int, seq_k: int, block_q: int, block_k: int) -> tuple[int, int]:
@@ -263,37 +301,31 @@ def _call(name: str, tensors, q, sk, scale, causal) -> None:
 
 def launch_fwd(q, k, v, causal: bool, scale: float):
     """The forward kernel: ``(o, lse)``."""
-    global fwd_launches
     kernel_check(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _call("katib_flash_fwd", (q, k, v, o, lse), q, k.shape[2], scale, causal)
-    with _lock:
-        fwd_launches += 1
+    count_launches(q.device, fwd=1)
     return o, lse
 
 
 def launch_dq(q, k, v, do, lse, dmd, causal: bool, scale: float):
     """The dq kernel."""
-    global dq_launches
     kernel_check(q, k, v)
     _backward_check(q, do, lse, dmd)
     dq = torch.empty_like(q)
     _call("katib_flash_dq", (q, k, v, do, lse, dmd, dq), q, k.shape[2], scale, causal)
-    with _lock:
-        dq_launches += 1
+    count_launches(q.device, dq=1)
     return dq
 
 
 def launch_dkv(q, k, v, do, lse, dmd, causal: bool, scale: float):
     """The dk/dv kernel: ``(dk, dv)``."""
-    global dkv_launches
     kernel_check(q, k, v)
     _backward_check(q, do, lse, dmd)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call("katib_flash_dkv", (q, k, v, do, lse, dmd, dk, dv), q, k.shape[2], scale, causal)
-    with _lock:
-        dkv_launches += 1
+    count_launches(q.device, dkv=1)
     return dk, dv
 
 

@@ -29,9 +29,10 @@ mesh (``parallel/mesh.py``): the orchestrator's ``mesh``, else one built
 from the config's ``mesh_axes`` (:meth:`Orchestrator._resolve_mesh`), else
 a sub-mesh leased per trial from a ``slice_allocator``
 (``parallel/distributed.py``).  What the port does not have yet raises
-``NotImplementedError`` when a run asks for it: the profiler
-(:meth:`Orchestrator._refuse_unported`) and a ``trial`` mesh axis
-(:meth:`Orchestrator._validate_mesh`).  Vectorized cohorts
+``NotImplementedError`` when a run asks for it: a ``trial`` mesh axis
+(:meth:`Orchestrator._validate_mesh`).  With ``init.enable_profiler`` one
+trial at a time is traced into ``<checkpoint_dir>/profile``
+(``costmodel/profiler.py``; the others run unprofiled).  Vectorized cohorts
 (``runner/cohort.py``) run on the trial device, grouped by both loops.  A run wires the compile cache
 (``compileCache`` / ``KATIB_COMPILE_CACHE``) and the shared artifact tier
 (``artifactDir`` / ``KATIB_ARTIFACT_DIR``), and with ``prewarm`` on (the
@@ -148,6 +149,9 @@ class Orchestrator:
         # sticky like stop; the per-run _drain_event asks in-flight trials to
         # checkpoint-and-exit at their next step boundary
         self._drain_requested = threading.Event()
+        # torch.profiler is global to the process; only one trial may hold
+        # it at a time (the rest run unprofiled)
+        self._profile_lock = threading.Lock()
         self._drain_event = threading.Event()
         #: True after run() returned via a drain — the CLI maps this to
         #: DRAIN_EXIT_CODE so supervisors re-launch with --resume
@@ -239,7 +243,6 @@ class Orchestrator:
         if self.config is not None:
             spec = self.config.apply_to(spec)
         validate_experiment(spec)
-        self._refuse_unported(spec)
         # the compile cache (KATIB_COMPILE_CACHE env wins, spec field second)
         # and the shared artifact tier (KATIB_ARTIFACT_DIR, then the spec);
         # both process-global, the first caller wins
@@ -800,17 +803,6 @@ class Orchestrator:
         obs.trials_created.inc()
         return trial
 
-    def _refuse_unported(self, spec: ExperimentSpec) -> None:
-        """Raise ``NotImplementedError`` for whatever the run asks of the
-        JAX orchestrator that the port does not have yet, before anything
-        is journaled: nothing is ignored."""
-        if self.config is not None and self.config.init.enable_profiler:
-            raise NotImplementedError(
-                "init.enable_profiler asks for per-trial profiles "
-                "(katib_tpu/costmodel/profiler.py), not ported yet "
-                "(ROADMAP Queue 1 item 8c, with the profile verb and ui)"
-            )
-
     def _resolve_mesh(self, spec: ExperimentSpec):
         """Explicit mesh wins; otherwise the config registry decides:
         per-algorithm ``runtime.algorithms.<name>.mesh_axes`` over the
@@ -1090,17 +1082,42 @@ class Orchestrator:
         return result
 
     def _execute_on(self, exp: Experiment, trial: Trial, mesh):
-        return (self._run_trial_fn or run_trial)(
-            trial,
-            self.store,
-            exp.spec.objective,
-            mesh=mesh,
-            stop_event=self._stop_event,
-            injector=self.fault_injector,
-            watchdog=self._watchdog,
-            drain_event=self._drain_event,
-            device=self.device,
-        )
+        def attempt():
+            return (self._run_trial_fn or run_trial)(
+                trial,
+                self.store,
+                exp.spec.objective,
+                mesh=mesh,
+                stop_event=self._stop_event,
+                injector=self.fault_injector,
+                watchdog=self._watchdog,
+                drain_event=self._drain_event,
+                device=self.device,
+            )
+
+        want_profile = self.config is not None and self.config.init.enable_profiler
+        if want_profile and self._profile_lock.acquire(blocking=False):
+            try:
+                from katib_tpu_torch.costmodel import profiler as costprofiler
+
+                # capture() registers the dir (served by /api/status and
+                # `profile --list`) and brackets the attempt in a
+                # profile.capture span carrying trace_dir, so the capture
+                # stays discoverable after the run
+                with costprofiler.capture(
+                    os.path.join(trial.checkpoint_dir, "profile"),
+                    trial=trial.name, experiment=exp.name, device=self.device,
+                ):
+                    return attempt()
+            except Exception as e:
+                return TrialResult(
+                    TrialCondition.FAILED,
+                    traceback.format_exc(limit=20),
+                    failure_kind=faults.classify_exception(e),
+                )
+            finally:
+                self._profile_lock.release()
+        return attempt()
 
     def _finish(self, exp: Experiment) -> None:
         """Terminal bookkeeping: observability counters + final status write

@@ -224,7 +224,9 @@ def warmup_cosine_decay(init_value: float, peak_value: float, warmup_steps: int,
     A linear warmup from ``init_value`` to ``peak_value`` over
     ``warmup_steps``, then a cosine decay to ``end_value`` over the
     remaining ``decay_steps - warmup_steps`` (which must be positive, as
-    optax requires)."""
+    optax requires).  The schedule is computed in float32, as optax does:
+    of a count tensor on the device into a 0-d tensor there (so a captured
+    step reads its own count), of a Python count into a float."""
     if not decay_steps - warmup_steps > 0:
         raise ValueError(
             f"the cosine decay needs decay_steps > warmup_steps, got {decay_steps} and "
@@ -233,27 +235,54 @@ def warmup_cosine_decay(init_value: float, peak_value: float, warmup_steps: int,
     alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
     cosine_steps = decay_steps - warmup_steps
 
-    def schedule(count: int) -> float:
-        if count < warmup_steps:
-            frac = 1.0 - count / warmup_steps
-            return (init_value - peak_value) * frac + peak_value
-        t = min(count - warmup_steps, cosine_steps)
-        cosine = 0.5 * (1.0 + math.cos(math.pi * t / cosine_steps))
-        return peak_value * ((1.0 - alpha) * cosine + alpha)
+    def schedule(count):
+        c = torch.as_tensor(count, dtype=torch.float32)
+        warm = (init_value - peak_value) * (1.0 - c / warmup_steps) + peak_value
+        t = torch.clamp(c - warmup_steps, min=0.0, max=float(cosine_steps))
+        cosine = 0.5 * (1.0 + torch.cos(math.pi * t / cosine_steps))
+        value = torch.where(c < warmup_steps, warm, peak_value * ((1.0 - alpha) * cosine + alpha))
+        return value if torch.is_tensor(count) else float(value)
 
     return schedule
 
 
-def adamw_with_schedule(params, schedule, weight_decay: float = 0.01):
-    """``optax.adamw(schedule, weight_decay)`` as a ``torch.optim.AdamW`` and
-    a ``LambdaLR`` over it: b1 0.9, b2 0.999, eps 1e-8, decay on every
-    parameter and scaled by the scheduled lr.
+class AdamWState(NamedTuple):
+    """``optax.adamw`` state: the update count (0-d int32 on the device) and
+    the two moments, one float32 tensor per parameter."""
 
-    optax reads the schedule at the update count *before* the update, so
-    the first step runs at ``schedule(0)``; ``LambdaLR`` sets that lr when
-    it is built, and ``scheduler.step()`` after each ``optimizer.step()``
-    moves to the next count.  The base lr is 1, so the factor ``LambdaLR``
-    applies is the scheduled lr itself.  Returns ``(optimizer, scheduler)``."""
-    opt = torch.optim.AdamW(params, lr=1.0, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
-    return opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule)
+    count: torch.Tensor
+    mu: list
+    nu: list
+
+
+def adamw_init(params) -> AdamWState:
+    params = list(params)
+    return AdamWState(torch.zeros((), dtype=torch.int32, device=params[0].device),
+                      [torch.zeros_like(p, dtype=torch.float32) for p in params],
+                      [torch.zeros_like(p, dtype=torch.float32) for p in params])
+
+
+def adamw_update_(params, grads, state: AdamWState, lr: torch.Tensor,
+                  weight_decay: float = 0.01, b1: float = 0.9, b2: float = 0.999,
+                  eps: float = 1e-8) -> None:
+    """One ``optax.adamw`` update, in place on ``params`` and ``state``:
+    ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2 + b2 nu``, both
+    bias-corrected by ``1 - b^count`` after the count's increment, then
+    ``p + (mu_hat / (sqrt(nu_hat) + eps) + weight_decay * p) * -lr``.
+    ``lr`` is a 0-d tensor on the device (the schedule at the count before
+    the update, as optax reads it), so the update holds no host value and a
+    CUDA graph can capture it: a foreach product reads a 0-d tensor on the
+    device, where a foreach sum would read it on the host."""
+    params, grads = list(params), list(grads)
+    with torch.no_grad():
+        mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1), torch._foreach_mul(state.mu, b1))
+        nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
+                                torch._foreach_mul(state.nu, b2))
+        state.count.add_(1)
+        mu_hat = torch._foreach_div(mu, 1 - b1 ** state.count)
+        nu_hat = torch._foreach_div(nu, 1 - b2 ** state.count)
+        update = torch._foreach_div(mu_hat, torch._foreach_add(torch._foreach_sqrt(nu_hat), eps))
+        update = torch._foreach_add(update, torch._foreach_mul(params, weight_decay))
+        torch._foreach_add_(params, torch._foreach_mul(update, -lr))
+        torch._foreach_copy_(state.mu, mu)
+        torch._foreach_copy_(state.nu, nu)

@@ -273,8 +273,7 @@ def test_unported_verbs_raise(verb, tmp_path, capsys, fresh_compile_state):
         assert main(["cost", str(tmp_path)]) == 1
         assert "no cost records" in capsys.readouterr().err
         return
-    match = f"{verb}.*item 8c" if verb in ("profile", "ui") else verb
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match=f"{verb}.*item 11"):
         main([verb])
 
 

@@ -739,14 +739,35 @@ def test_trace_summary_top_shows_the_ports_mfu(tmp_path, capsys, fresh_compile_s
         assert float(r[3]) > 0 and r[4].endswith("-bound")
 
 
-def test_profile_and_enable_profiler_name_item_8c(capsys):
-    with pytest.raises(NotImplementedError, match="profile.*item 8c"):
-        main(["profile"])
+def test_profile_and_enable_profiler_name_item_8c(capsys, tmp_path):
+    """Item 8c is ported: ``profile`` with neither ``--list`` nor a YAML is
+    the JAX verb's usage error (exit 2), and ``enable_profiler`` traces the
+    trial into ``<checkpoint_dir>/profile`` (``tests/test_torch_profiler.py``
+    holds both against the JAX package)."""
+    assert main(["profile"]) == 2
+    assert "--list" in capsys.readouterr().err
     from katib_tpu_torch.core.config import KatibConfig
+    from katib_tpu_torch.core.types import (
+        AlgorithmSpec,
+        ExperimentSpec,
+        FeasibleSpace,
+        ParameterSpec,
+        ParameterType,
+    )
     from katib_tpu_torch.orchestrator.orchestrator import Orchestrator
 
-    orch = Orchestrator(device="cpu", config=KatibConfig.from_dict(
+    def trainer(ctx):
+        ctx.report(step=0, accuracy=float(torch.ones(2).sum()))
+
+    spec = ExperimentSpec(
+        name="prof", algorithm=AlgorithmSpec(name="grid"),
+        objective=ObjectiveSpec(type=ObjectiveType.MAXIMIZE, objective_metric_name="accuracy"),
+        parameters=[ParameterSpec("x", ParameterType.CATEGORICAL, FeasibleSpace(list=["1"]))],
+        max_trial_count=1, parallel_trial_count=1, train_fn=trainer,
+    )
+    orch = Orchestrator(workdir=str(tmp_path), device="cpu", config=KatibConfig.from_dict(
         {"init": {"enable_profiler": True}}))
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        orch._refuse_unported(None)
+    (trial,) = orch.run(spec).trials.values()
+    assert trial.condition == TrialCondition.SUCCEEDED, trial.message
+    assert os.path.isfile(os.path.join(trial.checkpoint_dir, "profile", "trace.json"))
 

@@ -239,15 +239,19 @@ def test_asha_promotes_under_the_engine(tmp_path, monkeypatch):
     # the prewarmer is ported: the sweep runs with mnist_trial's warm-up
     # twin on the worker (at a smaller split), as in the JAX package
     pytest.param({"prewarm": True}, "runs", id="changes0-compile/prewarm.py"),
-    # cohorts are ported: the spec passes the refusals (the sweep itself
-    # runs in tests/test_torch_cohort.py's cohort spec)
+    # cohorts are ported: the spec passes the run's checks, and the
+    # orchestrator refuses nothing of it (the sweep itself runs in
+    # tests/test_torch_cohort.py's cohort spec)
     pytest.param({"cohortWidth": 4}, None, id="changes1-runner/cohort.py"),
 ])
 def test_mnist_trial_refuses_prewarm_and_cohorts(changes, match, tmp_path):
     spec = _sweep_spec(**changes)
     orch = Orchestrator(workdir=str(tmp_path), device="cpu")
     if match is None:
-        orch._refuse_unported(spec)
+        from katib_tpu_torch.core.validation import validate_experiment
+
+        validate_experiment(spec)
+        assert orch._resolve_mesh(spec) is None
         return
     spec = _sweep_spec(parameters={"n_train": "128", "n_test": "64"}, **changes)
     assert spec.prewarm and spec.train_fn is mnist_trial

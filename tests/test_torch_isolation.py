@@ -408,3 +408,75 @@ def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_the_dashboard_page_is_the_ports_own_copy():
+    """``katib_tpu_torch/ui/backend.py`` holds the page as a literal of its
+    own, so the dashboard needs nothing of the JAX package's ``ui``."""
+    tree = ast.parse((PACKAGE / "ui" / "backend.py").read_text())
+    pages = [node.value for node in tree.body if isinstance(node, ast.Assign)
+             and any(getattr(t, "id", None) == "DASHBOARD_HTML" for t in node.targets)]
+    assert len(pages) == 1 and isinstance(pages[0], ast.Constant)
+    assert pages[0].value.startswith("<!doctype html>") and "katib-tpu" in pages[0].value
+
+
+def test_operations_layer_runs_with_jax_and_katib_tpu_blocked(tmp_path):
+    """The profiler, ``init.enable_profiler``, ``profile --list`` and the
+    dashboard's server with JAX and the JAX package unimportable: a
+    two-trial experiment with one trial traced, its capture listed by the
+    verb and served by ``/api/status``, the experiment by
+    ``/api/experiments``."""
+    script = textwrap.dedent(f"""
+        import sys
+        for name in {BANNED!r}:
+            sys.modules[name] = None
+        import json, os, urllib.request
+        from katib_tpu_torch.cli import main
+        from katib_tpu_torch.core import types as T
+        from katib_tpu_torch.core.config import KatibConfig
+        from katib_tpu_torch.costmodel import profiler
+        from katib_tpu_torch.orchestrator import Orchestrator
+        from katib_tpu_torch.ui import start_ui
+        from katib_tpu_torch.utils.paths import artifacts_root
+        workdir = {str(tmp_path)!r}
+
+        def trainer(ctx):
+            ctx.report(step=0, accuracy=float(ctx.params["x"]))
+
+        spec = T.ExperimentSpec(
+            name="ops", algorithm=T.AlgorithmSpec(name="grid"),
+            objective=T.ObjectiveSpec(type=T.ObjectiveType.MAXIMIZE,
+                                      objective_metric_name="accuracy"),
+            parameters=[T.ParameterSpec("x", T.ParameterType.CATEGORICAL,
+                                        T.FeasibleSpace(list=["0.1", "0.2"]))],
+            max_trial_count=2, parallel_trial_count=1, train_fn=trainer)
+        orch = Orchestrator(workdir=workdir, device="cpu",
+                            config=KatibConfig.from_dict({{"init": {{"enable_profiler": True}}}}))
+        exp = orch.run(spec)
+        assert exp.succeeded_count == 2, exp.message
+        traced = profiler.list_profiles()
+        assert len(traced) == 2 and all(os.path.isfile(os.path.join(p["trace_dir"], "trace.json"))
+                                        for p in traced)
+        assert main(["profile", "--list", "--workdir", workdir]) == 0
+        ui = start_ui(workdir, device="cpu")
+        try:
+            base = f"http://127.0.0.1:{{ui.port}}"
+            status = json.loads(urllib.request.urlopen(base + "/api/status").read())
+            assert [p["trial"] for p in status["profiles"]] == [p["trial"] for p in traced]
+            exps = json.loads(urllib.request.urlopen(base + "/api/experiments").read())
+            assert [e["name"] for e in exps] == ["ops"]
+            page = urllib.request.urlopen(base + "/").read().decode()
+            assert "katib-tpu" in page
+        finally:
+            ui.stop()
+        assert "artifacts_torch" in artifacts_root()
+        leaked = sorted(n for n in sys.modules if n.split(".")[0] in {BANNED!r} and sys.modules[n])
+        assert not leaked, leaked
+        print("ok")
+    """)
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"},
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")

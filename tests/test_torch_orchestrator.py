@@ -321,7 +321,8 @@ REFUSALS = {
                                kind=ttypes.MetricsCollectorKind.STDOUT)),
     "slice-allocator": dict(match=None, orch_kw={
         "slice_allocator": SliceAllocator(1, devices=["cpu"] * 2)}),
-    "profiler": dict(match="profile", orch_kw={
+    # the profiler is ported: a trial is traced into its checkpoint dir
+    "profiler": dict(match=None, orch_kw={
         "config": KatibConfig.from_dict({"init": {"enable_profiler": True}})}),
     # the remote suggester is ported: what it refuses is the JAX package's
     # refusal of pbt behind a service, before anything is journaled
@@ -362,6 +363,10 @@ def _lifted(case, kw, tmp_path, monkeypatch):
         assert not (tmp_path / "cc" / "shape_registry.jsonl").exists()
     if case.startswith("artifact-dir"):
         assert ARTIFACTS.shared_dir() == str(tmp_path / "art")
+    if case == "profiler":  # one trial at a time holds the profiler
+        traced = [t for t in exp.trials.values()
+                  if os.path.isfile(os.path.join(t.checkpoint_dir, "profile", "trace.json"))]
+        assert traced
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))

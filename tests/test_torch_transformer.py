@@ -29,7 +29,7 @@ from katib_tpu_torch.models.transformer import (
     train_lm,
 )
 from katib_tpu_torch.ops.flash_attention import flash_attention
-from katib_tpu_torch.parallel.train import adamw_with_schedule, warmup_cosine_decay
+from katib_tpu_torch.parallel.train import adamw_init, adamw_update_, warmup_cosine_decay
 from katib_tpu_torch.runner.context import TrialContext
 
 # tier-1 runs six test processes on the same cores: one torch thread each
@@ -97,18 +97,19 @@ def test_schedule_refuses_what_optax_refuses():
 
 
 def test_first_step_runs_at_lr_zero_and_the_lr_follows_optax_counts():
-    """optax evaluates the schedule at the count before each update."""
+    """optax evaluates the schedule at the count before each update; the
+    port reads it from the update count on the parameters' device."""
     steps, lr = 6, 1e-2
     sched = warmup_cosine_decay(0.0, lr, 2, steps)
-    w = torch.nn.Parameter(torch.ones(3))
-    opt, lr_sched = adamw_with_schedule([w], sched)
+    w = torch.ones(3)
+    state = adamw_init([w])
     seen = []
     for _ in range(steps):
-        seen.append(opt.param_groups[0]["lr"])
-        w.grad = torch.ones(3)
-        opt.step()
-        lr_sched.step()
-    assert seen[0] == 0.0
+        rate = sched(state.count)
+        assert torch.is_tensor(rate) and rate.shape == () and rate.dtype == torch.float32
+        seen.append(float(rate))
+        adamw_update_([w], [torch.ones(3)], state, rate)
+    assert seen[0] == 0.0 and int(state.count) == steps
     want = optax.warmup_cosine_decay_schedule(0.0, lr, 2, steps)
     np.testing.assert_allclose(seen, [float(want(c)) for c in range(steps)], rtol=1e-6, atol=0)
 
@@ -124,18 +125,16 @@ def test_adamw_updates_match_optax():
     tx = optax.adamw(optax.warmup_cosine_decay_schedule(0.0, lr, 2, steps), weight_decay=0.01)
     jp = {k: jnp.asarray(v) for k, v in p0.items()}
     state = tx.init(jp)
-    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in p0.items()}
-    opt, lr_sched = adamw_with_schedule(list(tp.values()), warmup_cosine_decay(0.0, lr, 2, steps))
+    tp = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    sched = warmup_cosine_decay(0.0, lr, 2, steps)
+    opt = adamw_init(tp.values())
     for g in grads:
         updates, state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, state, jp)
         jp = optax.apply_updates(jp, updates)
-        for k, p in tp.items():
-            p.grad = torch.from_numpy(g[k])
-        opt.step()
-        lr_sched.step()
+        adamw_update_(tp.values(), [torch.from_numpy(g[k]) for k in tp], opt, sched(opt.count))
     for k in p0:
-        np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]), rtol=0, atol=1e-6)
-    assert not np.allclose(tp["a"].detach().numpy(), p0["a"])
+        np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=0, atol=1e-6)
+    assert not np.allclose(tp["a"].numpy(), p0["a"])
 
 
 # -- the model ----------------------------------------------------------------
