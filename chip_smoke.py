@@ -156,7 +156,9 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    8 primitives, batch 64, bf16, second order, no remat) replayed from its
    captured step against the same 2 steps run eagerly, bit for bit, with
    its mixed-op launches per replay; its replayed step's wall, images/s,
-   capture seconds and peak memory beside the unfused step's; then a copy
+   capture seconds and peak memory beside the main path's unfused replayed
+   step (its own unfused capture cut in PR 22 for the mesh phase's
+   seconds); then a copy
    of ``examples/nas/darts.yaml`` with ``fused: true`` at the search width
    (256 images, 1 epoch, its operations widened to the 7 primitives a
    spec can name) through ``Orchestrator.run``: ``Succeeded``, ``fsck``
@@ -170,24 +172,33 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    with ``store: remote`` and the same copy with ``store: native``; the
    daemon killed by SIGKILL, restarted on its journal, and ``metrics``
    reading back every row;
-28. ``mesh:`` the mesh path (``katib_tpu_torch/parallel/``): the route
-   (``torch.cuda.device_count()``; replicas sharing ``cuda:0`` on one card,
-   distinct cards where there are four; with two or more cards
-   ``dryrun_multigpu(2)`` on the distinct-card route, with one
-   ``dryrun_multigpu(4)`` on ``cuda:0`` and the CPU in turns, the same
-   route with host copies), then
-   ``dryrun_multigpu(4)`` on a grid named explicitly (the mixed-op kernel
-   launched in every replica); ``darts.yaml`` at the search width cut to
-   384 training images and one epoch (3 eager steps) through
-   ``Orchestrator.run`` with ``init.mesh_axes`` ``{data: 2}`` against the
-   same trial unsharded, every step's train loss within the stated bf16
-   tolerance, 190 mixed-op launches per replica-step; ``transformer_trial``
-   at the long-context width on ``{seq: 4}``, ring then Ulysses, 3 steps
-   each, against the unsharded trial, flash launches as predicted; one
-   small ring step's q/k/v gradients, kernels against the plain inner.
-   Its seconds were cut from the preflights of the resumed ``cli:`` run,
-   ``hyperband:`` and ``enas cli:`` (``cli:`` and ``blackbox:`` still gate
-   on the preflight);
+28. ``mesh:`` the mesh path (``katib_tpu_torch/parallel/``; replicas share
+   one card, not a multi-GPU number): the route (``torch.cuda.device_count()``;
+   replicas sharing ``cuda:0`` on one card, distinct cards where there are
+   four; with two or more cards ``dryrun_multigpu(2)`` on the distinct-card
+   route, with one ``dryrun_multigpu(4)`` on ``cuda:0`` and the CPU in
+   turns, the same route with host copies), then ``dryrun_multigpu(4)`` on a
+   grid named explicitly (the mixed-op kernel launched in every replica);
+   since PR 22 the sharded DARTS step on ``{data: 2}`` (3 cells of 1 node,
+   the 8 primitives, batch 64, bf16, 2 steps) replayed under remat against
+   the same steps run eagerly without remat, bit for bit, with its
+   launches per replay, and the fused plan replayed on the mesh against the
+   fused plan on one device and the fused module inside a mesh run;
+   ``darts.yaml`` at the search width cut to 384 training images and one
+   epoch through ``Orchestrator.run`` with ``init.mesh_axes`` ``{data: 2}``
+   under its defaults (the step loop captured, remat on) against the same
+   trial unsharded and captured: every step's train loss within the stated
+   bf16 tolerance, both trials' replayed step, capture seconds, peak memory
+   and a profiled replay's busy share, the mixed-op launches against the
+   printed formula, the sharded search's cost count; ``train_classifier``'s
+   captured epoch on ``{data: 2}`` against the unsharded one (float32), and
+   ``mnist_prewarm`` on that mesh; ``transformer_trial`` at the long-context
+   width on ``{seq: 4}``, ring then Ulysses, 3 captured steps each, against
+   the unsharded trial, flash launches as predicted, one replayed step
+   against an eager twin step bit for bit; one small ring step's q/k/v
+   gradients, kernels against the plain inner.  Its seconds were cut from
+   the preflights of the resumed ``cli:`` run, ``hyperband:`` and ``enas
+   cli:`` (PR 19), and from ``fused:``'s unfused capture (PR 22);
 29. ``cost:`` the cost model (``katib_tpu_torch/costmodel/``): the
    classifier epoch's step (``mnist_trial`` through ``run_trial`` at the
    Hyperband sweep's cell, 3 epochs) and the DARTS main path's step, each
@@ -236,6 +247,7 @@ from __future__ import annotations
 import atexit
 import concurrent.futures
 import contextlib
+import copy
 import functools
 import io
 import json
@@ -247,6 +259,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -654,10 +667,11 @@ def check_moves(got: dict, want: dict, start: dict, what: str,
 
 
 def phase_graph_vs_eager(torch) -> None:
-    """One state at the search width with ``remat=true`` and
-    ``remat_policy="dots"``: a window of 2 steps run eagerly on the card and
-    by CUDA-graph replay of the same step function; losses, weights and
-    alphas compared."""
+    """One state at the search width: a window of 2 steps run eagerly on the
+    card without remat, and by CUDA-graph replay of the same step function
+    with ``remat=true`` and ``remat_policy="dots"`` (replay and remat held in
+    one comparison; eager without remat since PR 22, for the mesh phase's
+    seconds); losses, weights and alphas compared."""
     import numpy as np
 
     from katib_tpu_torch.models.augmentation import KEY_OFFSET, random_crop_flip
@@ -695,6 +709,7 @@ def phase_graph_vs_eager(torch) -> None:
     step = make_search_step(loss_fn, hyper)
     runs = {}
     for capture in (False, True):
+        net.remat = capture  # read at each forward
         loop = StepLoop(step, state, splits, steps, batch, random_crop_flip, 5 + KEY_OFFSET,
                         capture=capture)
         t0 = time.perf_counter()
@@ -707,8 +722,8 @@ def phase_graph_vs_eager(torch) -> None:
     (eager, eager_m, eager_s, _), (graph, graph_m, graph_s, capture_s) = runs[False], runs[True]
     init = dict((k, v.cpu()) for k, v in state_items(state))
     loss_rel = float(((graph_m - eager_m).abs() / eager_m.abs().clamp(min=1e-30)).max())
-    print(f"graph vs eager: {GRAPH_VS_EAGER_LAYERS} cells, remat dots, search augment, "
-          f"{steps} steps: eager "
+    print(f"graph vs eager: {GRAPH_VS_EAGER_LAYERS} cells, replayed under remat dots against "
+          f"eager without remat, search augment, {steps} steps: eager "
           f"{eager_s:.2f}s, capture {capture_s:.2f}s (warm-up included) + replays "
           f"{graph_s - capture_s:.2f}s; train losses eager "
           f"{[round(float(v), 6) for v in eager_m[0]]} graph "
@@ -717,6 +732,11 @@ def phase_graph_vs_eager(torch) -> None:
     check(int(eager["step"]) == int(graph["step"]) == steps, f"both runs take {steps} steps")
     check(loss_rel <= LOSS_RTOL, f"replayed step metrics differ from eager by {loss_rel:.2e}")
     print(f"graph vs eager: {check_moves(graph, eager, init, 'graph vs eager')}", flush=True)
+
+
+# the main path's replayed step median (unfused, no remat, at the search
+# width): fused:'s unfused step in this process
+MAIN_PATH_STEP_S: list[float] = []
 
 
 def phase_main_path(torch, mixed_op) -> tuple[int, str, list]:
@@ -756,6 +776,7 @@ def phase_main_path(torch, mixed_op) -> tuple[int, str, list]:
         DARTS_LAYERS, DARTS_NODES) + counted
     times = ctx.step_times
     median = statistics.median(times[1:])
+    MAIN_PATH_STEP_S.append(median)
     print(f"main path: darts_trial 8 layers x 16 ch x 4 nodes, 8 primitives, batch 64, bf16, "
           f"{epochs} epochs x {steps} second-order steps by CUDA-graph replay (windows of "
           f"{s['stepLoopWindow']}), search augment, checkpoint, augment phase "
@@ -860,9 +881,10 @@ ORCH_SETTINGS = {
 SUCCESS = ("Succeeded", "MaxTrialsReached", "GoalReached")
 
 
-def search_width_spec(extra: dict | None = None):
+def search_width_spec(extra: dict | None = None, drop: tuple = (), layers: int = ORCH_LAYERS):
     """``darts.yaml`` through the SDK entry with the search width set (and
-    ``extra`` algorithm settings)."""
+    ``extra`` algorithm settings, without the search width's ``drop``), at
+    ``layers`` cells."""
     import yaml
 
     from katib_tpu_torch.sdk.yaml_spec import experiment_spec_from_dict
@@ -870,11 +892,11 @@ def search_width_spec(extra: dict | None = None):
     with open(DARTS_YAML) as f:
         doc = yaml.safe_load(f)
     algo = doc["spec"]["algorithm"]
-    settings = {**ORCH_SETTINGS, **(extra or {})}
+    settings = {k: v for k, v in {**ORCH_SETTINGS, **(extra or {})}.items() if k not in drop}
     algo["algorithmSettings"] = [s for s in algo["algorithmSettings"]
                                  if s["name"] not in settings]
     algo["algorithmSettings"] += [{"name": k, "value": v} for k, v in settings.items()]
-    doc["spec"]["nasConfig"]["graphConfig"]["numLayers"] = ORCH_LAYERS
+    doc["spec"]["nasConfig"]["graphConfig"]["numLayers"] = layers
     return experiment_spec_from_dict(doc)
 
 
@@ -2977,6 +2999,10 @@ FUSED_F32_ATOL = 1e-4  # float32 with TF32 off: rounding of two summation orders
 # epoch 0 against eager, epochs 1-2 timed (3 timed epochs before PR 21, cut
 # for the profile phase's seconds)
 FUSED_STEPS, FUSED_EPOCHS = 2, 3
+# cells of the fused darts.yaml trial (ORCH_LAYERS before PR 22, then 4, cut
+# for the mesh phase's seconds; the fused step at the search width is timed
+# above)
+FUSED_TRIAL_LAYERS = 3
 # darts.yaml's operations widened to the four conv primitives the fused plan
 # needs, and the two pools (a spec cannot name "none": 7 primitives)
 FUSED_OPERATIONS = [
@@ -3058,7 +3084,8 @@ def phase_fused(torch, mixed_op) -> None:
     the unfused primitives; (b) the fused supernet's captured step replayed
     against the same steps run eagerly, bit for bit, and its mixed-op
     launches per replay; (c) its replayed step's wall, images/s, capture
-    seconds and peak memory beside the unfused step's, in this process;
+    seconds and peak memory beside the unfused step's, the main path's
+    replayed step in this process;
     (d) ``darts_trial`` with ``fused`` through ``Orchestrator.run`` on a
     temporary copy of ``darts.yaml``."""
     import numpy as np
@@ -3138,10 +3165,8 @@ def phase_fused(torch, mixed_op) -> None:
     want = ({k: v.to("cpu", copy=True) for k, v in state_items(eager.state)},
             eager.metrics.to("cpu", copy=True))
     del eager
-    runs = {True: captured(step, state)}
+    got = captured(step, state)
     del net, step, state
-    runs[False] = captured(*search(False)[1:])
-    got = runs[True]
     same_metrics = torch.equal(got["metrics"], want[1])
     differ = sorted(k for k in want[0] if not torch.equal(got["state"][k], want[0][k]))
     print(f"fused: 8 cells x 16 ch x 4 nodes, 8 primitives, batch 64, bf16, no remat, "
@@ -3156,14 +3181,15 @@ def phase_fused(torch, mixed_op) -> None:
     check(same_metrics and not differ, "the fused step replayed differs from its eager run")
     check(got["per_replay"] == per_step and got["launches"] == predicted,
           f"fused mixed-op launches {got['per_replay']} per replay, {got['launches']} in all")
-    for fused in (True, False):
-        r = runs[fused]
-        median = statistics.median(r["times"])
-        print(f"fused: {'fused  ' if fused else 'unfused'} replayed step median {median:.4f}s "
-              f"({[round(t, 4) for t in r['times']]}) = {batch / median:.1f} images/s; capture "
-              f"{r['capture_s']:.3f}s (warm-up included); max_memory_allocated "
-              f"{r['peak'] / 2**30:.2f} GiB", flush=True)
-        check(len(r["times"]) == (FUSED_EPOCHS - 1) * FUSED_STEPS, "timed replays")
+    median = statistics.median(got["times"])
+    unfused = MAIN_PATH_STEP_S[0] if MAIN_PATH_STEP_S else math.nan
+    print(f"fused: fused replayed step median {median:.4f}s "
+          f"({[round(t, 4) for t in got['times']]}) = {batch / median:.1f} images/s; capture "
+          f"{got['capture_s']:.3f}s (warm-up included); max_memory_allocated "
+          f"{got['peak'] / 2**30:.2f} GiB; the unfused step at the same width, the main path's "
+          f"replayed step in this process: {unfused:.4f}s = {batch / unfused:.1f} images/s "
+          f"(since PR 22; before, an unfused capture here)", flush=True)
+    check(len(got["times"]) == (FUSED_EPOCHS - 1) * FUSED_STEPS, "timed replays")
 
     # (d) darts_trial with fused through the orchestrator, on a copy of darts.yaml
     workdir = tempfile.mkdtemp(prefix="chip-smoke-fused-")
@@ -3174,7 +3200,7 @@ def phase_fused(torch, mixed_op) -> None:
     algo = doc["spec"]["algorithm"]
     algo["algorithmSettings"] = [x for x in algo["algorithmSettings"] if x["name"] not in settings]
     algo["algorithmSettings"] += [{"name": k, "value": v} for k, v in settings.items()]
-    doc["spec"]["nasConfig"] = {"graphConfig": {"numLayers": ORCH_LAYERS},
+    doc["spec"]["nasConfig"] = {"graphConfig": {"numLayers": FUSED_TRIAL_LAYERS},
                                 "operations": FUSED_OPERATIONS}
     path = os.path.join(workdir, "darts-fused.yaml")
     with open(path, "w") as f:
@@ -3191,10 +3217,10 @@ def phase_fused(torch, mixed_op) -> None:
     (trial,) = exp.trials.values()
     prims = json.loads(trial.params()["search-space"])
     steps = (int(settings["n_train"]) // 2) // int(settings["batch_size"])
-    per_forward = mixed_op_launches_per_forward(ORCH_LAYERS, DARTS_NODES)
+    per_forward = mixed_op_launches_per_forward(FUSED_TRIAL_LAYERS, DARTS_NODES)
     trial_predicted = ((steps + WARMUP_STEPS) * 5 + 1) * per_forward + counted  # + the count's
     report = fsck_experiment(os.path.join(workdir, spec.name), repair=False)
-    print(f"fused: darts.yaml copy ({ORCH_LAYERS} layers, {len(prims)} primitives {prims}, "
+    print(f"fused: darts.yaml copy ({FUSED_TRIAL_LAYERS} layers, {len(prims)} primitives {prims}, "
           f"{settings}) through Orchestrator.run on cuda in {wall:.2f}s: experiment "
           f"{exp.condition.value}; trial {trial.condition.value}; mixed_op launches {launches} "
           f"(predicted {trial_predicted}, the cost count {counted}); spans {span_totals(workdir, spec.name)}; fsck "
@@ -3409,9 +3435,10 @@ def phase_cost(torch) -> None:
 
 # -- the native runtime ---------------------------------------------------------
 
-# native prefetch at the search width: 3 eager steps of batch 64 (384 images)
+# native prefetch at the search width: 2 eager steps of batch 64 (256 images;
+# 3 steps before PR 22, cut for the mesh phase's seconds)
 NATIVE_SETTINGS = {"batch_size": 64, "init_channels": 16, "num_nodes": DARTS_NODES,
-                   "num_epochs": 1, "n_train": 384, "n_test": 64, "remat": "false"}
+                   "num_epochs": 1, "n_train": 256, "n_test": 64, "remat": "false"}
 NATIVE_TRIALS = 4
 
 
@@ -3598,7 +3625,7 @@ def phase_native(torch, mixed_op) -> None:
 
 
 # the mesh path: a sharded step's train loss against the unsharded step's,
-# both eager in bf16 from the same seed and batches.  The replicas' batch norm
+# both in bf16 from the same seed and batches.  The replicas' batch norm
 # reduces its statistics in another order than cuDNN's; that difference
 # grows step by step (`python3 -m katib_tpu_torch.nas.darts.mesh_drift` on an
 # H100: in bf16 the sharded pair drifts as far as an unsharded run on
@@ -3609,86 +3636,523 @@ def phase_native(torch, mixed_op) -> None:
 # defect: 3 steps, 1e-2.
 MESH_LOSS_RTOL = 1e-2
 # the sharded DARTS trial's depth: one epoch of 3 steps (384 training
-# images at batch 64); its eager sharded steps take about 6.7 s each on one card
+# images at batch 64), its step captured (the defaults since PR 22: the step
+# loop and remat on, on a mesh too); its eager sharded steps took about 6.7 s
+# each on one card
 MESH_DARTS = {"n_train": "384", "num_epochs": "1"}
+# the sharded step checks: GRAPH_VS_EAGER_LAYERS cells at the search width
+# (DARTS_NODES nodes, 14 edges a cell), 2 steps, replayed under remat against
+# eager without it, bit for bit; replays timed (an eager sharded step of 3
+# cells x 4 nodes took 6.2-7.1 s on an H100: host work).  The fused plan on
+# the mesh, held to a tolerance, runs cells of MESH_FUSED_NODES node
+MESH_FUSED_NODES = 1
+MESH_STEPS = 2
+MESH_TIMED_REPLAYS = 3
+# replays a trial's profile times, then traces: one each (a sharded replay
+# holds about 200,000 kernels, and the profiler's stop grows with them)
+MESH_PROFILED = 1
 MESH_EVAL_RTOL = 2e-2
 MESH_LM_STEPS = 3
+MESH_TWIN_STEPS = 2  # the captured LM step held bit for bit against eager
 # one ring step's q/k/v gradients, bf16 kernels against the ring over the
 # plain inner: the largest error within 2e-2 of the largest gradient
 MESH_GRAD_RTOL = 2e-2
+# the data-parallel classifier epoch on {data: 2} against the unsharded one,
+# from the same weights and batches (SmallCNN 32 channels, batch 64, 64
+# steps), in float32 with TF32 off: the global batch's gradient is summed per
+# replica and then across, a reassociation of about 1e-7 a step that the
+# epoch's momentum steps grow far below 1e-3, while a replica training on
+# the wrong rows moves the loss by tens of percent.  In bf16, the trials'
+# type, each replica's weight gradient is rounded to bf16 on its own before
+# the two are summed, which moved this epoch's loss 2.6e-2 from the
+# unsharded epoch on an H100, where permuting the rows of each batch moved
+# it 4.5e-4 (PR 22): so in bf16 the epoch is held, under the same
+# tolerance, against the unsharded epoch that runs each batch as its two
+# halves (the replicas' rounding without the mesh), the other two printed.
+MESH_CLASSIFIER = {"channels": 32, "batch_size": 64, "n_train": 4096, "n_test": 1024,
+                   "epochs": 1, "lr": 0.05}
+MESH_CLASSIFIER_RTOL = 1e-3
+REPLICAS_SHARE = "replicas share one card, not a multi-GPU number"
 
 
-def _mesh_darts_run(torch, mixed_op, spec, orch_kw: dict, label: str, gpus=None) -> dict:
-    """One ``Orchestrator.run`` of the search-width spec, each bilevel step
-    recorded (train loss, wall to the step's completion on the card).
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms on inside (an operator without
+    one warns); yields the warnings caught, and restores the caller's
+    settings."""
+    import torch
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+@contextlib.contextmanager
+def recorded_step_loops():
+    """Collect every DARTS ``StepLoop`` built inside, and each step's wall
+    (the loop's ``run_epoch`` given a ``step_times`` list, which waits for
+    the device after each step)."""
+    from katib_tpu_torch.nas.darts.step_loop import StepLoop
+
+    loops: list = []
+    init, run = StepLoop.__init__, StepLoop.run_epoch
+
+    def recording_init(loop, *a, **k):
+        init(loop, *a, **k)
+        loop.times = []
+        loops.append(loop)
+
+    def timed(loop, w_ix, a_ix, window, step_times=None):
+        return run(loop, w_ix, a_ix, window, loop.times)
+
+    StepLoop.__init__, StepLoop.run_epoch = recording_init, timed
+    try:
+        yield loops
+    finally:
+        StepLoop.__init__, StepLoop.run_epoch = init, run
+
+
+def replay_profile(torch, loop, what: str):
+    """Time and profile ``loop``'s captured step, replayed from the epoch's
+    first row each time (``profiling.profile_step``)."""
+    from katib_tpu_torch.profiling import profile_step
+
+    def replay():
+        loop.bufs[3].zero_()
+        loop.graph.replay()
+
+    print(f"mesh: profile of the {what} replayed step:", flush=True)
+    return profile_step(replay, steps=MESH_PROFILED, warmup=1, top=5,
+                        kernel_names=("mixed_op",))
+
+
+def _mesh_darts_trial(torch, mixed_op, spec, orch_kw: dict, label: str, gpus=None) -> dict:
+    """One ``Orchestrator.run`` of the search-width spec, its step loop
+    recorded (each replayed step's wall, the capture seconds, the train
+    losses), the card's peak memory, the counts of its cost count, and a
+    profile of a few replays of its captured step after the trial.
     ``gpus``: the devices a config mesh takes in place of the visible GPUs
     (a list that repeats ``cuda:0`` on one card)."""
-    from katib_tpu_torch.nas.darts import search as dsearch
-    from katib_tpu_torch.parallel import mesh as pmesh
+    from katib_tpu_torch.costmodel import counter
     from katib_tpu_torch.orchestrator import Orchestrator
     from katib_tpu_torch.orchestrator.fsck import fsck_experiment
+    from katib_tpu_torch.parallel import mesh as pmesh
     from katib_tpu_torch.store.base import MemoryObservationStore
 
-    from katib_tpu_torch.costmodel import counter
+    counts = []
+    real_count, real_gpus = counter.count_step, pmesh.visible_gpus
 
-    losses, walls = [], []
-    real = dsearch.make_search_step
-
-    def recording(loss_fn, hyper, mesh=None):
-        step = real(loss_fn, hyper, mesh)
-
-        def run(state, train, val):
-            if counter.counting():  # the cost count's step on copies: not a search step
-                return step(state, train, val)
-            t0 = time.perf_counter()
-            state, metrics = step(state, train, val)
-            torch.cuda.current_stream().synchronize()
-            walls.append(time.perf_counter() - t0)
-            losses.append(metrics["train_loss"])
-            return state, metrics
-
-        return run
+    def recording_count(*a, **k):
+        counts.append(real_count(*a, **k))
+        return counts[-1]
 
     workdir = tempfile.mkdtemp(prefix=f"chip-smoke-mesh-{label}-")
     orch = Orchestrator(workdir=workdir, device="cuda", store=MemoryObservationStore(), **orch_kw)
-    real_gpus = pmesh.visible_gpus
-    dsearch.make_search_step = recording
+    counter.count_step = recording_count
     if gpus is not None:
         pmesh.visible_gpus = lambda: [torch.device(d) for d in gpus]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     mixed_op.launches = 0
+    counted0 = counted_launches()
     try:
-        t0 = time.perf_counter()
-        exp = orch.run(spec)
-        wall = time.perf_counter() - t0
+        with recorded_step_loops() as loops:
+            t0 = time.perf_counter()
+            exp = orch.run(spec)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     finally:
-        dsearch.make_search_step = real
+        counter.count_step = real_count
         pmesh.visible_gpus = real_gpus
-    launches = mixed_op.launches
+    launches, counted = mixed_op.launches, counted_launches() - counted0
+    peak = torch.cuda.max_memory_allocated()
     (trial,) = exp.trials.values()
     report = fsck_experiment(os.path.join(workdir, spec.name), repair=False)
     check(exp.condition.value in SUCCESS and trial.condition.value == "Succeeded",
           f"mesh: {label} run {exp.condition.value}: {exp.message} / {trial.message}")
     check(report.ok(), f"mesh: {label} fsck {report.lines()}")
-    return {"losses": [float(x) for x in losses], "walls": walls, "launches": launches,
-            "wall": wall, "accuracy": exp.optimal.objective_value, "params": trial.params()}
+    (loop,) = loops
+    check(loop.graph is not None, f"mesh: the {label} trial captured no step")
+    out = {"losses": [float(v) for v in loop.metrics[0].cpu()], "walls": list(loop.times),
+           "capture_s": loop.capture_s, "launches": launches, "counted": counted,
+           "peak": peak, "wall": wall, "accuracy": exp.optimal.objective_value,
+           "params": trial.params(), "counts": counts, "per_replay": loop.launches_per_replay}
+    t0 = time.perf_counter()
+    out["prof"] = replay_profile(torch, loop, label)
+    out["prof_s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_darts_steps(torch, mixed_op, smi: str) -> None:
+    """The sharded bilevel step on ``{data: 2}`` over ``cuda:0`` twice, at
+    ``GRAPH_VS_EAGER_LAYERS`` cells of the search width (``DARTS_NODES``
+    nodes, 16 channels, the 8 primitives, batch 64, bf16), 2 steps from one
+    state each run: (a) under remat, replayed from its CUDA graph, against
+    the same steps run eagerly without remat, bit for bit (replay and remat
+    held in one comparison), its replays timed; (b) the fused plan
+    (cells of ``MESH_FUSED_NODES`` node) replayed on the mesh against the
+    fused plan stepped eagerly on one device (``MESH_LOSS_RTOL``); (c) the
+    fused module against the unfused primitives inside a mesh run (the
+    global batch norm), under ``fused:``'s tolerances."""
+    import numpy as np
+
+    from katib_tpu_torch.entry import full_float32
+    from katib_tpu_torch.models.augmentation import KEY_OFFSET, random_crop_flip
+    from katib_tpu_torch.models.data import load_cifar10
+    from katib_tpu_torch.nas.darts.architect import (
+        DartsHyper, init_search_state, make_search_step, state_items)
+    from katib_tpu_torch.nas.darts.fused import FUSED_PRIMITIVES, FusedSepDil
+    from katib_tpu_torch.nas.darts.model import (
+        Alphas, DartsNetwork, init_alphas, mixed_op_launches_per_forward)
+    from katib_tpu_torch.nas.darts.ops import DEFAULT_PRIMITIVES, build_op
+    from katib_tpu_torch.nas.darts.search import _draw_epoch_indices, split_train
+    from katib_tpu_torch.nas.darts.step_loop import StepLoop
+    from katib_tpu_torch.parallel.collectives import replica_index
+    from katib_tpu_torch.parallel.mesh import make_mesh, piece, shard_batch
+    from katib_tpu_torch.parallel.train import cross_entropy_loss
+
+    s, seed = DARTS_SETTINGS, 9
+    batch, layers, nodes = s["batch_size"], GRAPH_VS_EAGER_LAYERS, DARTS_NODES
+    mesh = make_mesh({"data": 2}, devices=["cuda:0"] * 2)
+    (x_w, y_w), (x_a, y_a) = split_train(load_cifar10(n_train=s["n_train"], n_test=8), seed=seed)
+    splits = tuple(torch.from_numpy(np.ascontiguousarray(t)).cuda() for t in (x_w, y_w, x_a, y_a))
+    w_ix, a_ix = (ix.reshape(-1, batch)[:MESH_STEPS]
+                  for ix in _draw_epoch_indices(seed, 0, len(x_w), len(x_a), MESH_STEPS * batch))
+
+    def run(on_mesh: bool, capture: bool, remat: bool = False, fused: bool = False) -> dict:
+        nodes = MESH_FUSED_NODES if fused else DARTS_NODES
+        net = DartsNetwork(DEFAULT_PRIMITIVES, init_channels=s["init_channels"],
+                           num_layers=layers, n_nodes=nodes, remat=remat, fused_convs=fused)
+        gen = torch.Generator().manual_seed(seed)
+        net.reset_parameters(gen)
+        alphas = init_alphas(nodes, len(DEFAULT_PRIMITIVES), gen)
+        net.cuda()
+        nets = [net, copy.deepcopy(net)] if on_mesh else [net]
+
+        def loss_fn(w, a, b):
+            logits = torch.func.functional_call(nets[replica_index()], w, (b[0], a))
+            return cross_entropy_loss(logits, b[1])
+
+        hyper = DartsHyper(total_steps=16)
+        state = init_search_state({k: v.detach() for k, v in net.named_parameters()},
+                                  Alphas(*(a.cuda() for a in alphas)), hyper)
+        m = mesh if on_mesh else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loop = StepLoop(make_search_step(loss_fn, hyper, m), state, splits, MESH_STEPS, batch,
+                        random_crop_flip, seed + KEY_OFFSET, capture=capture, mesh=m)
+        t0 = time.perf_counter()
+        loop.run_epoch(w_ix, a_ix, window=MESH_STEPS)
+        torch.cuda.synchronize()
+        return {"loop": loop, "wall": time.perf_counter() - t0,
+                "peak": torch.cuda.max_memory_allocated(),
+                "state": {k: v.to("cpu", copy=True) for k, v in state_items(loop.state)},
+                "metrics": loop.metrics.to("cpu", copy=True)}
+
+    def same(a: dict, b: dict) -> bool:
+        return torch.equal(a["metrics"], b["metrics"]) and all(
+            torch.equal(a["state"][k], b["state"][k]) for k in a["state"])
+
+    per_step = 2 * 5 * mixed_op_launches_per_forward(layers, nodes)
+    t0 = time.perf_counter()
+    eager = run(True, False)
+    del eager["loop"]
+    t_eager = time.perf_counter() - t0
+    # the captured step with remat (the defaults), against the eager steps
+    # without it: replay and remat in one comparison; its mixed op launches
+    # twice a pass (the backward recomputes every cell)
+    mixed_op.launches = 0
+    t0 = time.perf_counter()
+    graph = run(True, True, remat=True)
+    t_graph = time.perf_counter() - t0
+    launches = mixed_op.launches
+    loop = graph["loop"]
+    times = []
+    for _ in range(MESH_TIMED_REPLAYS):
+        t0 = time.perf_counter()
+        loop.bufs[3].zero_()
+        loop.graph.replay()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    capture_s = loop.capture_s
+    del loop, graph["loop"]
+    print(f"mesh: sharded DARTS step on {{data: 2}} over cuda:0 twice ({REPLICAS_SHARE}), "
+          f"{layers} cells x {s['init_channels']} ch x {nodes} nodes, 8 primitives, batch "
+          f"{batch}, bf16, second order, search augment, {MESH_STEPS} steps [{smi}]: eager "
+          f"without remat {t_eager:.2f}s ({eager['wall'] / MESH_STEPS:.3f}s a step); with remat "
+          f"captured {t_graph:.2f}s (capture {capture_s:.3f}s, warm-up included)", flush=True)
+    print(f"mesh: sharded step with remat replayed {statistics.median(times):.4f}s median "
+          f"({[round(t, 4) for t in times]}); peak memory {graph['peak'] / 2**30:.2f} GiB against "
+          f"{eager['peak'] / 2**30:.2f} GiB eager without remat; train losses replayed "
+          f"{[round(float(v), 6) for v in graph['metrics'][0]]} eager "
+          f"{[round(float(v), 6) for v in eager['metrics'][0]]}; bit-equal "
+          f"{same(graph, eager)}; mixed_op launches {launches} = (1 warm-up + {MESH_STEPS} "
+          f"replays) x {2 * per_step} a step (2 replicas x 5 passes x 2 (remat) x "
+          f"{per_step // 10})", flush=True)
+    check(same(graph, eager), "mesh: the replayed sharded step under remat differs from the "
+                              "eager step without it")
+    check(launches == (1 + MESH_STEPS) * 2 * per_step,
+          f"mesh: {launches} mixed-op launches, the sharded loop predicts "
+          f"{(1 + MESH_STEPS) * 2 * per_step}")
+    t0 = time.perf_counter()
+    fused, plain = run(True, True, fused=True), run(False, False, fused=True)
+    errs = [abs(a - b) / abs(b) for a, b in zip(fused["metrics"][0].tolist(),
+                                               plain["metrics"][0].tolist())]
+    print(f"mesh: the fused plan on the mesh ({layers} cells x {MESH_FUSED_NODES} node), "
+          f"replayed, against the fused plan on one device "
+          f"({time.perf_counter() - t0:.2f}s): train losses "
+          f"{[round(float(v), 6) for v in fused['metrics'][0]]} vs "
+          f"{[round(float(v), 6) for v in plain['metrics'][0]]} (max rel {max(errs):.2e}, "
+          f"tolerance {MESH_LOSS_RTOL}); launches per replay "
+          f"{fused['loop'].launches_per_replay}", flush=True)
+    check(max(errs) <= MESH_LOSS_RTOL, f"mesh: the fused plan on the mesh off by {max(errs)}")
+    fused_per_step = 2 * 5 * mixed_op_launches_per_forward(layers, MESH_FUSED_NODES)
+    check(fused["loop"].launches_per_replay == fused_per_step,
+          f"mesh: fused launches per replay {fused['loop'].launches_per_replay}")
+    del fused["loop"], plain["loop"]
+
+    # (d) the fused module against the unfused primitives inside a mesh run
+    stride, c, hw = FUSED_SHAPES[0]
+    gen = torch.Generator().manual_seed(stride)
+    with full_float32():
+        mods = {n: build_op(n, c, stride, dtype=torch.float32) for n in FUSED_PRIMITIVES}
+        for mod in mods.values():
+            for m in mod.modules():
+                if m is not mod and hasattr(m, "reset_parameters"):
+                    m.reset_parameters(gen)
+        fused_mod = FusedSepDil(c, stride, dtype=torch.float32)
+        fused_mod.load_state_dict(fused_embedded(mods))
+        fused_mod.cuda()
+        for mod in mods.values():
+            mod.cuda()
+        x = shard_batch(torch.randn(64, c, hw, hw, generator=gen).cuda(), mesh)
+        with torch.no_grad(), mesh.on_streams():
+            outs = mesh.run(lambda r: (fused_mod(piece(x, r)),
+                                       {n: mods[n](piece(x, r)) for n in FUSED_PRIMITIVES}))
+        err = max(float((f[n] - u[n]).abs().max()) for f, u in outs for n in FUSED_PRIMITIVES)
+    print(f"mesh: FusedSepDil against SepConv/DilConv inside a {{data: 2}} run (batch norm over "
+          f"the global batch of 64), stride {stride}, {c} channels, {hw}x{hw}, float32: "
+          f"max_abs_err={err:.3e} (fused:'s tolerance {FUSED_F32_ATOL})", flush=True)
+    check(err <= FUSED_F32_ATOL, f"mesh: the fused module on the mesh differs by {err:.3e}")
+
+
+def mesh_classifier(torch, smi: str) -> None:
+    """``train_classifier`` on ``{data: 2}`` over ``cuda:0`` twice with the
+    train split on the device: the captured data-parallel epoch against the
+    unsharded captured epoch, from the same weights and batches, in
+    float32; the same epoch in bf16 against the unsharded epoch run in half
+    batches (``MESH_CLASSIFIER``'s note); then ``mnist_prewarm`` of that
+    trial on the mesh."""
+    import numpy as np
+
+    from katib_tpu_torch.models import mnist
+    from katib_tpu_torch.models.data import load_mnist
+    from katib_tpu_torch.parallel.mesh import make_mesh
+
+    c = MESH_CLASSIFIER
+    ds = load_mnist(c["n_train"], c["n_test"])
+    mesh = make_mesh({"data": 2}, devices=["cuda:0"] * 2)
+    runs = {}
+    for label, m in (("data2", mesh), ("plain", None)):
+        model = mnist.SmallCNN(channels=c["channels"], dtype=torch.float32)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        reports = []
+        with captured_loops() as loops:
+            t0 = time.perf_counter()
+            acc = mnist.train_classifier(model, ds, lr=c["lr"], epochs=c["epochs"],
+                                         batch_size=c["batch_size"], mesh=m, device="cuda",
+                                         device_data=True,
+                                         report=lambda **kw: reports.append(kw) or True)
+            torch.cuda.synchronize()
+        runs[label] = {"acc": acc, "reports": reports, "wall": time.perf_counter() - t0,
+                       "captures": [lp.capture_s for lp in loops]}
+    got, want = runs["data2"], runs["plain"]
+    rel = abs(got["reports"][-1]["loss"] - want["reports"][-1]["loss"]) / abs(
+        want["reports"][-1]["loss"])
+    print(f"mesh: train_classifier SmallCNN {c['channels']} ch, float32, batch {c['batch_size']}, "
+          f"{c['n_train']} images, {c['epochs']} epoch, captured epoch on {{data: 2}} over "
+          f"cuda:0 twice ({REPLICAS_SHARE}) in {got['wall']:.2f}s (captures "
+          f"{[round(t, 3) for t in got['captures']]}s) against unsharded in {want['wall']:.2f}s "
+          f"(captures {[round(t, 3) for t in want['captures']]}s): loss "
+          f"{got['reports'][-1]['loss']:.6f} vs {want['reports'][-1]['loss']:.6f} (rel "
+          f"{rel:.2e}, tolerance {MESH_CLASSIFIER_RTOL}), accuracy {got['acc']:.4f} vs "
+          f"{want['acc']:.4f} [{smi}]", flush=True)
+    check(len(got["captures"]) == len(want["captures"]) == 1, "mesh: one classifier capture each")
+    check(rel <= MESH_CLASSIFIER_RTOL, f"mesh: the data-parallel epoch's loss off by {rel:.2e}")
+
+    # bf16: the captured epoch on the mesh, unsharded in halves, unsharded,
+    # and unsharded with each batch's rows permuted
+    class Halves(mnist.SmallCNN):
+        """SmallCNN that runs each half of a batch on its own, as the two
+        replicas of ``{data: 2}`` do."""
+
+        def forward(self, x):
+            return torch.cat([mnist.SmallCNN.forward(self, h) for h in x.chunk(2)])
+
+    x = torch.from_numpy(ds.x_train).cuda()
+    y = torch.from_numpy(ds.y_train).cuda()
+    n, b = c["n_train"] // c["batch_size"], c["batch_size"]
+    rng = np.random.default_rng(0)
+    idx = rng.permutation(c["n_train"])[: n * b].reshape(n, b)
+    within = np.stack([row[rng.permutation(b)] for row in idx])
+
+    def bf16_epoch(m, rows, cls=mnist.SmallCNN) -> float:
+        model = cls(channels=c["channels"], dtype=torch.bfloat16)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.cuda()
+        step, _, state = mnist.classifier_steps(model, "momentum", c["lr"], 0.9, mesh=m)
+        loop = mnist.EpochLoop(step, state, x, y, n, b, mesh=m)
+        loop.run_epoch(rows)
+        return float(loop.losses.mean())
+
+    sharded, halves = bf16_epoch(mesh, idx), bf16_epoch(None, idx, Halves)
+    plain, permuted = bf16_epoch(None, idx), bf16_epoch(None, within)
+    rel16 = abs(sharded - halves) / abs(halves)
+    print(f"mesh: the same epoch in bf16 (the trials' type), captured, mean loss on {{data: 2}} "
+          f"{sharded:.6f} vs unsharded in half batches {halves:.6f} (rel {rel16:.2e}, tolerance "
+          f"{MESH_CLASSIFIER_RTOL}); unsharded {plain:.6f} (rel {abs(sharded - plain) / plain:.2e}"
+          f"), unsharded with each batch's rows permuted {permuted:.6f} (rel "
+          f"{abs(permuted - plain) / plain:.2e} from unsharded) [{smi}]", flush=True)
+    check(rel16 <= MESH_CLASSIFIER_RTOL,
+          f"mesh: the bf16 data-parallel epoch's loss off by {rel16:.2e}")
+    shared = {"arch": "cnn", "channels": c["channels"], "n_train": c["n_train"],
+              "n_test": c["n_test"], "batch_size": c["batch_size"]}
+    t0 = time.perf_counter()
+    capture_s = mnist.mnist_prewarm(shared, 1, mesh=mesh, device="cuda")
+    print(f"mesh: mnist_prewarm on {{data: 2}} ran in {time.perf_counter() - t0:.2f}s (capture "
+          f"{capture_s:.3f}s; the trial's default on a mesh streams its batches, so the twin "
+          f"steps once eagerly)", flush=True)
+
+
+def mesh_lm(torch, fa, smi: str, grid: list) -> dict[str, int]:
+    """``transformer_trial`` at the long-context width on ``{seq: 4}``,
+    ring then Ulysses, each step a replay of its captured graph, against
+    the unsharded captured trial; then ``MESH_TWIN_STEPS`` replayed steps
+    against as many eager twin steps of each strategy from the same
+    weights, bit for bit after each step: the loss, the update count,
+    every parameter and both AdamW moments.  The schedule's learning rate
+    is 0 at the first step, so its gradients show only in the moments.
+    Both twins run under PyTorch's deterministic algorithms: otherwise the
+    embedding's backward over this many tokens sums a row's repeats in an
+    order that varies from run to run, eager runs included (about 2e-9 in
+    ``tok_embed`` on an H100).  Returns the flash launches of the two
+    trials."""
+    from katib_tpu_torch.models import transformer_trial
+    from katib_tpu_torch.models.transformer import (
+        LMTrainStep, TransformerLM, make_attention_fn, markov_dataset)
+    from katib_tpu_torch.nas.darts.step_loop import WARMUP_STEPS
+    from katib_tpu_torch.parallel.mesh import make_mesh
+    from katib_tpu_torch.runner.context import TrialContext
+
+    params = {**long_context()[0], "steps": MESH_LM_STEPS}
+    layers, lm_steps = params["n_layers"], params["steps"]
+    evals = sum(1 for i in range(lm_steps) if i % 10 == 0 or i == lm_steps - 1)
+    base = TrialContext({k: str(v) for k, v in params.items()}, device="cuda", step_times=[])
+    transformer_trial(base)
+    want = [m["eval_loss"] for _, m in base.reports]
+    lm_mesh = make_mesh({"seq": 4}, devices=grid)
+    flash = {"fwd": 0, "dq": 0, "dkv": 0}
+    for strategy, chunks in (("ring", 4 * 5 // 2), ("ulysses", 4)):
+        ctx = TrialContext({**{k: str(v) for k, v in params.items()}, "attn": strategy},
+                           device="cuda", mesh=lm_mesh, step_times=[])
+        fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+        transformer_trial(ctx)
+        got_launches = {"fwd": fa.fwd_launches, "dq": fa.dq_launches, "dkv": fa.dkv_launches}
+        # captured: the warm-up step's launches are real, then each replay
+        # counts the capture's; the evaluations run eagerly
+        stepped = lm_steps + WARMUP_STEPS
+        pred = {"fwd": layers * (stepped + evals) * chunks, "dq": layers * stepped * chunks,
+                "dkv": layers * stepped * chunks}
+        got = [m["eval_loss"] for _, m in ctx.reports]
+        errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+
+        # MESH_TWIN_STEPS replayed steps against as many eager twin steps
+        # from the same weights, deterministic algorithms on in both
+        c = params
+        tokens = torch.from_numpy(markov_dataset(c["vocab_size"], c["batch_size"], c["seq_len"],
+                                                 seed=4)).long().cuda()
+        twins, warned = {}, set()
+        for capture in (True, False):
+            model = TransformerLM(vocab_size=c["vocab_size"], d_model=c["d_model"],
+                                  n_heads=c["n_heads"], n_layers=layers,
+                                  max_seq_len=c["seq_len"],
+                                  attn_fn=make_attention_fn(lm_mesh, strategy))
+            model.reset_parameters(torch.Generator().manual_seed(0))
+            model.cuda()
+            step = LMTrainStep(model, lr=3e-3, steps=20, mesh=lm_mesh, capture=capture)
+            after, walls = [], []
+            with deterministic_algorithms() as caught:
+                for _ in range(MESH_TWIN_STEPS):
+                    t0 = time.perf_counter()
+                    loss = step(tokens)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    after.append([t.detach().to("cpu", copy=True) for t in (
+                        loss, step.opt.count, *model.parameters(), *step.opt.mu, *step.opt.nu)])
+            warned |= {str(w.message).splitlines()[0][:120] for w in caught}
+            twins[capture] = {"after": after, "walls": walls,
+                              "per_replay": step.launches_per_replay}
+            del model, step
+        # after each step: the loss, the update count, every parameter and
+        # both AdamW moments (the first step's learning rate is 0, so its
+        # gradients show in the moments only)
+        steps_equal = [all(torch.equal(a, b) for a, b in zip(got, want))
+                       for got, want in zip(twins[True]["after"], twins[False]["after"])]
+        bit_equal = all(steps_equal)
+        per_replay = {k: v // 1 for k, v in twins[True]["per_replay"].items()}
+        want_per_replay = {"fwd": layers * chunks, "dq": layers * chunks, "dkv": layers * chunks}
+        median = statistics.median(ctx.step_times[1:])
+        base_median = statistics.median(base.step_times[1:])
+        print(f"mesh: transformer_trial {strategy} on {{seq: 4}} over {grid} ({REPLICAS_SHARE}), "
+              f"captured: eval_loss {got} vs unsharded {want} (max rel {max(errs):.3e}, "
+              f"tolerance {MESH_EVAL_RTOL}); replayed step median {median:.4f}s "
+              f"({[round(t, 4) for t in ctx.step_times]}) against the unsharded replayed step "
+              f"{base_median:.4f}s and the eager mesh step {twins[False]['walls'][-1]:.4f}s "
+              f"({[round(t, 4) for t in twins[False]['walls']]}, the eager twin's steps) [{smi}]",
+              flush=True)
+        print(f"mesh: {strategy} flash launches={got_launches} predicted={pred}; per replay "
+              f"{per_replay} (predicted {want_per_replay}); {MESH_TWIN_STEPS} replayed steps "
+              f"against {MESH_TWIN_STEPS} eager twin steps from the same weights, deterministic "
+              f"algorithms on (learning rate 0 at the first step): the loss, the update count, "
+              f"every parameter and both AdamW moments after each step bit-equal {steps_equal}; "
+              f"deterministic mode warned {sorted(warned)}", flush=True)
+        check(len(got) == len(want) == evals, f"mesh: {strategy} reports {ctx.reports}")
+        check(max(errs) <= MESH_EVAL_RTOL, f"mesh: {strategy} eval loss off by {max(errs):.3e}")
+        check(got_launches == pred, f"mesh: {strategy} flash launched {got_launches}, "
+                                    f"predicted {pred}")
+        check(per_replay == want_per_replay, f"mesh: {strategy} per replay {per_replay}")
+        check(bit_equal, f"mesh: the replayed {strategy} step differs from its eager twin")
+        for k in flash:
+            flash[k] += got_launches[k]
+    return flash
 
 
 def phase_mesh(torch, mixed_op, fa) -> dict[str, int]:
     """The mesh path on the card: the route, ``dryrun_multigpu(4)``, the
-    search-width ``darts_trial`` on ``{data: 2}`` through ``Orchestrator.run``
-    against the same trial unsharded, ``transformer_trial`` at the
-    long-context width on ``{seq: 4}`` (ring, then Ulysses) against the
-    unsharded trial, and one small ring step's gradients against the ring
-    over the plain inner.  Returns the kernels' launches on the mesh paths
-    (the sharded DARTS run; the ring and Ulysses runs)."""
+    sharded step checks (replayed against eager, remat, the fused plan),
+    the search-width ``darts_trial`` on ``{data: 2}`` through
+    ``Orchestrator.run`` with its defaults (the step loop, captured, and
+    remat on) against the same trial unsharded, and its counted step;
+    ``train_classifier`` and ``mnist_prewarm`` on ``{data: 2}``;
+    ``transformer_trial`` at the long-context width on ``{seq: 4}`` (ring,
+    then Ulysses), captured, against the unsharded trial; and one small ring
+    step's gradients against the ring over the plain inner.  Returns the
+    kernels' launches on the mesh paths (the sharded DARTS trial; the ring
+    and Ulysses trials)."""
     from katib_tpu_torch.core.config import KatibConfig
+    from katib_tpu_torch.costmodel.peaks import peaks_for
     from katib_tpu_torch.entry import dryrun_multigpu
-    from katib_tpu_torch.models import transformer_trial
     from katib_tpu_torch.nas.darts.model import mixed_op_launches_per_forward
+    from katib_tpu_torch.nas.darts.step_loop import WARMUP_STEPS
     from katib_tpu_torch.ops.flash_attention import reference_attention_with_lse
     from katib_tpu_torch.parallel.mesh import make_mesh
     from katib_tpu_torch.parallel.ring_attention import make_sequence_parallel_attention
-    from katib_tpu_torch.runner.context import TrialContext
 
     smi = smi_line()
     count = torch.cuda.device_count()
@@ -3706,7 +4170,8 @@ def phase_mesh(torch, mixed_op, fa) -> dict[str, int]:
               f"({out['route']}) passed in {time.perf_counter() - t0:.2f}s: {out}", flush=True)
     else:
         print("mesh: the distinct-card route did not run: one GPU is visible; nothing is "
-              "claimed for transfers between cards", flush=True)
+              "claimed for transfers between cards, and no capture over distinct cards is "
+              "made (it raises)", flush=True)
         # the same route between distinct devices, with the CPU as the other
         # device: host copies, not peer copies between cards
         t0 = time.perf_counter()
@@ -3724,81 +4189,88 @@ def phase_mesh(torch, mixed_op, fa) -> dict[str, int]:
           f"[{smi}]: {out}", flush=True)
     check(min(per_replica) > 0, f"a replica launched no mixed-op kernel: {per_replica}")
 
-    # 2. the search-width DARTS trial on {data: 2}, against the same trial
-    # unsharded (eager steps on both sides: the mesh path has no capture)
+    # 2. the sharded step: replayed against eager, remat, the fused plan
+    t_part = time.perf_counter()
+    mesh_darts_steps(torch, mixed_op, smi)
+    print(f"mesh: the sharded step checks took {time.perf_counter() - t_part:.2f}s", flush=True)
+
+    # 3. the search-width DARTS trial on {data: 2} with its defaults, against
+    # the same trial unsharded; both capture their step
     t_part = time.perf_counter()
     layers = ORCH_LAYERS
     s = {**ORCH_SETTINGS, **MESH_DARTS}
+    del s["remat"]
     epochs, steps = int(s["num_epochs"]), (int(s["n_train"]) // 2) // int(s["batch_size"])
     config = KatibConfig.from_dict({"init": {"mesh_axes": {"data": 2}}})
-    sharded = _mesh_darts_run(torch, mixed_op, search_width_spec(MESH_DARTS),
-                              {"config": config}, "data2", gpus=pair)
-    plain = _mesh_darts_run(torch, mixed_op,
-                            search_width_spec({**MESH_DARTS, "step_loop": "false"}), {}, "plain")
+    spec = search_width_spec(MESH_DARTS, drop=("remat",))
+    sharded = _mesh_darts_trial(torch, mixed_op, spec, {"config": config}, "data2", gpus=pair)
+    plain = _mesh_darts_trial(torch, mixed_op, search_width_spec(MESH_DARTS, drop=("remat",)),
+                              {}, "plain")
     nodes = int(json.loads(sharded["params"]["algorithm-settings"])["num_nodes"])
     per_forward = mixed_op_launches_per_forward(layers, nodes)
     replicas = 2
-    predicted = replicas * (epochs * steps * 5 + epochs) * per_forward
-    per_step = (sharded["launches"] - replicas * epochs * per_forward) / (replicas * epochs * steps)
+    # each replica: (the warm-up step and the replayed steps) x 5 passes, each
+    # pass's forward launched twice under remat (the backward recomputes every
+    # cell), and one forward per evaluation; plus the replicas' launches in
+    # the count (a step, with its recompute)
+    passes = 5 * 2
+    formula = (f"replicas x ((steps + warm-up) x 5 passes x 2 (remat) + evaluations) x "
+               f"per_forward + counted = {replicas} x (({epochs * steps} + {WARMUP_STEPS}) x "
+               f"{passes} + {epochs}) x {per_forward} + {sharded['counted']}")
+    predicted = replicas * ((epochs * steps + WARMUP_STEPS) * passes + epochs) * per_forward \
+        + sharded["counted"]
     errs = [abs(a - b) / abs(b) for a, b in zip(sharded["losses"], plain["losses"])]
-    median = {k: statistics.median(r["walls"][1:]) for k, r in (("data2", sharded),
-                                                                ("plain", plain))}
-    print(f"mesh: darts_trial at the search width ({layers} layers, batch "
-          f"{s['batch_size']}, {s['n_train']} images, {epochs} epochs of {steps} eager steps) "
-          f"on {{data: 2}} over {pair} and unsharded, through Orchestrator.run [{smi}]", flush=True)
-    print(f"mesh: train_loss data2={[round(x, 5) for x in sharded['losses']]}", flush=True)
-    print(f"mesh: train_loss plain={[round(x, 5) for x in plain['losses']]}", flush=True)
-    print(f"mesh: step_s data2 first={sharded['walls'][0]:.4f} median_rest={median['data2']:.4f}; "
-          f"plain first={plain['walls'][0]:.4f} median_rest={median['plain']:.4f} "
-          f"({'replicas sharing one card' if pair[0] == pair[1] else 'two cards'}); "
-          f"max rel loss diff={max(errs):.3e} (tolerance {MESH_LOSS_RTOL}); "
-          f"accuracy data2={sharded['accuracy']} plain={plain['accuracy']}", flush=True)
-    print(f"mesh: mixed_op launches data2={sharded['launches']} predicted={predicted}; per "
-          f"replica-step={per_step:g} predicted={5 * per_forward}; plain={plain['launches']}",
-          flush=True)
+    print(f"mesh: darts_trial at the search width ({layers} layers, batch {s['batch_size']}, "
+          f"{s['n_train']} images, {epochs} epoch of {steps} steps, the step loop captured and "
+          f"remat on: the defaults) on {{data: 2}} over {pair} ({REPLICAS_SHARE}) and "
+          f"unsharded, through Orchestrator.run [{smi}]", flush=True)
+    for label, r in (("data2", sharded), ("plain", plain)):
+        print(f"mesh: {label}: train_loss {[round(x, 5) for x in r['losses']]}; replayed step "
+              f"{statistics.median(r['walls']):.4f}s median ({[round(t, 4) for t in r['walls']]}); "
+              f"profiled replay {r['prof'].wall_s:.4f}s, device busy {r['prof'].busy:.1%}; capture "
+              f"{r['capture_s']:.3f}s (warm-up included); peak memory {r['peak'] / 2**30:.2f} "
+              f"GiB; trial wall {r['wall']:.2f}s, its profile {r['prof_s']:.2f}s; accuracy "
+              f"{r['accuracy']}", flush=True)
+    ratio = statistics.median(sharded["walls"]) / statistics.median(plain["walls"])
+    print(f"mesh: the sharded replayed step is {ratio:.2f}x the unsharded replayed step; "
+          f"max rel loss diff={max(errs):.3e} (tolerance {MESH_LOSS_RTOL})", flush=True)
+    print(f"mesh: mixed_op launches data2={sharded['launches']} predicted={predicted} "
+          f"({formula}); per replay {sharded['per_replay']} (predicted "
+          f"{replicas * passes * per_forward}); plain={plain['launches']}", flush=True)
     check(len(sharded["losses"]) == len(plain["losses"]) == epochs * steps,
           f"mesh: steps {len(sharded['losses'])} / {len(plain['losses'])}")
     check(max(errs) <= MESH_LOSS_RTOL, f"mesh: sharded train loss off by {max(errs):.3e}")
     check(sharded["launches"] == predicted,
           f"mesh: mixed-op launched {sharded['launches']}, the path predicts {predicted}")
-    check(per_step == 5 * per_forward, f"mesh: {per_step} launches per replica-step")
-    print(f"mesh: the two DARTS runs took {time.perf_counter() - t_part:.2f}s "
+    check(sharded["per_replay"] == replicas * passes * per_forward,
+          f"mesh: {sharded['per_replay']} launches per replay")
+    check(sharded["counted"] in (0, replicas * passes * per_forward),
+          f"mesh: the count launched {sharded['counted']}")
+    # the counted mesh search: its count, and MFU at the replayed step
+    check(len(sharded["counts"]) == 1, f"mesh: {len(sharded['counts'])} counts in the trial")
+    (c,) = sharded["counts"]
+    mfu = c.record("darts:darts-scan").mfu(statistics.median(sharded["walls"]), peaks_for("h100"))
+    print(f"cost: the sharded DARTS search on {{data: 2}}: {c.flops / 1e9:.3f} GFLOP and "
+          f"{c.bytes_accessed / 1e6:.1f} MB a step ({c.kernel_flops / c.flops:.2%} of the flops "
+          f"declared by hand-written kernels, launches {c.launches}), counted in "
+          f"{c.seconds:.3f}s; MFU at the replayed step {mfu:.4f} against the h100 row "
+          f"({REPLICAS_SHARE}) [{smi}]", flush=True)
+    check(c.launches.get("mixed_op") == replicas * passes * per_forward,
+          f"mesh: the count declared {c.launches}")
+    print(f"mesh: the two DARTS trials took {time.perf_counter() - t_part:.2f}s "
           f"(sharded {sharded['wall']:.2f}s, unsharded {plain['wall']:.2f}s)", flush=True)
+
+    # 4. the classifier on {data: 2}
     t_part = time.perf_counter()
+    mesh_classifier(torch, smi)
+    print(f"mesh: the classifier runs took {time.perf_counter() - t_part:.2f}s", flush=True)
 
-    # 3. the long-context LM on {seq: 4}, ring then Ulysses, against unsharded
-    params = {**long_context()[0], "steps": MESH_LM_STEPS}
-    layers_lm, lm_steps = params["n_layers"], params["steps"]
-    evals = sum(1 for i in range(lm_steps) if i % 10 == 0 or i == lm_steps - 1)
-    base = TrialContext({k: str(v) for k, v in params.items()}, device="cuda", step_times=[])
-    transformer_trial(base)
-    want = [m["eval_loss"] for _, m in base.reports]
+    # 5. the long-context LM on {seq: 4}, ring then Ulysses, captured
+    t_part = time.perf_counter()
+    flash = mesh_lm(torch, fa, smi, grid)
+    print(f"mesh: the LM runs took {time.perf_counter() - t_part:.2f}s", flush=True)
     lm_mesh = make_mesh({"seq": 4}, devices=grid)
-    flash = {"fwd": 0, "dq": 0, "dkv": 0}
-    for strategy, chunks in (("ring", 4 * 5 // 2), ("ulysses", 4)):
-        ctx = TrialContext({**{k: str(v) for k, v in params.items()}, "attn": strategy},
-                           device="cuda", mesh=lm_mesh, step_times=[])
-        fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
-        transformer_trial(ctx)
-        got_launches = {"fwd": fa.fwd_launches, "dq": fa.dq_launches, "dkv": fa.dkv_launches}
-        pred = {"fwd": layers_lm * (lm_steps + evals) * chunks,
-                "dq": layers_lm * lm_steps * chunks, "dkv": layers_lm * lm_steps * chunks}
-        got = [m["eval_loss"] for _, m in ctx.reports]
-        errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
-        print(f"mesh: transformer_trial {strategy} on {{seq: 4}} over {grid}: eval_loss {got} "
-              f"vs unsharded {want} (max rel {max(errs):.3e}, tolerance {MESH_EVAL_RTOL}); "
-              f"step_s {[round(t, 4) for t in ctx.step_times]} vs unsharded "
-              f"{[round(t, 4) for t in base.step_times]} [{smi}]", flush=True)
-        print(f"mesh: {strategy} flash launches={got_launches} predicted={pred}", flush=True)
-        check(len(got) == len(want) == evals, f"mesh: {strategy} reports {ctx.reports}")
-        check(max(errs) <= MESH_EVAL_RTOL, f"mesh: {strategy} eval loss off by {max(errs):.3e}")
-        check(got_launches == pred, f"mesh: {strategy} flash launched {got_launches}, "
-                                    f"predicted {pred}")
-        for k in flash:
-            flash[k] += got_launches[k]
-
-    print(f"mesh: the three LM runs took {time.perf_counter() - t_part:.2f}s", flush=True)
-    # 4. one small ring step's gradients: the kernels against the plain inner
+    # 6. one small ring step's gradients: the kernels against the plain inner
     gen = torch.Generator(device="cuda").manual_seed(5)
     q, k, v = (torch.randn(1, 2, 256, 64, generator=gen, device="cuda", dtype=torch.bfloat16)
                .requires_grad_(True) for _ in range(3))
@@ -3819,6 +4291,10 @@ def phase_mesh(torch, mixed_op, fa) -> dict[str, int]:
 # -- the operations layer -----------------------------------------------------
 
 PROFILE_TRAIN = "128"  # images of each profiled darts.yaml trial: 1 step in its epoch
+# cells of each profiled darts.yaml trial (ORCH_LAYERS before PR 22, then 4,
+# cut for the mesh phase's seconds: the traced trial's events, and so the
+# profiler's stop, grow with the cells)
+PROFILE_LAYERS = 3
 
 
 def trace_reading(trace_dir: str, kernel: str) -> dict:
@@ -3865,8 +4341,8 @@ def stop_servers() -> None:
 def phase_profile(torch, mixed_op) -> tuple[str, str]:
     """The profiler (``costmodel/profiler.py``): ``python -m katib_tpu_torch
     profile examples/hp-tuning/cohort-prewarm.yaml`` on the card (the
-    prewarm twin traced); ``darts.yaml`` at the search width (128 images, one
-    epoch of one step) as two trials at once through ``Orchestrator.run`` with
+    prewarm twin traced); ``darts.yaml`` at the search width (``PROFILE_LAYERS``
+    cells, 128 images, one epoch of one step) as two trials at once through ``Orchestrator.run`` with
     ``init.enable_profiler``: one trial traced, the other not, the traced
     trial's Chrome trace read for the mixed-op kernel (per replay of the
     captured step) and the card's busy share, its wall beside the
@@ -3915,7 +4391,7 @@ def phase_profile(torch, mixed_op) -> tuple[str, str]:
             (proposal,) = DartsSuggester.get_suggestions(self, Experiment(spec=self.spec), 1)
             return [proposal] * min(count, left)
 
-    spec = search_width_spec({"n_train": PROFILE_TRAIN, "num_epochs": "1"})
+    spec = search_width_spec({"n_train": PROFILE_TRAIN, "num_epochs": "1"}, layers=PROFILE_LAYERS)
     spec.name, spec.max_trial_count, spec.parallel_trial_count = "darts-profiled", 2, 2
     orch = Orchestrator(workdir=workdir, device="cuda", suggester_fn=TwoSearches,
                         config=KatibConfig.from_dict({"init": {"enable_profiler": True}}))
@@ -3930,7 +4406,7 @@ def phase_profile(torch, mixed_op) -> tuple[str, str]:
     traced = [t for t in trials if os.path.isdir(os.path.join(t.checkpoint_dir, "profile"))]
     walls = {r["args"]["trial"]: r["dur"] for r in spans_of(workdir, spec.name, "trial")}
     steps = (int(PROFILE_TRAIN) // 2) // int(ORCH_SETTINGS["batch_size"])
-    per_forward = mixed_op_launches_per_forward(ORCH_LAYERS, DARTS_NODES)
+    per_forward = mixed_op_launches_per_forward(PROFILE_LAYERS, DARTS_NODES)
     per_step = 5 * per_forward
     # each trial: its warm-up step and steps (5 passes each), one evaluation
     predicted = 2 * ((steps + WARMUP_STEPS) * 5 + 1) * per_forward + counted
@@ -3941,7 +4417,7 @@ def phase_profile(torch, mixed_op) -> tuple[str, str]:
     (other,) = [t for t in trials if t is not mine]
     reading = trace_reading(os.path.join(mine.checkpoint_dir, "profile"), "mixed_op")
     report = fsck_experiment(os.path.join(workdir, spec.name), repair=False)
-    print(f"profile: darts.yaml at the search width ({ORCH_LAYERS} layers, {PROFILE_TRAIN} "
+    print(f"profile: darts.yaml at the search width ({PROFILE_LAYERS} layers, {PROFILE_TRAIN} "
           f"images, 1 epoch of {steps} steps) as two trials at once with "
           f"init.enable_profiler through Orchestrator.run on cuda in {run_wall:.2f}s: experiment "
           f"{exp.condition.value}; traced {mine.name}; mixed_op launches {launches} (predicted "

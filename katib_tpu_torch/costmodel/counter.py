@@ -23,9 +23,12 @@ fused normalization and softmax calls that carry no pointwise or reduction
 tag (``native_batch_norm``, ``cudnn_batch_norm`` and their backward,
 ``native_layer_norm``, ``_softmax``, ``_log_softmax`` and their backward),
 pooling (``max_pool2d_with_indices``, ``avg_pool2d`` and their backward),
-``nll_loss`` and ``embedding``'s backward.  Bytes are pre-fusion, so the
-bandwidth floor they give is a lower bound on step time and ``max_mfu`` an
-upper bound.
+``nll_loss`` and ``embedding``'s backward.  The batch norm of a mesh
+(``nas/darts/norm.py``) runs as SyncBatchNorm's untagged kernels on the
+card and as float32 formulas on the CPU; its calls run inside
+:func:`as_normalization`, so they count as the fused normalization calls
+do, on either device.  Bytes are pre-fusion, so the bandwidth floor they
+give is a lower bound on step time and ``max_mfu`` an upper bound.
 
 **The hand-written kernels declare their work.**  A kernel library is a
 foreign call (``ctypes``) that writes into a ``torch.empty`` output: a
@@ -196,6 +199,7 @@ class _CountingMode(TorchDispatchMode):
         self.count = StepCount()
         self._lock = threading.Lock()
         self._suspended: dict[int, int] = {}
+        self._no_flops: dict[int, int] = {}
 
     # -- suspension and declared work --------------------------------------
 
@@ -209,17 +213,23 @@ class _CountingMode(TorchDispatchMode):
             c.launches[name] = c.launches.get(name, 0) + 1
 
     @contextlib.contextmanager
-    def suspended(self):
+    def _holding(self, holds: dict):
         tid = threading.get_ident()
         with self._lock:
-            self._suspended[tid] = self._suspended.get(tid, 0) + 1
+            holds[tid] = holds.get(tid, 0) + 1
         try:
             yield
         finally:
             with self._lock:
-                self._suspended[tid] -= 1
-                if not self._suspended[tid]:
-                    del self._suspended[tid]
+                holds[tid] -= 1
+                if not holds[tid]:
+                    del holds[tid]
+
+    def suspended(self):
+        return self._holding(self._suspended)
+
+    def without_flops(self):
+        return self._holding(self._no_flops)
 
     # -- the count ---------------------------------------------------------
 
@@ -229,6 +239,8 @@ class _CountingMode(TorchDispatchMode):
         if view or self._suspended and self._suspended.get(threading.get_ident()):
             return out
         flops = _flops(kind, formula, args, kwargs or {}, out) if kind != "other" else 0
+        if flops and self._no_flops and self._no_flops.get(threading.get_ident()):
+            flops = 0
         nbytes = 0 if no_data else _nbytes(args) + _nbytes(out) + (_nbytes(kwargs) if kwargs else 0)
         with self._lock:
             c = self.count
@@ -263,6 +275,20 @@ def kernel_work(name: str, work: Callable[[], tuple[int, int]]):
     flops, nbytes = work()
     mode.declare(name, int(flops), int(nbytes))
     with mode.suspended():
+        yield
+
+
+@contextlib.contextmanager
+def as_normalization():
+    """Around the calls of a normalization that PyTorch has as no one fused
+    call (the mesh's batch norm): while a count is active, they count their
+    bytes and no flops, as ``native_batch_norm`` and its backward do.
+    Outside a count it does nothing."""
+    mode = _active_mode()
+    if mode is None:
+        yield
+        return
+    with mode.without_flops():
         yield
 
 

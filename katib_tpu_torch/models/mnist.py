@@ -27,6 +27,7 @@ trial (port of ``katib_tpu/models/mnist.py``).
 
 from __future__ import annotations
 
+import copy
 import os
 import threading
 import time
@@ -50,8 +51,12 @@ from katib_tpu_torch.nas.darts.step_loop import (
     _capture_stream,
     capture_step,
     count_copied_step,
+    mesh_capture_stream,
+    mesh_captures,
 )
 from katib_tpu_torch.ops.depthwise import lecun_normal_
+from katib_tpu_torch.parallel.collectives import replica_index
+from katib_tpu_torch.parallel.mesh import DATA_AXIS, shard_batch
 from katib_tpu_torch.parallel.train import (
     TrainState,
     accuracy,
@@ -374,18 +379,29 @@ class EpochLoop:
     function runs eagerly, one call per step, over the same buffers.
 
     ``loss_shape`` is the shape of one step's loss: ``()`` for one trial,
-    ``(K,)`` for a cohort step over a stacked ``[K, ...]`` state."""
+    ``(K,)`` for a cohort step over a stacked ``[K, ...]`` state.
+
+    ``mesh``: ``step`` is the data-parallel step over it
+    (``parallel/train.py::make_train_step``), which places each gathered
+    batch on the data axis; on a mesh of one card the capture begins on the
+    mesh's leased stream, so one graph holds every replica's work
+    (``nas/darts/step_loop.py::mesh_capture_stream``); a mesh over distinct
+    devices steps eagerly (``capture=True`` raises there)."""
 
     def __init__(self, step: Callable, state: TrainState, x_train: torch.Tensor,
                  y_train: torch.Tensor, steps: int, batch_size: int,
                  augment_fn: Callable | None = None, aug_key: int = 0,
-                 capture: bool | None = None, loss_shape: tuple = ()):
+                 capture: bool | None = None, loss_shape: tuple = (), mesh=None):
         if steps < 1:
             raise ValueError(f"an epoch loop needs at least one step per epoch, got {steps}")
         device = state.step.device
-        self.capture = device.type == "cuda" if capture is None else capture
+        if capture is None:
+            capture = device.type == "cuda" and (mesh is None or mesh_captures(mesh))
+        self.capture, self.mesh = capture, mesh
         if self.capture and device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, the state is on {device}")
+        if self.capture:
+            mesh_capture_stream(mesh, device)  # raises for distinct devices
         self.step_fn, self.x, self.y = step, x_train, y_train
         self.augment_fn, self.aug_key, self.steps = augment_fn, aug_key, steps
         self.loss_shape = tuple(loss_shape)
@@ -422,10 +438,13 @@ class EpochLoop:
         pos.add_(1)
 
     def _build_graph(self) -> None:
-        """Capture one step (``step_loop.py::capture_step``); ``capture_s``
-        includes a wait for another trial's capture."""
+        """Capture one step (``step_loop.py::capture_step``; on a mesh, on
+        its leased stream); ``capture_s`` includes a wait for another
+        trial's capture."""
+        device = self.state.step.device
         self.graph, _, self.capture_s = capture_step(
-            self._step, self.bufs, lambda b: tuple(_clone(t) for t in b), self.state.step.device)
+            self._step, self.bufs, lambda b: tuple(_clone(t) for t in b), device,
+            stream=mesh_capture_stream(self.mesh, device))
 
     def count_step(self):
         """Count one step (``costmodel/counter.py``) on copies of the buffers
@@ -475,24 +494,29 @@ def _step_label(kind: str, model: nn.Module, params: dict, optimizer: str, batch
 
 
 def classifier_steps(model: nn.Module, optimizer: str, lr: float, momentum: float,
-                     params: dict | None = None) -> tuple[Callable, Callable, TrainState]:
+                     params: dict | None = None,
+                     mesh=None) -> tuple[Callable, Callable, TrainState]:
     """:func:`train_classifier`'s train step (softmax cross-entropy, the
     ``optimizer`` family), its evaluation (``{"accuracy"}``) and its initial
     state: ``params`` (the model's own parameters by default) and the
-    family's state with ``lr`` and ``momentum`` written in."""
+    family's state with ``lr`` and ``momentum`` written in.  With a
+    ``mesh`` both are the data-parallel forms (``parallel/train.py``), each
+    replica calling a copy of ``model`` of its own (``functional_call``
+    rebinds a module's parameters while it runs)."""
     tx = _family_optimizer(optimizer)
+    models = [model] + [copy.deepcopy(model) for _ in range(1, mesh.size if mesh else 1)]
 
     def loss_fn(params, batch):
-        return cross_entropy_loss(torch.func.functional_call(model, params, (batch[0],)),
-                                  batch[1])
+        logits = torch.func.functional_call(models[replica_index()], params, (batch[0],))
+        return cross_entropy_loss(logits, batch[1])
 
     def metric_fn(params, batch):
-        return {"accuracy": accuracy(torch.func.functional_call(model, params, (batch[0],)),
-                                     batch[1])}
+        logits = torch.func.functional_call(models[replica_index()], params, (batch[0],))
+        return {"accuracy": accuracy(logits, batch[1])}
 
     state = TrainState.create(dict(model.named_parameters()) if params is None else params, tx)
     state = state._replace(opt_state=_set_hyperparams(state.opt_state, lr, momentum))
-    return make_train_step(loss_fn, tx), make_eval_step(metric_fn), state
+    return make_train_step(loss_fn, tx, mesh), make_eval_step(metric_fn, mesh), state
 
 
 def train_classifier(
@@ -535,22 +559,31 @@ def train_classifier(
     loop are built (ENAS weight sharing overlays its pool there; the result
     is moved to the device); ``on_finish(params)`` receives the final
     parameters as host copies after the last epoch, also when ``report``
-    stopped the run.  ``mesh`` raises ``NotImplementedError``.
+    stopped the run.
+
+    ``mesh`` (``katib_tpu/models/mnist.py:124-139, :269-315``): the
+    data-parallel step and evaluation over it (:func:`classifier_steps`),
+    the state at its home device (``device`` is ignored), each batch placed
+    on the data axis, the evaluation batch cut to a multiple of the data
+    axis (a smaller one tiled up to one row per entry).  ``device_data``
+    defaults off there, as in the JAX trainer: each batch is gathered on
+    the host and stepped eagerly.  With ``device_data`` on (or
+    ``KATIB_DEVICE_DATA=1``) the epoch runs in an :class:`EpochLoop` over
+    the mesh, one replayed CUDA graph per step on a mesh of one card.  The
+    JAX trainer caches its built steps by mesh; a torch step is a closure
+    that costs nothing to build, so nothing is kept.
 
     With a ``report``, one step is counted after the first epoch's report
     (``costmodel.observe_program``, once per step structure in the
     process: ``train_classifier.step``, one report per epoch of steps) and
     armed for the trial's heartbeat."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_classifier on a mesh is not ported yet (ROADMAP item 9b)")
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.home
     model.to(dev)
     params = {k: v.detach() for k, v in model.named_parameters()}
     if init_transform is not None:
         # warm starts (e.g. ENAS weight sharing overlays the shared pool)
         params = {k: v.to(dev) for k, v in init_transform(params).items()}
-    step, evaluate, state = classifier_steps(model, optimizer, lr, momentum, params)
+    step, evaluate, state = classifier_steps(model, optimizer, lr, momentum, params, mesh)
     if device_data is None:
         env = os.environ.get("KATIB_DEVICE_DATA")
         device_data = mesh is None if env is None else parse_bool(env)
@@ -560,10 +593,9 @@ def train_classifier(
     if device_data and n >= 1:
         x_train = torch.from_numpy(dataset.x_train).to(dev)
         y_train = torch.from_numpy(dataset.y_train).to(dev)
-        loop = EpochLoop(step, state, x_train, y_train, n, batch_size, augment_fn, aug_key)
-    ne = min(eval_batch, len(dataset.x_test))
-    ebatch = (torch.from_numpy(dataset.x_test[:ne]).to(dev),
-              torch.from_numpy(dataset.y_test[:ne]).to(dev))
+        loop = EpochLoop(step, state, x_train, y_train, n, batch_size, augment_fn, aug_key,
+                         mesh=mesh)
+    ebatch = _eval_batch(dataset, eval_batch, dev, mesh)
     rng = np.random.default_rng(seed)
     test_acc = 0.0
     for epoch in range(epochs):
@@ -585,7 +617,7 @@ def train_classifier(
                 yb = torch.from_numpy(dataset.y_train[rows]).to(dev)
                 if augment_fn is not None:
                     xb = augment_fn(aug_key, state.step, xb)
-                batch = (xb, yb)
+                batch = (xb, yb) if mesh is None else shard_batch((xb, yb), mesh)
                 state, metrics = step(state, batch)
                 losses.append(metrics["loss"])
             train_loss = float(torch.stack(losses).sum()) if losses else 0.0
@@ -597,13 +629,37 @@ def train_classifier(
             break
         if epoch == 0 and report is not None and n >= 1:
             _observe_step(_step_label("mnist.step", model, params, optimizer, batch_size,
-                                      augment_fn, loop is not None),
+                                      augment_fn, loop is not None, _mesh_key(mesh)),
                           loop, step, state, None if loop is not None else batch,
                           "train_classifier.step", n, model, dev)
     if on_finish is not None:
         # copies: on the card the state lives in the epoch loop's fixed tensors
         on_finish({k: v.detach().to("cpu", copy=True) for k, v in state.params.items()})
     return test_acc
+
+
+def _eval_batch(dataset: Dataset, eval_batch: int, dev: torch.device, mesh):
+    """The evaluation prefix of the test split on ``dev``; on a mesh cut to
+    a multiple of the data axis (a split smaller than the axis is tiled up
+    to one row per entry) and placed on it, as the JAX trainer does."""
+    ne = min(eval_batch, len(dataset.x_test))
+    xe, ye = dataset.x_test[:ne], dataset.y_test[:ne]
+    if mesh is None:
+        return torch.from_numpy(xe).to(dev), torch.from_numpy(ye).to(dev)
+    d = mesh.axis_size(DATA_AXIS)
+    if ne >= d:
+        xe, ye = xe[: (ne // d) * d], ye[: (ne // d) * d]
+    elif ne > 0:
+        reps = -(-d // ne)
+        xe = np.tile(xe, (reps,) + (1,) * (xe.ndim - 1))[:d]
+        ye = np.tile(ye, reps)[:d]
+    return shard_batch((torch.from_numpy(np.ascontiguousarray(xe)).to(dev),
+                        torch.from_numpy(np.ascontiguousarray(ye)).to(dev)), mesh)
+
+
+def _mesh_key(mesh):
+    """The mesh's part of a step's memo label: its axes (``None`` without)."""
+    return None if mesh is None else tuple(mesh.shape.items())
 
 
 # -- the white-box trial function (workload parity with pytorch-mnist) -------
@@ -637,7 +693,8 @@ def mnist_trial(ctx) -> None:
     ``epochs``, ``batch_size`` and ``optimizer`` with the JAX trial's
     defaults; the weights are drawn from a generator seeded with the
     trainer's seed (0).  Runs on ``ctx.device`` (``cuda`` unless it names
-    the CPU)."""
+    the CPU), or data-parallel on ``ctx.mesh`` when the trial has one
+    (:func:`train_classifier`'s ``mesh``)."""
     p = ctx.params
     model = _model(p)
     seed = 0  # train_classifier's default, as in the JAX trial
@@ -787,10 +844,21 @@ def mnist_prewarm(shared: dict, k: int, mesh=None, device=None) -> float:
     lock, the step is counted (``costmodel.observe_program``) under the
     trial's memo label, so the trials of the process adopt the record and
     the prewarm worker keeps it on the signature's registry row.  Nothing
-    else built here is handed to a trial.  A ``mesh`` raises."""
-    if mesh is not None:
-        raise NotImplementedError("mnist_prewarm on a mesh is not ported yet (ROADMAP item 9b)")
-    dev = resolve_device(device)
+    else built here is handed to a trial.
+
+    With a ``mesh`` (the trial's, which the registry signs by its axes,
+    ``compile/registry.py::mesh_signature``) ``k == 1`` builds the trial's
+    data-parallel step on it, at its home device, and warms up what the
+    trial runs there: by default one eager step on a batch placed on the
+    data axis (the trial's streamed epochs), with ``KATIB_DEVICE_DATA`` on
+    the :class:`EpochLoop` capture over the mesh.  A cohort (``k > 1``) on
+    a mesh is the trial axis, not ported yet: it raises naming ROADMAP
+    item 9b."""
+    if mesh is not None and int(k) > 1:
+        raise NotImplementedError(
+            "mnist_prewarm of a cohort on a mesh (the trial axis) is not ported yet "
+            "(ROADMAP item 9b)")
+    dev = resolve_device(device) if mesh is None else mesh.home
     p = dict(shared)
     model = _model(p)
     model.reset_parameters(torch.Generator().manual_seed(0))
@@ -807,18 +875,22 @@ def mnist_prewarm(shared: dict, k: int, mesh=None, device=None) -> float:
             torch.full((k,), 0.9, device=dev), params, k)
         loss_shape = (k,)
     else:
-        step, evaluate, state = classifier_steps(model, optimizer, 0.05, 0.9, params)
+        step, evaluate, state = classifier_steps(model, optimizer, 0.05, 0.9, params, mesh)
         loss_shape = ()
     x_train = torch.zeros(n_train, 28, 28, 1, device=dev)
     y_train = torch.zeros(n_train, dtype=torch.int32, device=dev)
-    ne = min(1024, n_test)
-    ebatch = (torch.zeros(ne, 28, 28, 1, device=dev), torch.zeros(ne, dtype=torch.int32, device=dev))
+    zeros = Dataset(np.zeros((0, 28, 28, 1), np.float32), np.zeros(0, np.int32),
+                    np.zeros((n_test, 28, 28, 1), np.float32), np.zeros(n_test, np.int32), 10)
+    ebatch = _eval_batch(zeros, 1024, dev, mesh)
     env = os.environ.get("KATIB_DEVICE_DATA")
     n = n_train // batch_size
     capture_s = 0.0
     loop, batch = None, (x_train[:batch_size], y_train[:batch_size])
-    if (env is None or parse_bool(env)) and n >= 1:
-        loop = EpochLoop(step, state, x_train, y_train, n, batch_size, loss_shape=loss_shape)
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    if (mesh is None if env is None else parse_bool(env)) and n >= 1:
+        loop = EpochLoop(step, state, x_train, y_train, n, batch_size, loss_shape=loss_shape,
+                         mesh=mesh)
         if loop.capture:
             loop._build_graph()
             capture_s = loop.capture_s
@@ -834,7 +906,7 @@ def mnist_prewarm(shared: dict, k: int, mesh=None, device=None) -> float:
         program = "mnist_cohort_trial.step"
     else:
         label = _step_label("mnist.step", model, params, optimizer, batch_size, None,
-                            loop is not None)
+                            loop is not None, _mesh_key(mesh))
         program = "train_classifier.step"
     _observe_step(label, loop, step, state, batch, program, max(1, n), model, dev)
     if dev.type == "cuda":

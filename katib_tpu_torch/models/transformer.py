@@ -45,7 +45,7 @@ from katib_tpu_torch.ops.flash_attention import (
     reference_attention,
 )
 from katib_tpu_torch.parallel import collectives
-from katib_tpu_torch.parallel.mesh import DATA_AXIS, piece, shard_batch
+from katib_tpu_torch.parallel.mesh import DATA_AXIS, on_data_axis, piece, shard_batch
 from katib_tpu_torch.parallel.ring_attention import make_sequence_parallel_attention
 from katib_tpu_torch.parallel.train import (
     AdamWState,
@@ -231,23 +231,35 @@ class LMTrainStep:
     Dropout, when the model has it, draws from a generator seeded
     ``seed + 1`` on the model's device, registered with the graph so each
     replay draws what an eager step would.  The flash kernels' launches in
-    the capture are tallied (``launches_per_replay``) and counted on each
-    replay.
+    the capture are tallied by stream (``launches_per_replay``) and counted
+    on each replay.
 
-    ``loss_fn(tokens, deterministic, generator)`` replaces the model's own
-    next-token loss (a :func:`mesh_lm_loss`, for tokens on a mesh's data
-    axis); that step reads the model's parameters itself and runs eagerly."""
+    With a ``mesh`` the loss is the global batch's (:func:`mesh_lm_loss`:
+    the parameters broadcast from the model's, a replica of the model per
+    grid entry on its data chunk, ring or Ulysses attention across its
+    ``seq`` axis), and the update runs once, at home.  A mesh of one card
+    is captured the same way, on the mesh's leased stream, so one graph
+    holds every replica's work (``step_loop.py::mesh_capture_stream``); a
+    mesh over distinct devices steps eagerly, and ``capture=True`` raises
+    there."""
 
     def __init__(self, model: TransformerLM, *, lr: float, steps: int, warmup_frac: float = 0.1,
-                 grad_clip: float = 1.0, seed: int = 0, loss_fn: Callable | None = None,
+                 grad_clip: float = 1.0, seed: int = 0, mesh=None,
                  capture: bool | None = None):
-        self.model, self.loss_fn, self.grad_clip = model, loss_fn, grad_clip
+        # imported here: the step loop's modules import the model layers
+        from katib_tpu_torch.nas.darts.step_loop import mesh_capture_stream, mesh_captures
+
+        self.model, self.mesh, self.grad_clip = model, mesh, grad_clip
         self.names = [n for n, _ in model.named_parameters()]
         self.device = next(model.parameters()).device
-        self.capture = (self.device.type == "cuda" and loss_fn is None) if capture is None \
-            else capture
-        if self.capture and (self.device.type != "cuda" or loss_fn is not None):
-            raise ValueError("a captured LM step needs the model on a CUDA device and its own loss")
+        if capture is None:
+            capture = self.device.type == "cuda" and (mesh is None or mesh_captures(mesh))
+        if capture and self.device.type != "cuda":
+            raise ValueError("a captured LM step needs the model on a CUDA device")
+        self.capture = capture
+        # a mesh's leased stream (raises for distinct devices), else the thread's
+        self.stream = mesh_capture_stream(mesh, self.device) if capture else None
+        self.mesh_loss = mesh_lm_loss(model, mesh) if mesh is not None else None
         self.schedule = warmup_cosine_decay(0.0, lr, max(1, int(steps * warmup_frac)), steps)
         self.gen = (torch.Generator(device=self.device).manual_seed(seed + 1)
                     if model.dropout > 0.0 else None)
@@ -261,8 +273,9 @@ class LMTrainStep:
 
     def _loss(self, params: list, tokens: torch.Tensor) -> torch.Tensor:
         deterministic = self.gen is None
-        if self.loss_fn is not None:
-            return self.loss_fn(tokens, deterministic, self.gen)
+        if self.mesh_loss is not None:
+            return self.mesh_loss(dict(zip(self.names, params)), tokens, deterministic,
+                                  self.gen)
         logits = torch.func.functional_call(
             self.model, dict(zip(self.names, params)), (tokens,),
             {"deterministic": deterministic, "generator": self.gen})
@@ -272,7 +285,8 @@ class LMTrainStep:
         """One update on ``bufs``, written back into them: the function that
         is captured, and that runs eagerly off the graph."""
         params, opt, tokens, loss_out = bufs
-        with torch.enable_grad():
+        with torch.enable_grad(), (self.mesh.on_streams() if self.mesh is not None
+                                   else contextlib.nullcontext()):
             loss = self._loss(params, tokens)
             grads = torch.autograd.grad(loss, params)
         clipped, _ = clip_by_global_norm(dict(enumerate(grads)), self.grad_clip)
@@ -294,10 +308,12 @@ class LMTrainStep:
         self.bufs = (self.params, self.opt, tokens.clone(), self.loss)
         gens = (self.gen,) if self.gen is not None else ()
         self.graph, self.launches_per_replay, self.capture_s = capture_step(
-            self._step, self.bufs, copy, self.device, generators=gens,
+            self._step, self.bufs, copy, self.device, stream=self.stream, generators=gens,
             recording=recording_launches)
 
     def __call__(self, tokens: torch.Tensor) -> torch.Tensor:
+        """One step on ``tokens`` (on the model's device; with a mesh, the
+        global batch, which the step places on the data axis)."""
         if not self.capture:
             self._step((self.params, self.opt, tokens, self.loss))
             return self.loss.clone()
@@ -311,26 +327,27 @@ class LMTrainStep:
 
 
 def mesh_lm_loss(model: TransformerLM, mesh) -> Callable:
-    """``loss(tokens, deterministic=True, generator=None)`` of ``model`` over
-    ``mesh`` for tokens on its data axis: the parameters are broadcast from
-    the model's own (the home copy), each replica runs a copy of the model
-    on its chunk (``functional_call`` rebinds a module's parameters while it
-    runs, so each replica has its own), and the replicas' mean losses meet
-    at home as their mean."""
+    """``loss(params, tokens, deterministic=True, generator=None)`` of
+    ``model`` over ``mesh``: ``tokens`` (the global batch on the home
+    device, or already on the data axis) are placed on the data axis, the
+    ``{name: tensor}`` parameters are broadcast from their home copy, each
+    replica runs a copy of the model on its chunk (``functional_call``
+    rebinds a module's parameters while it runs, so each replica has its
+    own), and the replicas' mean losses meet at home as their mean, at a
+    rendezvous (``collectives.replica_mean_to_home``)."""
     replicas = [model] + [copy.deepcopy(model) for _ in range(1, mesh.size)]
 
-    def loss(tokens, deterministic: bool = True, generator=None) -> torch.Tensor:
-        params = dict(model.named_parameters())
+    def loss(params: dict, tokens, deterministic: bool = True, generator=None) -> torch.Tensor:
+        tokens = on_data_axis(tokens, mesh)
         ps = collectives.broadcast(params, mesh)
 
         def one(r):
             t = piece(tokens, r)
             logits = torch.func.functional_call(replicas[r], ps[r], (t,), {
                 "deterministic": deterministic, "generator": generator})
-            return lm_loss(logits, t)
+            return collectives.replica_mean_to_home(lm_loss(logits, t))
 
-        losses = mesh.run(one)
-        return collectives.reduce_to_home([x / mesh.size for x in losses], mesh)
+        return mesh.run(one)[0]
 
     return loss
 
@@ -364,36 +381,34 @@ def train_lm(
     With a ``mesh`` the model trains on the mesh's devices (``device`` is
     its home device): the parameters stay on the home device, each batch and
     the held-out batch are placed on the data axis, and each step's loss is
-    that of the global batch (:func:`mesh_lm_loss`)."""
+    that of the global batch (:func:`mesh_lm_loss`), captured on a mesh of
+    one card as on one device (:class:`LMTrainStep`)."""
     dev = resolve_device(device) if mesh is None else mesh.home
     rng = np.random.default_rng(seed)
     n_eval = max(batch_size, len(data) // 10)
     train, heldout = data[:-n_eval], data[-n_eval:]
     model.to(dev)
-    sharded_loss = mesh_lm_loss(model, mesh) if mesh is not None else None
     step = LMTrainStep(model, lr=lr, steps=steps, warmup_frac=warmup_frac,
-                       grad_clip=grad_clip, seed=seed, loss_fn=sharded_loss)
-    # a mesh's replicas run on its leased streams, and so does the caller's
-    # part of each step (the optimizer), ordered behind them
-    on_mesh = mesh.on_streams if mesh is not None else contextlib.nullcontext
+                       grad_clip=grad_clip, seed=seed, mesh=mesh)
 
     def place(tokens: np.ndarray):
-        t = torch.from_numpy(np.ascontiguousarray(tokens)).to(dev, torch.long)
-        return t if mesh is None else shard_batch(t, mesh)
+        return torch.from_numpy(np.ascontiguousarray(tokens)).to(dev, torch.long)
 
     def eval_loss_now() -> float:
-        with torch.no_grad(), on_mesh():
-            if sharded_loss is not None:
-                return float(sharded_loss(eval_tokens))
+        with torch.no_grad():
+            if step.mesh_loss is not None:
+                with mesh.on_streams():
+                    return float(step.mesh_loss(dict(model.named_parameters()), eval_tokens))
             return float(lm_loss(model(eval_tokens), eval_tokens))
 
     eval_tokens = place(heldout[:batch_size])
+    if mesh is not None:
+        eval_tokens = shard_batch(eval_tokens, mesh)
     eval_loss: float | None = None
     for s in range(steps):
         idx = rng.integers(0, len(train), size=batch_size)
         t_step = time.perf_counter()
-        with on_mesh():
-            loss = step(place(train[idx]))
+        loss = step(place(train[idx]))
         if step_times is not None:
             if dev.type == "cuda":
                 torch.cuda.current_stream(dev).synchronize()

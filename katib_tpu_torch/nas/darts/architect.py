@@ -29,7 +29,11 @@ replicas, each replica computes its batch chunk's loss (batch norm over the
 global batch), and the losses meet at home; autograd carries every gradient
 back through the broadcast, so each is that of the global-batch loss, as
 ``jax.grad`` gives it under GSPMD.  The optimizer steps run once, at home,
-and the metrics come back once.
+and the metrics come back once.  Nothing in the sharded step reads a value
+back to the host or writes a host value into a device tensor either (the
+batch norm's rendezvous included, ``norm.py``), so on a mesh of one card
+the step loop captures it, every replica's work in one CUDA graph
+(``step_loop.py``).
 """
 
 from __future__ import annotations
@@ -149,8 +153,8 @@ def mesh_loss(loss_fn: LossFn, mesh) -> LossFn:
     def loss(weights: dict, alphas: Alphas, batch) -> torch.Tensor:
         batch = on_data_axis(batch, mesh)
         ws, als = collectives.broadcast(weights, mesh), collectives.broadcast(alphas, mesh)
-        losses = mesh.run(lambda r: loss_fn(ws[r], Alphas(*als[r]), piece(batch, r)))
-        return collectives.reduce_to_home([x / mesh.size for x in losses], mesh)
+        return mesh.run(lambda r: collectives.replica_mean_to_home(
+            loss_fn(ws[r], Alphas(*als[r]), piece(batch, r))))[0]
 
     return loss
 
@@ -163,7 +167,8 @@ def make_search_step(loss_fn: LossFn, hyper: DartsHyper, mesh=None) -> Callable:
     (``shard_batch``; plain tensors are placed there), the state on the
     mesh's home device (a :func:`~katib_tpu_torch.parallel.mesh.replicate`-d
     state is read from its home copy), calls ``loss_fn`` once per replica
-    per pass (:func:`mesh_loss`), and runs on the mesh's leased streams."""
+    per pass (:func:`mesh_loss`), and runs on the mesh's leased streams
+    (inside a capture begun on one of them, it waits on nothing)."""
     if mesh is not None:
         step = make_search_step(mesh_loss(loss_fn, mesh), hyper)
 

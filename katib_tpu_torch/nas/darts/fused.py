@@ -41,8 +41,12 @@ scatter or ``index_add``, so the weight gradient is a plain slice and sum,
 and nothing reads a host value (the step captures in a CUDA graph).  The
 fusion is an evaluation-plan change, not a model change.
 
-``safe=True`` (the JAX package's setting for a mesh with a model axis)
-raises ``NotImplementedError``: the fused plan on a mesh is ROADMAP item 9b.
+The batch norms are ``norm.py::batch_norm``, so on a mesh whose data axis
+splits the batch they normalize over the global batch, as the unfused
+plan's do.  ``safe=True`` (the JAX package's setting for a mesh with a
+model axis, which picks its shift-MAC depthwise form there) is accepted and
+changes nothing: the port's depthwise convolution has one form
+(``ops/depthwise.py``).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from katib_tpu_torch.nas.darts.norm import batch_norm
 from katib_tpu_torch.ops.depthwise import lecun_normal_, pad_same
 
 # (name, kernel, dilation, has_second_rep) in fixed branch order
@@ -147,10 +152,10 @@ def _grouped_pointwise(y: torch.Tensor, kern: torch.Tensor, dtype: torch.dtype) 
 
 def _branch_norm(y: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Training-mode BN per (branch, channel): the statistics of each
-    unmerged branch's own batch norm (over N, H, W)."""
+    unmerged branch's own batch norm (over N, H, W, the global batch on a
+    mesh)."""
     n, b, c, h, w = y.shape
-    return F.batch_norm(y.reshape(n, b * c, h, w), None, None, training=True,
-                        eps=eps).view(n, b, c, h, w)
+    return batch_norm(y.reshape(n, b * c, h, w), eps=eps).view(n, b, c, h, w)
 
 
 class FusedSepDil(nn.Module):
@@ -165,11 +170,7 @@ class FusedSepDil(nn.Module):
     def __init__(self, channels: int, stride: int, dtype: torch.dtype = torch.bfloat16,
                  safe: bool = False):
         super().__init__()
-        if safe:
-            raise NotImplementedError(
-                "the fused plan with safe=True (a mesh with a model axis) is not ported "
-                "yet: the fused plan on a mesh is ROADMAP item 9b"
-            )
+        del safe  # one depthwise form (the module doc)
         self.dtype = dtype
         self.stage_a = _MaskedDepthwise(
             tuple((f"dw_{n}_0", k, d) for n, k, d, _ in BRANCH_SPECS), channels,

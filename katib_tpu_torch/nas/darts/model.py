@@ -24,6 +24,7 @@ from torch.utils.checkpoint import (
 )
 
 from katib_tpu_torch.models.layers import Dense
+from katib_tpu_torch.nas.darts.norm import remat_stash
 from katib_tpu_torch.nas.darts.ops import (
     DEFAULT_PRIMITIVES,
     EdgeGroup,
@@ -195,7 +196,10 @@ class DartsNetwork(nn.Module):
     ``remat_policy="dots"`` keeps the outputs the JAX policy of that name
     keeps (:func:`dots_policy`) and recomputes the rest.  Neither reads the
     RNG state (DARTS draws no random number in a cell), so both capture in
-    a CUDA graph.
+    a CUDA graph.  On a mesh a recomputed cell's batch norms reuse the
+    global statistics its forward exchanged (``norm.py::remat_stash``), so
+    the recompute needs no rendezvous and repeats the forward bit for
+    bit.
 
     ``fused_convs=True`` evaluates the four depthwise-separable primitives
     of every mixed op through the fused plan (``fused.py``); it changes the
@@ -249,7 +253,7 @@ class DartsNetwork(nn.Module):
                 # cell after any outer parameter swap has been undone
                 params = dict(cell.named_parameters())
                 extra = {} if self._context_fn is None else {"context_fn": self._context_fn}
-                out = checkpoint(_call_cell, cell, params, s0, s1, weights,
+                out = checkpoint(remat_stash(_call_cell), cell, params, s0, s1, weights,
                                  use_reentrant=False, preserve_rng_state=False, **extra)
             else:
                 out = cell(s0, s1, weights)

@@ -27,14 +27,17 @@ environment variable, then default):
 (``fused.py``); a snapshot of the other plan raises instead of restoring.
 
 On a ``mesh`` (``parallel/mesh.py``; the trial's ``ctx.mesh``) each step is
-the sharded bilevel step (``architect.py::make_search_step``) run eagerly:
-the splits stay on the mesh's home device, each batch is gathered there,
-augmented, and placed on the data axis.  The network is the one of a single
-device: its depthwise convolutions keep the native form on every mesh
-(``ops/depthwise.py``).  What the mesh path does not have yet raises ``NotImplementedError`` naming ROADMAP
-item 9b: capturing the sharded step (an explicit step loop), remat's
-recompute (a recomputed batch norm cannot rejoin the replicas' all-reduce,
-so a mesh keeps activations), and the fused plan.
+the sharded bilevel step (``architect.py::make_search_step``), with the
+JAX package's defaults: the step loop and remat on.  The splits stay on
+the mesh's home device, each batch is gathered there, augmented, and placed
+on the data axis; under the step loop on a mesh of one card every replica's
+work is one replayed CUDA graph (``step_loop.py``).  The network is the one
+of a single device: its depthwise convolutions keep the native form on
+every mesh (``ops/depthwise.py``), remat's recompute reuses the global
+batch-norm statistics its forward exchanged (``norm.py``), and the fused
+plan normalizes over the global batch too.  A mesh over distinct devices
+is not captured: there the default steps eagerly, and an explicit step
+loop raises ``NotImplementedError`` (:func:`check_mesh_settings`).
 
 With a checkpoint dir the state is saved after every epoch and a restarted
 search resumes at the newest snapshot that verifies, its history, best
@@ -53,8 +56,9 @@ counted on copies of the state
 under the ``darts:darts-scan`` (step loop) or ``darts:darts`` (eager)
 signature of the shape registry; each later epoch publishes the roofline
 gauges against its step time and stamps them on its span.  A mesh search
-is not counted: its replicas step on threads of their own, outside the
-count (ROADMAP item 9b).
+is counted the same way: its replicas' threads run under the count's
+dispatch mode (``parallel/collectives.py``), and its label carries the
+mesh's axes.
 """
 
 from __future__ import annotations
@@ -94,7 +98,13 @@ from katib_tpu_torch.nas.darts.model import (
     init_alphas,
 )
 from katib_tpu_torch.nas.darts.ops import DEFAULT_PRIMITIVES
-from katib_tpu_torch.nas.darts.step_loop import METRICS, StepLoop, count_copied_step
+from katib_tpu_torch.nas.darts.step_loop import (
+    DISTINCT_DEVICES,
+    METRICS,
+    StepLoop,
+    count_copied_step,
+    mesh_captures,
+)
 from katib_tpu_torch.parallel.collectives import replica_index
 from katib_tpu_torch.parallel.mesh import shard_batch
 from katib_tpu_torch.parallel.train import accuracy, cross_entropy_loss, make_eval_step
@@ -134,12 +144,13 @@ def split_train(dataset: Dataset, seed: int):
 
 
 def _observe_cost(net, state, hyper, batch_size, steps: int, augmented: bool, loop, step,
-                  batches, device) -> costmodel.CostRecord | None:
+                  batches, device, mesh_key=None) -> costmodel.CostRecord | None:
     """Count one bilevel step on copies (the step loop's, else the eager
     ``step`` on the epoch's last ``batches``), once per step structure in
     the process, and keep its record under the search's ``darts:<workload>``
     signature (the JAX package's ``_record_first_step`` row).  One report
-    covers the epoch's ``steps`` steps."""
+    covers the epoch's ``steps`` steps; ``mesh_key`` (the mesh's axes) is
+    part of the label."""
     from katib_tpu_torch.compile.registry import REGISTRY, CompileSignature
 
     if loop is None and batches is None:
@@ -150,7 +161,8 @@ def _observe_cost(net, state, hyper, batch_size, steps: int, augmented: bool, lo
     label = (f"darts:{workload}", net.primitives,
              net.remat, net.remat_policy, net.fused_convs, batch_size, augmented,
              hyper.unrolled, hyper.paired_hessian, hyper.debug_alpha_grad,
-             cost_live.structure_key(state.weights), tuple(a.shape for a in state.alphas))
+             cost_live.structure_key(state.weights), tuple(a.shape for a in state.alphas),
+             mesh_key)
     if loop is not None:
         count = loop.count_step
     else:
@@ -245,8 +257,8 @@ def search_epochs(
     per epoch, in lockstep; ``timings`` then receives ``loader_wait_s``,
     the seconds spent waiting for their batches.  ``split``: the
     :func:`split_train` of ``dataset`` and ``seed``, when the caller has
-    it already.  ``mesh``: eager sharded steps and a sharded evaluation
-    (``device`` is then the mesh's home device)."""
+    it already.  ``mesh``: sharded steps (through the step loop, or eager)
+    and a sharded evaluation (``device`` is then the mesh's home device)."""
     # functional_call rebinds a module's parameters while it runs, so each
     # replica of a mesh calls its own copy of the network
     nets = [net] + [copy.deepcopy(net) for _ in range(1, mesh.size if mesh is not None else 1)]
@@ -276,7 +288,8 @@ def search_epochs(
     steps = len(x_w) // batch_size
     loop = None
     if step_loop:
-        loop = StepLoop(search_step, state, splits, steps, batch_size, augment_fn, aug_key)
+        loop = StepLoop(search_step, state, splits, steps, batch_size, augment_fn, aug_key,
+                        mesh=mesh)
         state = loop.state
     window = steps if window is None else max(1, min(window, steps))
     best_acc = resumed.best_accuracy
@@ -402,9 +415,10 @@ def search_epochs(
             })
         if report is not None and report(epoch=epoch, accuracy=val_acc, loss=train_loss) is False:
             break
-        if epoch == resumed.start_epoch and report is not None and mesh is None:
+        if epoch == resumed.start_epoch and report is not None:
             cost_rec = _observe_cost(net, state, hyper, batch_size, steps, augment_fn is not None,
-                                     loop, search_step, last_batches, device)
+                                     loop, search_step, last_batches, device,
+                                     None if mesh is None else tuple(mesh.shape.items()))
     return state, history
 
 
@@ -504,31 +518,24 @@ def native_loaders(split, *, batch_size: int, seed: int, start_epoch: int):
         shutil.rmtree(cache_dir, ignore_errors=True)
 
 
-def check_mesh_settings(step_loop: bool | None, remat: bool | None,
-                        remat_policy: str | None, fused: bool) -> tuple[bool, bool]:
-    """``(step_loop, remat)`` of a search on a mesh: eager steps and no
-    remat.  Raises ``NotImplementedError`` naming ROADMAP item 9b for what
-    the mesh path does not have: an explicit step loop (``step_loop`` or
-    ``KATIB_STEP_LOOP``; capturing the sharded step), ``remat`` or a
-    ``remat_policy`` (a cell recomputed in the backward pass cannot rejoin
-    the replicas' batch-norm all-reduce), and the fused plan (its batch
-    norm is single-device)."""
+def check_mesh_settings(mesh, step_loop: bool | None) -> bool | None:
+    """The step-loop setting of a search on ``mesh``, as the JAX package's
+    defaults have it (the step loop and remat on, on every mesh), where the
+    port can honour it.  A mesh whose home is a CUDA device but whose
+    entries are not all that device cannot be captured as one CUDA graph
+    (``step_loop.py::mesh_capture_stream``): there an explicit step loop
+    (``step_loop`` or ``KATIB_STEP_LOOP``) raises ``NotImplementedError``
+    and the default steps eagerly.  Elsewhere ``step_loop`` is returned as
+    it is."""
+    if mesh is None or mesh.home.type != "cuda" or mesh_captures(mesh):
+        return step_loop
     env_sl = os.environ.get("KATIB_STEP_LOOP")
     if step_loop is True or (step_loop is None and env_sl is not None and parse_bool(env_sl)):
         raise NotImplementedError(
-            "an explicit step loop on a mesh asks to capture the sharded step as CUDA "
-            "graphs, not ported yet (ROADMAP item 9b); the mesh path steps eagerly"
-        )
-    if remat or remat_policy is not None:
-        raise NotImplementedError(
-            "remat on a mesh recomputes cells whose batch norm all-reduces over the "
-            "replicas, not ported yet (ROADMAP item 9b); the mesh path keeps activations"
-        )
-    if fused:
-        raise NotImplementedError(
-            "the fused mixed-op plan on a mesh is not ported yet (ROADMAP item 9b)"
-        )
-    return False, False
+            "an explicit step loop (step_loop or KATIB_STEP_LOOP) on this mesh asks for "
+            + DISTINCT_DEVICES.format(devices=[str(d) for d in mesh.distinct_devices])
+            + "; the default steps eagerly there")
+    return False
 
 
 def check_scan_unroll(scan_unroll: int | None) -> None:
@@ -588,12 +595,12 @@ def run_darts_search(
     ``step_times`` and ``timings``: see :func:`search_epochs`.
     ``scan_unroll`` (else ``KATIB_SCAN_UNROLL``): see :func:`check_scan_unroll`.
     ``remat`` (default on) recomputes each cell in the backward pass.
-    ``mesh``: the sharded search on the mesh's devices (see the module doc;
-    :func:`check_mesh_settings` names what raises there)."""
+    ``mesh``: the sharded search on the mesh's devices, with the same
+    defaults (see the module doc; :func:`check_mesh_settings` names what
+    raises there)."""
     check_scan_unroll(scan_unroll)
-    if mesh is not None:
-        step_loop, remat = check_mesh_settings(step_loop, remat, remat_policy, fused)
-    elif remat is None:
+    step_loop = check_mesh_settings(mesh, step_loop)
+    if remat is None:
         remat = True
     dev = resolve_device(device) if mesh is None else mesh.home
     net = DartsNetwork(
@@ -735,7 +742,7 @@ def darts_trial(ctx) -> None:
         fused=parse_bool(settings.get("fused")),
         step_loop=parse_bool(settings["step_loop"]) if "step_loop" in settings else None,
         step_loop_window=int(raw_window) if raw_window is not None else None,
-        # on by default, off on a mesh (run_darts_search)
+        # on by default (run_darts_search)
         remat=parse_bool(settings["remat"]) if "remat" in settings else None,
         remat_policy=(
             str(settings["remat_policy"])

@@ -25,14 +25,25 @@ capture or replay that fails raises: nothing falls back to eager
 stepping.  On the CPU the same step function runs eagerly, one call per
 step, over the same buffers.
 
+On a ``mesh`` (``parallel/mesh.py``) the step is the sharded bilevel step
+(``architect.py::make_search_step``): the splits stay on the mesh's home
+device (replicated: on one card every entry reads the same tensors, as the
+JAX package's replicated splits), each step gathers its rows there,
+augments them and hands them to the sharded step, which places them on the
+data axis (the JAX ``constrain``).  Its replicas run on their threads on
+the mesh's leased stream, and the capture is begun on that stream
+(:func:`mesh_capture_stream`), so one graph holds every replica's work; a
+mesh over distinct devices is not captured.
+
 Launch accounting: the mixed-op wrapper counts each launch in Python, so a
 capture would count launches that do not happen and a replay counts none.
-The capture therefore runs inside ``mixed_op.recording_launches``, which
-tallies this thread's launches instead of counting them, and every replay
-adds the tally, so ``mixed_op.launches`` stays the number of kernels the
-device ran, whatever other threads launch meanwhile.  The warm-up's
-launches are real and stay counted, as are those of a cost count
-(:meth:`StepLoop.count_step`).
+The capture therefore runs inside ``mixed_op.recording_launches`` on the
+capturing stream, which tallies the launches made onto that stream by any
+thread (on a mesh the replicas' threads launch the mixed op) instead of
+counting them, and every replay adds the tally, so ``mixed_op.launches``
+stays the number of kernels the device ran, whatever other threads launch
+meanwhile.  The warm-up's launches are real and stay counted, as are those
+of a cost count (:meth:`StepLoop.count_step`).
 """
 
 from __future__ import annotations
@@ -146,6 +157,34 @@ def _capture_stream(device: torch.device) -> tuple[torch.cuda.Stream, threading.
     return leases[index].stream, _capture_locks[index]
 
 
+DISTINCT_DEVICES = (
+    "capturing a step over the mesh's distinct devices {devices} as one CUDA graph: "
+    "a capture on one card's stream that forks to another card's stream is invalidated "
+    "(cudaErrorStreamCaptureInvalidated, on H100s), and PyTorch's capture allocates from "
+    "the capturing device's private pool only (not ported, ROADMAP item 9b)"
+)
+
+
+def mesh_captures(mesh) -> bool:
+    """Whether a step over ``mesh`` can be captured as one CUDA graph: every
+    entry names one CUDA device.  (Nothing is captured on the CPU.)"""
+    return len(mesh.distinct_devices) == 1 and mesh.home.type == "cuda"
+
+
+def mesh_capture_stream(mesh, device: torch.device):
+    """The stream a capture of a step over ``mesh`` begins on: its replica
+    runner's leased stream of ``device``, onto which every replica
+    launches (``collectives.ReplicaRunner.stream``); ``None`` without a
+    mesh.  Raises ``NotImplementedError`` for a mesh over distinct devices
+    (:func:`capture_step`)."""
+    if mesh is None:
+        return None
+    if not mesh_captures(mesh):
+        raise NotImplementedError(DISTINCT_DEVICES.format(
+            devices=[str(d) for d in mesh.distinct_devices]))
+    return mesh.runner().stream(torch.device(device))
+
+
 def capture_lock(device: torch.device) -> threading.Lock:
     """``device``'s capture lock (made on first use).  Warm-ups and captures
     take turns under it, and so do a profiler's start and stop
@@ -170,10 +209,39 @@ def capture_step(step: Callable, bufs, copy: Callable, device: torch.device, *,
     (a device sync, an event query, a plain ``cudaMalloc``) on this thread
     only.  Under the orchestrator other threads live beside the trial's;
     another trial's sync or allocation in the default ``global`` mode would
-    invalidate this capture.  That is safe because no other thread issues
-    work to this thread's stream or waits on an event recorded in it, and
-    PyTorch's caching allocator sends only the capturing stream's
-    allocations to the graph's private pool.
+    invalidate this capture.  PyTorch's caching allocator sends to the
+    graph's private pool the allocations made on a stream that is part of
+    this capture, whichever thread makes them, and only those.  On one
+    device, no other thread issues work to the capture stream or waits on
+    an event recorded in it.
+
+    A step over a mesh of one card breaks that on purpose: ``stream`` is
+    the mesh's leased stream (:func:`mesh_capture_stream`), and the
+    replicas' threads (``parallel/collectives.py``) and autograd's device
+    thread, which runs the backward on the stream of each forward op,
+    launch onto it.  What holds it together (the sharded DARTS and LM steps
+    on an H100, replayed bit-equal to their eager twins, ``chip_smoke.py``'s
+    ``mesh:`` lines):
+
+    - every launch and allocation those threads make on the capturing
+      stream lands in the graph and its private pool, by the rule above;
+    - none of them makes an unsafe call inside: the warm-up runs the same
+      step first on the same threads, so each has created its cuBLAS and
+      cuDNN handles and their workspaces before the capture, and nothing
+      in the sharded steps copies from the host or synchronizes (a mesh's
+      batch-norm counts are device fills, ``nas/darts/norm.py``);
+    - the replicas' launches between two rendezvous interleave in whatever
+      order their threads enqueue them, which may differ from one capture
+      to the next; each reads only its own replica's tensors, and each
+      rendezvous op runs once, after every replica has enqueued its part
+      and before any goes on, over the values in entry order, so every
+      capture computes the same numbers.
+
+    One graph cannot span distinct devices: on H100s a capture on one
+    card's stream that forks to another card's stream by an event is
+    invalidated (``tests/test_torch_mesh_capture_cuda.py::
+    test_a_capture_cannot_span_two_cards``), and PyTorch's capture keeps one
+    device's private pool besides (:func:`mesh_capture_stream` raises).
 
     Each generator of ``generators`` is put back after the warm-up and
     registered with the graph, so a replay draws what an eager call from
@@ -218,20 +286,24 @@ class StepLoop:
     the architect's step; ``splits`` the ``(x_w, y_w, x_a, y_a)`` tensors on
     the state's device; ``augment(key, step, x)`` (or ``None``) transforms
     the w-batch, keyed with ``aug_key``.  ``capture``: replay a CUDA graph
-    (``None`` = exactly when the state lives on a CUDA device)."""
+    (``None`` = exactly when the state lives on a CUDA device).  ``mesh``:
+    ``search_step`` is the sharded step over it (the module doc); a capture
+    begins on its leased stream."""
 
     def __init__(self, search_step: Callable, state: SearchState, splits, steps: int,
                  batch_size: int, augment: Callable | None = None, aug_key: int = 0,
-                 capture: bool | None = None):
+                 capture: bool | None = None, mesh=None):
         if steps < 1:
             raise ValueError(f"the step loop needs at least one step per epoch, got {steps}")
         device = state.step.device
         self.search_step, self.splits = search_step, splits
         self.augment, self.aug_key = augment, aug_key
-        self.steps = steps
+        self.steps, self.mesh = steps, mesh
         self.capture = device.type == "cuda" if capture is None else capture
         if self.capture and device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, the state is on {device}")
+        if self.capture:
+            mesh_capture_stream(mesh, device)  # raises for distinct devices
         # fixed buffers: the state, the epoch's indices, the position, the metrics
         self.bufs = (
             clone_state(state),
@@ -270,12 +342,15 @@ class StepLoop:
         pos.add_(1)
 
     def _build_graph(self) -> None:
-        """Capture one step (:func:`capture_step`); the capture's mixed-op
-        launches are tallied, and counted on each replay."""
+        """Capture one step (:func:`capture_step`; on a mesh, on its leased
+        stream); the capture's mixed-op launches are tallied, and counted
+        on each replay."""
+        device = self.bufs[0].step.device
         self.graph, recorded, self.capture_s = capture_step(
             self._step, self.bufs,
             lambda b: (clone_state(b[0]), *(t.clone() for t in b[1:])),
-            self.bufs[0].step.device, recording=lambda _: mixed_op.recording_launches())
+            device, stream=mesh_capture_stream(self.mesh, device),
+            recording=mixed_op.recording_launches)
         self.launches_per_replay = recorded[0]
 
     def count_step(self) -> counter.StepCount:

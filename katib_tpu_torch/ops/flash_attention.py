@@ -24,7 +24,6 @@ delta term's aten calls are counted as they run.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import math
 import threading
@@ -32,6 +31,7 @@ import threading
 import torch
 
 from katib_tpu_torch.costmodel import counter
+from katib_tpu_torch.ops.launches import StreamTallies
 
 MASK_VALUE = -1e30
 HEAD_DIMS = (32, 64, 128)
@@ -46,10 +46,8 @@ dq_launches = 0
 dkv_launches = 0
 _lib = None
 _lock = threading.Lock()
-# capture stream handle -> the launches recorded into that stream's graph.
-# Keyed by stream, not by thread: a captured backward launches dq and dk/dv
-# from autograd's device thread, on the capturing stream
-_tallies: dict[int, dict[str, int]] = {}
+# the captures in progress: their tallies, by capturing stream
+_captures = StreamTallies(_lock, lambda: {"fwd": 0, "dq": 0, "dkv": 0})
 
 
 def count_launches(device: torch.device, fwd: int = 0, dq: int = 0, dkv: int = 0) -> None:
@@ -58,7 +56,7 @@ def count_launches(device: torch.device, fwd: int = 0, dq: int = 0, dkv: int = 0
     to that capture's tally instead."""
     global fwd_launches, dq_launches, dkv_launches
     with _lock:
-        tally = _tallies.get(torch.cuda.current_stream(device).cuda_stream) if _tallies else None
+        tally = _captures.find(device)
         if tally is not None:
             tally["fwd"] += fwd
             tally["dq"] += dq
@@ -69,18 +67,11 @@ def count_launches(device: torch.device, fwd: int = 0, dq: int = 0, dkv: int = 0
         dkv_launches += dkv
 
 
-@contextlib.contextmanager
 def recording_launches(stream: torch.cuda.Stream):
-    """Tally the launches captured on ``stream`` inside, without counting
-    them; yields the tally (``{"fwd": n, "dq": n, "dkv": n}``)."""
-    tally = {"fwd": 0, "dq": 0, "dkv": 0}
-    with _lock:
-        _tallies[stream.cuda_stream] = tally
-    try:
-        yield tally
-    finally:
-        with _lock:
-            del _tallies[stream.cuda_stream]
+    """Tally the launches captured on ``stream`` inside, by any thread,
+    without counting them (``ops/launches.py``); yields the tally
+    (``{"fwd": n, "dq": n, "dkv": n}``)."""
+    return _captures.recording(stream)
 
 
 def _block_sizes(seq_q: int, seq_k: int, block_q: int, block_k: int) -> tuple[int, int]:

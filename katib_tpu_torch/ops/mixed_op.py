@@ -34,6 +34,7 @@ import threading
 import torch
 
 from katib_tpu_torch.costmodel import counter
+from katib_tpu_torch.ops.launches import StreamTallies
 
 MAX_OPS = 16
 _VALID_MODES = ("auto", "pallas", "interpret", "lax")
@@ -46,25 +47,27 @@ launches = 0
 _lib = None
 _lib_lock = threading.Lock()  # replicas of a mesh may make the first call at once
 _count_lock = threading.Lock()
-# per thread: the tally of a graph capture in progress on that thread
-_recording = threading.local()
+# the captures in progress: one-element tallies, by capturing stream
+_captures = StreamTallies(_count_lock, lambda: [0])
+# per thread: the tally of :func:`tallying`
+_own = threading.local()
 
 
-def count_launches(n: int = 1) -> None:
-    """Add ``n`` launches to :data:`launches` (thread-safe).  A launch made
-    by a thread inside :func:`recording_launches` is recorded into that
-    thread's graph, not run, so it goes to the capture's tally instead.
-    Inside :func:`tallying` the thread's tally counts it too."""
+def count_launches(n: int = 1, device: torch.device | None = None) -> None:
+    """Add ``n`` launches made on ``device`` to :data:`launches`
+    (thread-safe).  A launch onto a stream that :func:`recording_launches`
+    records is captured, not run, so it goes to that capture's tally
+    instead.  Inside :func:`tallying` the thread's tally counts it too."""
     global launches
-    tally = getattr(_recording, "tally", None)
-    if tally is not None:
-        tally[0] += n
-        return
-    own = getattr(_recording, "own", None)
+    with _count_lock:
+        tally = _captures.find(device)
+        if tally is not None:
+            tally[0] += n
+            return
+        launches += n
+    own = getattr(_own, "tally", None)
     if own is not None:
         own[0] += n
-    with _count_lock:
-        launches += n
 
 
 @contextlib.contextmanager
@@ -72,27 +75,22 @@ def tallying():
     """Also tally, in the yielded one-element list, the launches this thread
     counts inside (a replica of a mesh run counts its own this way);
     :data:`launches` counts them as usual."""
-    prev = getattr(_recording, "own", None)
+    prev = getattr(_own, "tally", None)
     own = [0]
-    _recording.own = own
+    _own.tally = own
     try:
         yield own
     finally:
-        _recording.own = prev
+        _own.tally = prev
 
 
-@contextlib.contextmanager
-def recording_launches():
-    """Tally the launches this thread makes inside, without counting them:
-    for a CUDA graph capture, whose launches run only when it is replayed.
-    Yields a one-element list holding the tally.  Launches of other threads
+def recording_launches(stream: torch.cuda.Stream):
+    """Tally the launches made onto ``stream`` inside, by any thread,
+    without counting them: for a CUDA graph capture on ``stream``, whose
+    launches run only when it is replayed (``ops/launches.py``).  Yields a
+    one-element list holding the tally.  Launches onto other streams
     meanwhile count as usual."""
-    tally = [0]
-    _recording.tally = tally
-    try:
-        yield tally
-    finally:
-        _recording.tally = None
+    return _captures.recording(stream)
 
 
 def _mode() -> str:
@@ -189,7 +187,7 @@ def _launch(weights: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:
     if err != 0:
         reason = lib.katib_cuda_error_string(err).decode()
         raise RuntimeError(f"mixed_op kernel launch failed: {reason} ({err})")
-    count_launches()
+    count_launches(1, stacked.device)
     return out
 
 

@@ -41,11 +41,31 @@ class TrainState(NamedTuple):
         return cls(torch.zeros((), dtype=torch.int32, device=device), params, tx.init(params))
 
 
-def make_train_step(loss_fn: Callable[[dict, Any], torch.Tensor], tx) -> Callable:
+def make_train_step(loss_fn: Callable[[dict, Any], torch.Tensor], tx, mesh=None) -> Callable:
     """``step(state, batch) -> (state, {"loss": loss})`` for
     ``loss_fn(params, batch) -> scalar`` and an optimizer ``tx`` with
-    ``update(grads, opt_state, params) -> (params, opt_state)``; one device
-    of the JAX function (``katib_tpu/parallel/train.py:53``)."""
+    ``update(grads, opt_state, params) -> (params, opt_state)``
+    (``katib_tpu/parallel/train.py:53``).
+
+    With a ``mesh`` it is the data-parallel step of the JAX function under
+    its shardings: the parameters and the optimizer state live as one home
+    copy (a :func:`~katib_tpu_torch.parallel.mesh.replicate`-d state is
+    read from it), the batch lies on the mesh's data axis (plain tensors
+    are placed there), the parameters are broadcast to every replica, each
+    replica runs ``loss_fn`` on its chunk on its thread, and the loss is
+    the mean over the replicas on the home device (chunks are equal, so it
+    is the global batch's); autograd carries the gradient of that global
+    loss back through the broadcast, and the optimizer runs once, at home,
+    on the mesh's leased streams.  ``loss_fn`` must be safe to call from
+    the replicas' threads at once (``functional_call`` rebinds a module's
+    parameters: one module copy per replica)."""
+    if mesh is not None:
+        local_loss = loss_fn
+
+        def loss_fn(params: dict, batch) -> torch.Tensor:  # the global batch's
+            ps = collectives.broadcast(params, mesh)
+            return mesh.run(lambda r: collectives.replica_mean_to_home(
+                local_loss(ps[r], piece(batch, r))))[0]
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
         params = {k: v.detach().requires_grad_() for k, v in state.params.items()}
@@ -55,7 +75,14 @@ def make_train_step(loss_fn: Callable[[dict, Any], torch.Tensor], tx) -> Callabl
         new_params, opt_state = tx.update(grads, state.opt_state, state.params)
         return TrainState(state.step + 1, new_params, opt_state), {"loss": loss.detach()}
 
-    return step
+    if mesh is None:
+        return step
+
+    def sharded_step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        with mesh.on_streams():
+            return step(home_value(state), on_data_axis(batch, mesh))
+
+    return sharded_step
 
 
 def make_eval_step(metric_fn: Callable[[dict, Any], dict], mesh=None) -> Callable:
@@ -78,9 +105,8 @@ def make_eval_step(metric_fn: Callable[[dict, Any], dict], mesh=None) -> Callabl
         batch = on_data_axis(batch, mesh)
         with torch.no_grad(), mesh.on_streams():
             ps = collectives.broadcast(home_value(params), mesh)
-            outs = mesh.run(lambda r: metric_fn(ps[r], piece(batch, r)))
-            return {k: collectives.reduce_to_home([o[k] / mesh.size for o in outs], mesh)
-                    for k in outs[0]}
+            return mesh.run(lambda r: {k: collectives.replica_mean_to_home(v) for k, v in
+                                       metric_fn(ps[r], piece(batch, r)).items()})[0]
 
     return evaluate_sharded
 

@@ -109,22 +109,42 @@ def test_momentum_optimizer_matches_optax():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"mesh": object()}, "mesh"),
+    ({"mesh": {"data": 2}}, "mesh"),
     ({"init_transform": lambda p: p}, "init_transform"),
     ({"on_finish": lambda p: None}, "on_finish"),
 ])
 def test_unported_trainer_options_raise(jax_net, kwargs, match):
-    """``mesh`` is not ported and raises.  ``init_transform`` and
-    ``on_finish`` raised until ENAS weight sharing needed them; their cases
-    now check them as the JAX trainer runs them: a transform that loads the
-    converted weights into a fresh network trains as the converted network
-    does, and ``on_finish`` gets host copies of the final parameters once,
-    also when ``report`` stops the run after epoch 0."""
+    """``mesh``, ``init_transform`` and ``on_finish`` each raised until a
+    later slice ported it; each case now checks it as the JAX trainer runs
+    it.  ``mesh``: the data-parallel trainer on a ``{data: 2}`` mesh (the
+    genotype network's batch norms over the global batch) against the JAX
+    trainer on its ``{data: 2}`` mesh, from the same weights.  A transform
+    that loads the converted weights into a fresh network trains as the
+    converted network does, and ``on_finish`` gets host copies of the final
+    parameters once, also when ``report`` stops the run after epoch 0."""
     run = lambda net, **kw: train_classifier(net, _dataset(tdata), lr=0.1, epochs=2,
                                              batch_size=4, device="cpu", seed=3, **kw)
     if match == "mesh":
-        with pytest.raises(NotImplementedError, match=match):
-            run(_port_net(jax_net[1]), **kwargs)
+        from katib_tpu.parallel.mesh import make_mesh as j_make_mesh
+        from katib_tpu_torch.parallel.mesh import make_mesh
+
+        jnet, params = jax_net
+        want = []
+        want_acc = j_train_classifier(
+            jnet, _dataset(jdata), lr=0.1, epochs=2, batch_size=4, seed=3,
+            mesh=j_make_mesh(kwargs["mesh"], devices=jax.devices()[:2]),
+            init_transform=lambda p: jax.tree_util.tree_map(jnp.asarray, params),
+            report=lambda **kw: want.append(kw) or True)
+        got = []
+        acc = run(_port_net(params), mesh=make_mesh(kwargs["mesh"], devices=["cpu"] * 2),
+                  report=lambda **kw: got.append(kw) or True)
+        # float32, the same global-batch steps: 1e-4 relative on the loss,
+        # the same count of correct images
+        assert [r["epoch"] for r in got] == [r["epoch"] for r in want] == [0, 1]
+        for g, w in zip(got, want):
+            assert g["loss"] == pytest.approx(float(w["loss"]), rel=1e-4)
+            assert g["accuracy"] == pytest.approx(float(w["accuracy"]), abs=1e-6)
+        assert acc == pytest.approx(float(want_acc), abs=1e-6)
         return
     want = []
     want_acc = run(_port_net(jax_net[1]), report=lambda **kw: want.append(kw) or True)

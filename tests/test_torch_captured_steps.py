@@ -185,9 +185,10 @@ def test_the_captured_step_refuses_what_it_cannot_capture(jax_init):
     _, params = jax_init
     with pytest.raises(ValueError, match="CUDA device"):
         LMTrainStep(_port_model(params), lr=1e-3, steps=4, capture=True)
-    step = LMTrainStep(_port_model(params), lr=1e-3, steps=4,
-                       loss_fn=lambda tokens, deterministic, generator: None)
-    assert not step.capture  # a mesh's loss runs eagerly, as before
+    from katib_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"seq": 2}, devices=["cpu"] * 2)
+    assert not LMTrainStep(_port_model(params), lr=1e-3, steps=4, mesh=mesh).capture
     assert not LMTrainStep(_port_model(params), lr=1e-3, steps=4).capture  # the CPU
 
 

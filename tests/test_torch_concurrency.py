@@ -21,8 +21,36 @@ LAUNCHES_PER_STEP = 3
 
 
 class _FakeStream:
+    """A stream with a handle of its own; a thread's current stream is the
+    one its innermost ``torch.cuda.stream`` made current (a default one
+    before)."""
+
+    handles = iter(range(1, 1 << 30))
+
+    def __init__(self):
+        self.cuda_stream = next(self.handles)
+
     def wait_stream(self, other):
         pass
+
+
+_current = threading.local()
+
+
+def _current_stream(device=None):
+    if getattr(_current, "stream", None) is None:
+        _current.stream = _FakeStream()
+    return _current.stream
+
+
+@contextlib.contextmanager
+def _on_stream(stream):
+    prev = getattr(_current, "stream", None)
+    _current.stream = stream
+    try:
+        yield
+    finally:
+        _current.stream = prev
 
 
 def _stub_cuda(monkeypatch, on_capture):
@@ -31,9 +59,9 @@ def _stub_cuda(monkeypatch, on_capture):
     monkeypatch.setattr(step_loop, "_thread_streams", threading.local())
     monkeypatch.setattr(step_loop, "clone_state", lambda s: s)
     monkeypatch.setattr(torch.cuda, "Stream", lambda index: _FakeStream())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "current_stream", _current_stream)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "stream", _on_stream)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "CUDAGraph", object)
     monkeypatch.setattr(torch.cuda, "graph", on_capture)
@@ -43,7 +71,8 @@ def _loop():
     """A step loop whose step only launches the mixed-op kernel's count."""
     loop = object.__new__(step_loop.StepLoop)
     loop.bufs = (SimpleNamespace(step=torch.zeros((), dtype=torch.int64)),)
-    loop._step = lambda bufs: mixed_op.count_launches(LAUNCHES_PER_STEP)
+    loop.mesh = None
+    loop._step = lambda bufs: mixed_op.count_launches(LAUNCHES_PER_STEP, "cuda")
     return loop
 
 
@@ -58,7 +87,8 @@ def test_captures_on_one_device_take_turns_in_thread_local_mode(monkeypatch):
             active[0] += 1
             peak[0] = max(peak[0], active[0])
         time.sleep(0.05)
-        yield
+        with _on_stream(stream):
+            yield
         with guard:
             active[0] -= 1
 
@@ -78,26 +108,39 @@ def test_captures_on_one_device_take_turns_in_thread_local_mode(monkeypatch):
     assert len(step_loop._capture_locks) == 1
 
 
-def test_a_capture_tallies_only_its_own_threads_launches():
+def test_a_capture_tallies_only_its_own_threads_launches(monkeypatch):
+    """A capture tallies the launches made onto its stream, by its own
+    thread and by another thread on that stream (a replica of a mesh),
+    and counts none of them; another trial's launches onto another stream
+    meanwhile count as usual."""
+    monkeypatch.setattr(torch.cuda, "current_stream", _current_stream)
     entered, release = threading.Event(), threading.Event()
     tallies = []
+    side = _FakeStream()
 
     def capturing():
-        with mixed_op.recording_launches() as tally:
-            mixed_op.count_launches(2)
+        with _on_stream(side), mixed_op.recording_launches(side) as tally:
+            mixed_op.count_launches(2, "cuda")
             entered.set()
             release.wait(timeout=30)
-            mixed_op.count_launches(1)
+            mixed_op.count_launches(1, "cuda")
         tallies.append(tally[0])
+
+    def replica():
+        with _on_stream(side):
+            mixed_op.count_launches(4, "cuda")
 
     before = mixed_op.launches
     t = threading.Thread(target=capturing)
     t.start()
     assert entered.wait(timeout=30)
-    mixed_op.count_launches(5)  # another trial's eager launches, meanwhile
+    mixed_op.count_launches(5, "cuda")  # another trial's eager launches, meanwhile
+    r = threading.Thread(target=replica)
+    r.start()
+    r.join(timeout=30)
     release.set()
     t.join(timeout=30)
-    assert tallies == [3]
+    assert tallies == [7]
     assert mixed_op.launches - before == 5
 
 
@@ -122,6 +165,7 @@ def _classifier_loop(steps_run: list):
 
     loop = object.__new__(mnist.EpochLoop)
     loop.bufs = (mnist.TrainState(torch.zeros((), dtype=torch.int32), {}, {}),)
+    loop.mesh = None
     loop._step = lambda bufs: steps_run.append(bufs[0])
     return loop
 

@@ -192,9 +192,19 @@ def test_fused_needs_all_four_conv_primitives():
     assert op.fused is None and len(op.ops) == 3
 
 
-def test_the_shift_mac_form_raises_naming_the_mesh_path():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        FusedSepDil(C, 1, safe=True)
+@pytest.mark.parametrize("stride", [1, 2])
+def test_the_safe_form_is_the_same_plan(stride):
+    """``safe=True`` (the JAX setting for a mesh with a model axis) raised
+    until the fused plan ran on a mesh; the port's depthwise convolution has
+    one form, so it is the same plan: the same parameters, the same
+    outputs, bit for bit."""
+    plain = FusedSepDil(C, stride, dtype=torch.float32)
+    safe = FusedSepDil(C, stride, dtype=torch.float32, safe=True)
+    safe.load_state_dict(plain.state_dict())
+    x = torch.from_numpy(np.random.default_rng(stride).normal(size=(2, C, 8, 8)).astype(np.float32))
+    want, got = plain(x), safe(x)
+    assert set(got) == set(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 # -- the fused supernet ------------------------------------------------------

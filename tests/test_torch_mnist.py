@@ -227,7 +227,8 @@ def test_mnist_trial_declares_the_jax_twins_and_they_raise():
     """Both twins are declared as in the JAX package, and both run: the
     cohort twin in ``tests/test_torch_cohort.py``, the warm-up twin here on
     the CPU (its eager warm-up steps; nothing is captured, so no capture
-    seconds), declaring no kernel library; only a mesh raises."""
+    seconds), declaring no kernel library; only a cohort on a mesh (the
+    trial axis) raises."""
     from katib_tpu_torch.compile.prewarm import kernels_of, prewarm_fn_of
     from katib_tpu_torch.runner.cohort import cohort_fn_of
 
@@ -243,11 +244,23 @@ def test_mnist_trial_declares_the_jax_twins_and_they_raise():
         tmnist.mnist_prewarm({}, 2, mesh=object(), device="cpu")
 
 
-def test_mnist_trial_refuses_a_mesh():
+def test_mnist_trial_runs_on_a_mesh():
+    """``mnist_trial`` on ``ctx.mesh`` ``{data: 2}``: the data-parallel
+    trainer from the same seeded weights and batches as the unsharded
+    trial.  bf16: the global batch's gradient is summed in another order
+    (per replica, then across), so the losses agree to 2e-2 relative and
+    the accuracies to two of the 32 test images."""
+    from katib_tpu_torch.parallel.mesh import make_mesh
+
     ctx = _trial_ctx()
-    ctx.mesh = object()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tmnist.mnist_trial(ctx)
+    ctx.mesh = make_mesh({"data": 2}, devices=["cpu"] * 2)
+    tmnist.mnist_trial(ctx)
+    plain = _trial_ctx()
+    tmnist.mnist_trial(plain)
+    assert [step for step, _ in ctx.reports] == [step for step, _ in plain.reports] == [0, 1]
+    for (_, got), (_, want) in zip(ctx.reports, plain.reports):
+        assert got["loss"] == pytest.approx(want["loss"], rel=2e-2)
+        assert abs(got["accuracy"] - want["accuracy"]) <= 2 / 32 + 1e-9
 
 
 @pytest.fixture

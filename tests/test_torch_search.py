@@ -199,18 +199,30 @@ def test_unported_settings_raise(tmp_path, setting):
         assert json.load(f)["fused"] is True
 
 
-def test_trial_mesh_raises(tmp_path):
-    """A trial mesh runs the sharded search (``test_torch_sharded_search.py``
-    holds it to the JAX package's); only what the mesh path lacks raises."""
+def test_trial_mesh_raises(tmp_path, monkeypatch):
+    """A trial mesh runs the sharded search with the JAX package's defaults
+    (the step loop and remat on; ``test_torch_mesh_trial.py`` holds it to
+    the JAX package's), an explicit step loop too; only a capture over
+    distinct devices raises, naming ROADMAP item 9b, and the default steps
+    eagerly there."""
+    from katib_tpu_torch.nas.darts.search import check_mesh_settings
     from katib_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh({"data": 2}, devices=["cpu"] * 2)
-    ctx = _ctx(tmp_path, SMALL, mesh=mesh)
-    darts_trial(ctx)
-    assert [step for step, _ in ctx.reports] == [0, 1]
-    assert all(np.isfinite(m["loss"]) for _, m in ctx.reports)
+    for name, settings in (("default", SMALL), ("loop", {**SMALL, "step_loop": "true"})):
+        ctx = _ctx(tmp_path / name, {k: v for k, v in settings.items() if k != "remat"},
+                   mesh=mesh)
+        darts_trial(ctx)
+        assert [step for step, _ in ctx.reports] == [0, 1]
+        assert all(np.isfinite(m["loss"]) for _, m in ctx.reports)
+    distinct = make_mesh({"data": 2}, devices=["cuda:0", "cpu"])
+    assert check_mesh_settings(distinct, None) is False
+    assert check_mesh_settings(mesh, True) is True
+    with pytest.raises(NotImplementedError, match="distinct devices.*9b"):
+        check_mesh_settings(distinct, True)
+    monkeypatch.setenv("KATIB_STEP_LOOP", "1")
     with pytest.raises(NotImplementedError, match="9b"):
-        darts_trial(_ctx(tmp_path / "loop", {**SMALL, "step_loop": "true"}, mesh=mesh))
+        check_mesh_settings(distinct, None)
 
 
 @pytest.mark.parametrize("spec", ["darts.yaml", "darts-paper-protocol.yaml"])

@@ -11,7 +11,10 @@
 - The search epoch loop on ``{data: 2}`` against the JAX loop on its mesh,
   and ``darts_trial`` on ``ctx.mesh`` against the JAX trial on its mesh and
   against the port's unsharded trial, all in float32.
-- What the mesh path does not have raises, naming ROADMAP item 9b.
+
+The step loop, remat and the fused plan on a mesh, which raised here until
+they were ported, are held to the JAX package in
+``test_torch_mesh_trial.py``.
 """
 
 from __future__ import annotations
@@ -357,20 +360,3 @@ def test_darts_trial_on_a_mesh_matches_the_unsharded_trial(tmp_path, port_from_j
     again = _ctx(tmp_path, "sharded", TRIAL, mesh=mesh)
     darts_trial(again)
     assert again.reports == []
-
-
-@pytest.mark.parametrize("setting, match", [({"step_loop": "true"}, "capture the sharded step"),
-                                            ({"remat": "true"}, "remat on a mesh"),
-                                            ({"fused": "true"}, "fused")])
-def test_unported_mesh_settings_raise_naming_9b(tmp_path, setting, match):
-    mesh = tmesh.make_mesh({"data": 2}, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match=match) as info:
-        darts_trial(_ctx(tmp_path, "t", {**SMALL, **setting}, mesh=mesh))
-    assert "9b" in str(info.value)
-
-
-def test_an_explicit_step_loop_from_the_environment_raises_on_a_mesh(tmp_path, monkeypatch):
-    monkeypatch.setenv("KATIB_STEP_LOOP", "1")
-    mesh = tmesh.make_mesh({"data": 2}, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="9b"):
-        darts_trial(_ctx(tmp_path, "t", SMALL, mesh=mesh))
